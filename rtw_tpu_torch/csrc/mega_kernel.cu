@@ -1,0 +1,642 @@
+// Whole-bounce megakernel for Hopper (sm_90a): one regenerating-wavefront
+// iteration per launch, one thread per lane.
+//
+// Replaces rtw_tpu/ops/mega_kernel.py::_mega_body (launched by the
+// pallas_call of _make_mega.run), with the straight-line nearest-hit sweep
+// rtw_tpu/ops/trace_kernel.py::_nearest_hit and any-hit sweep ::_occl_sweep
+// inlined, as there.  Per lane: path hash, thin-lens regeneration of a
+// finished lane, the fast-RNG bounce uniforms, nearest hit, checker albedo,
+// rtw_tpu/ops/bounce.py::bounce_core (lambertian, metal, dielectric,
+// isotropic, diffuse light, normal; single-light NEE + power-heuristic MIS
+// with an early-exit shadow test), Russian roulette, NaN scrub and sample
+// accumulation.  The plain torch twin is
+// rtw_tpu_torch/ops/mega_kernel.py::mega_step_plain; every float operation
+// here follows its order term by term, and the library is built with
+// -fmad=false, so the two round alike apart from libm (cbrtf here, powf
+// there; sinf/cosf/sqrtf as torch's CUDA kernels call them).
+//
+// What bounds it on this card: not memory.  A lane reads 88 B of carry
+// (17 f32 + 5 i32 rows) and writes 88 B plus its share of one ray-count
+// atomic per warp, about 180 B per lane per iteration; at 640k lanes that is
+// ~115 MB, ~35 us at 3.35 TB/s.  The cost is the arithmetic of the sweeps
+// (8 Cornell prims, twice with the shadow ray) and the shading, executed
+// under register pressure and divergence: the lanes of a warp take
+// different material branches, miss or hit, and regenerate at different
+// iterations, so a warp runs the union of its lanes' branches.
+//
+// What the design does about it: the scene's props table (Cornell: 40 x 49
+// floats, 7.8 KB) and chunk plan sit in shared memory, read as warp-wide
+// broadcasts; the sweep keeps only (best t, best index) live and reads the
+// winner's props row once after the loop (the TPU's masked-accumulate and
+// one-hot-matmul winner fetch exist only because Mosaic has no per-lane
+// gather); the any-hit test returns at its first hit; dead lanes skip the
+// bounce; the material branches are real branches, not the TPU's
+// evaluate-all-and-select.  Carry rows keep the reference's [rows, N]
+// layout, so each row access is coalesced.  Persistent blocks, sorting
+// lanes by material and wgmma/TMA are left for later work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBlock = 128;
+
+// carry layout (rtw_tpu_torch/ops/mega_kernel.py)
+constexpr int F_ORG = 0, F_DIR = 3, F_THR = 6, F_RAD = 9, F_ACC = 12,
+              F_TIME = 15, F_PPDF = 16;
+constexpr int I_ALIVE = 0, I_PREVD = 1, I_DEPTH = 2, I_SAMPLE = 3,
+              I_PIXEL = 4;
+
+// float parameter layout
+constexpr int PF = 40;
+constexpr int PF_CAM_ORG = 0, PF_LL = 3, PF_HOR = 6, PF_VERT = 9, PF_CU = 12,
+              PF_CV = 15, PF_LENS = 18, PF_T0 = 19, PF_T1 = 20, PF_SKY = 21,
+              PF_LPOS = 22, PF_LU = 25, PF_LV = 28, PF_LEMIT = 31,
+              PF_LAREA = 34, PF_LNRM = 35;
+
+// props columns (rtw_tpu_torch/ops/trace_kernel.py)
+constexpr int C_MAT = 9, C_FUZZ = 10, C_ETA = 11, C_TEXT = 12, C_RGB = 15,
+              C_ODD = 18, C_EVEN = 21, C_W2O = 25, C_O2W = 37;
+constexpr int PLAN_COLS = 7;   // start, count, size, ptype, axis, xform, block
+
+constexpr int PRIM_SPHERE = 0, PRIM_RECT = 1, PRIM_BOX = 5;
+constexpr int MAT_LAMBERTIAN = 0, MAT_METAL = 1, MAT_DIELECTRIC = 2,
+              MAT_DIFFUSE_LIGHT = 3, MAT_ISOTROPIC = 4, MAT_NORMAL = 5;
+constexpr int TEX_CHECKER = 1;
+constexpr int U_SCATTER_0 = 0, U_SCATTER_1 = 1, U_SCATTER_2 = 2,
+              U_DIELECTRIC = 3, U_LIGHT_A = 5, U_LIGHT_B = 6, U_RR = 7;
+
+constexpr float BIG = 1e30f;
+constexpr float PI_F = 3.1415927410125732f;        // float32(pi)
+constexpr float TWO_PI_F = 6.2831854820251465f;    // 2 * float32(pi)
+constexpr float INV_PI_F = 0.31830987334251404f;   // float32(1/pi)
+constexpr uint32_t GOLDEN = 0x9E3779B9u;
+constexpr uint32_t CAM_OFF = 0xF53EA684u;          // 0x0CA4 * GOLDEN mod 2^32
+
+}  // namespace
+
+// The kernel's by-value parameters; mirrors _CParams in
+// rtw_tpu_torch/ops/mega_kernel.py (all members 4 bytes, no padding).
+struct MegaParams {
+  float f[PF];
+  float inv_nx, inv_ny, tmin, tmax, shadow_eps;
+  uint32_t h0;
+  int s_end, nx, ny, rr_start, max_depth;
+  int n_entries, n_props, kdim;
+  int num_lights, mat_present, checker, mis_bsdf_weight;
+};
+
+namespace {
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 operator+(V3 a, V3 b) {
+  return {a.x + b.x, a.y + b.y, a.z + b.z};
+}
+__device__ __forceinline__ V3 operator-(V3 a, V3 b) {
+  return {a.x - b.x, a.y - b.y, a.z - b.z};
+}
+__device__ __forceinline__ V3 operator-(V3 a) { return {-a.x, -a.y, -a.z}; }
+__device__ __forceinline__ V3 operator*(V3 a, V3 b) {
+  return {a.x * b.x, a.y * b.y, a.z * b.z};
+}
+__device__ __forceinline__ V3 operator*(V3 a, float s) {
+  return {a.x * s, a.y * s, a.z * s};
+}
+__device__ __forceinline__ float dot(V3 a, V3 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
+          a.x * b.y - a.y * b.x};
+}
+__device__ __forceinline__ float length(V3 a) {
+  return sqrtf(fmaxf(dot(a, a), 1e-30f));
+}
+__device__ __forceinline__ V3 normalized(V3 a) {
+  return a * (1.0f / length(a));
+}
+__device__ __forceinline__ float max_component(V3 a) {
+  return fmaxf(a.x, fmaxf(a.y, a.z));
+}
+__device__ __forceinline__ float comp(V3 a, int ax) {
+  return ax == 0 ? a.x : (ax == 1 ? a.y : a.z);
+}
+__device__ __forceinline__ V3 load3(const float* p) { return {p[0], p[1], p[2]}; }
+__device__ __forceinline__ float safe_sqrt(float x) {
+  return sqrtf(fmaxf(x, 1e-20f));
+}
+__device__ __forceinline__ V3 reflect(V3 d, V3 n) {
+  return d - n * (2.0f * dot(d, n));
+}
+// m: a row-major 3x4 affine
+__device__ __forceinline__ V3 affine_point(const float* m, V3 p) {
+  return {m[0] * p.x + m[1] * p.y + m[2] * p.z + m[3],
+          m[4] * p.x + m[5] * p.y + m[6] * p.z + m[7],
+          m[8] * p.x + m[9] * p.y + m[10] * p.z + m[11]};
+}
+__device__ __forceinline__ V3 affine_vec(const float* m, V3 v) {
+  return {m[0] * v.x + m[1] * v.y + m[2] * v.z,
+          m[4] * v.x + m[5] * v.y + m[6] * v.z,
+          m[8] * v.x + m[9] * v.y + m[10] * v.z};
+}
+__device__ __forceinline__ float power_heuristic(float a, float b) {
+  float t = a * a;
+  return t / fmaxf(t + b * b, 1e-20f);
+}
+__device__ __forceinline__ float signf(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+}
+__device__ __forceinline__ V3 offset_point(V3 point, V3 normal, V3 out_dir) {
+  float scale = 1e-4f * fmaxf(1.0f, max_component(
+      {fabsf(point.x), fabsf(point.y), fabsf(point.z)}));
+  float side = signf(dot(normal, out_dir));
+  return point + normal * (scale * side);
+}
+
+// ---- fast RNG (rtw_tpu/utils/rng.py pcg_hash streams), native uint32 ----
+__device__ __forceinline__ uint32_t pcg(uint32_t x) {
+  uint32_t state = x * 747796405u + 2891336453u;
+  uint32_t word = ((state >> ((state >> 28u) + 4u)) ^ state) * 277803737u;
+  return (word >> 22u) ^ word;
+}
+__device__ __forceinline__ float to_unit(uint32_t bits) {
+  return (float)(bits >> 8u) * (1.0f / 16777216.0f);
+}
+__device__ __forceinline__ float slot_u(uint32_t h, int slot) {
+  return to_unit(pcg(pcg(h + (uint32_t)(slot + 1))));
+}
+
+// ---- sampling --------------------------------------------------------------
+__device__ __forceinline__ V3 sphere_surface(float u1, float u2) {
+  float z = 1.0f - 2.0f * u1;
+  float r = safe_sqrt(1.0f - z * z);
+  float phi = TWO_PI_F * u2;
+  return {r * cosf(phi), r * sinf(phi), z};
+}
+
+// ---- primitive tests (rtw_tpu/ops/intersect.py) ---------------------------
+__device__ __forceinline__ bool in_window(float t, float tmin, float tmax) {
+  return t > tmin && t < tmax;
+}
+
+__device__ float sphere_t(const float* pr, V3 o, V3 d, float tmin,
+                          float tmax) {
+  V3 oc = o - load3(pr);
+  float a = dot(d, d);
+  float b = dot(oc, d);
+  float c = dot(oc, oc) - pr[3] * pr[3];
+  float disc = b * b - a * c;
+  if (!(disc >= 0.0f)) return BIG;
+  float sq = safe_sqrt(disc);
+  float inv_a = 1.0f / a;
+  float t1 = (-b - sq) * inv_a;
+  float t2 = (-b + sq) * inv_a;
+  return in_window(t1, tmin, tmax) ? t1
+                                   : (in_window(t2, tmin, tmax) ? t2 : BIG);
+}
+
+__device__ float rect_t(const float* pr, int axis, V3 o, V3 d, float tmin,
+                        float tmax) {
+  int ia = axis == 0 ? 1 : 0;
+  int ib = axis == 2 ? 1 : 2;
+  float dk = comp(d, axis);
+  float t = (pr[4] - comp(o, axis)) / (dk == 0.0f ? 1e-30f : dk);
+  float pa = comp(o, ia) + t * comp(d, ia);
+  float pb = comp(o, ib) + t * comp(d, ib);
+  bool inside = pa >= pr[0] && pa <= pr[1] && pb >= pr[2] && pb <= pr[3];
+  return inside && in_window(t, tmin, tmax) ? t : BIG;
+}
+
+__device__ float box_t(const float* pr, V3 o, V3 d, float tmin, float tmax) {
+  float near = -BIG, far = BIG;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    float dk = comp(d, ax);
+    float inv = 1.0f / (dk == 0.0f ? 1e-30f : dk);
+    float t0 = (pr[ax] - comp(o, ax)) * inv;
+    float t1 = (pr[3 + ax] - comp(o, ax)) * inv;
+    near = fmaxf(near, fminf(t0, t1));
+    far = fminf(far, fmaxf(t0, t1));
+  }
+  if (!(near <= far)) return BIG;
+  return in_window(near, tmin, tmax) ? near
+                                     : (in_window(far, tmin, tmax) ? far : BIG);
+}
+
+__device__ __forceinline__ float prim_t(const float* pr, int ptype, int axis,
+                                        bool xform, V3 o, V3 d, float tmin,
+                                        float tmax) {
+  if (xform) {
+    o = affine_point(pr + C_W2O, o);
+    d = affine_vec(pr + C_W2O, d);
+  }
+  if (ptype == PRIM_SPHERE) return sphere_t(pr, o, d, tmin, tmax);
+  if (ptype == PRIM_RECT) return rect_t(pr, axis, o, d, tmin, tmax);
+  return box_t(pr, o, d, tmin, tmax);
+}
+
+// Nearest hit over every real (unpadded) prim: strict < in row order, so
+// the lowest index wins a tie, as the reference's argmin + strict merge.
+__device__ int nearest_hit(const float* props, const int* plan,
+                           const MegaParams& p, V3 o, V3 d, float* best_t) {
+  float bt = BIG;
+  int bi = -1;
+  for (int e = 0; e < p.n_entries; ++e) {
+    const int* en = plan + e * PLAN_COLS;
+    int start = en[0], count = en[1], ptype = en[3], axis = en[4];
+    bool xform = en[5] != 0;
+    for (int r = start; r < start + count; ++r) {
+      float t = prim_t(props + r * p.kdim, ptype, axis, xform, o, d, p.tmin,
+                       p.tmax);
+      if (t < bt) {
+        bt = t;
+        bi = r;
+      }
+    }
+  }
+  *best_t = bt;
+  return bi;
+}
+
+// Any hit in (tmin, tmax): returns at the first one.
+__device__ bool occluded(const float* props, const int* plan,
+                         const MegaParams& p, V3 o, V3 d, float tmin,
+                         float tmax) {
+  for (int e = 0; e < p.n_entries; ++e) {
+    const int* en = plan + e * PLAN_COLS;
+    int start = en[0], count = en[1], ptype = en[3], axis = en[4];
+    bool xform = en[5] != 0;
+    for (int r = start; r < start + count; ++r) {
+      if (prim_t(props + r * p.kdim, ptype, axis, xform, o, d, tmin, tmax) <
+          BIG)
+        return true;
+    }
+  }
+  return false;
+}
+
+// Winner payload (intersect._payload / _box_payload): world point and unit
+// normal of prim `bi` at t.
+__device__ void payload(const float* props, const int* plan,
+                        const MegaParams& p, int bi, float t, V3 o, V3 d,
+                        V3* point_out, V3* normal_out) {
+  const float* pr = props + bi * p.kdim;
+  int ptype = 0, axis = 0;
+  bool xform = false;
+  for (int e = 0; e < p.n_entries; ++e) {
+    const int* en = plan + e * PLAN_COLS;
+    if (bi >= en[0] && bi < en[0] + en[2]) {
+      ptype = en[3];
+      axis = en[4];
+      xform = en[5] != 0;
+    }
+  }
+  if (xform) {
+    o = affine_point(pr + C_W2O, o);
+    d = affine_vec(pr + C_W2O, d);
+  }
+  V3 point = o + d * t;
+  V3 normal;
+  if (ptype == PRIM_SPHERE) {
+    float r_safe = fabsf(pr[3]) > 1e-20f ? pr[3] : 1.0f;
+    normal = (point - load3(pr)) * (1.0f / r_safe);
+  } else if (ptype == PRIM_RECT) {
+    float sign = pr[6] > 0.5f ? -1.0f : 1.0f;
+    normal = {axis == 0 ? sign : 0.0f, axis == 1 ? sign : 0.0f,
+              axis == 2 ? sign : 0.0f};
+  } else {
+    float tns[3], tfs[3];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      float dk = comp(d, ax);
+      float inv = 1.0f / (dk == 0.0f ? 1e-30f : dk);
+      float t0 = (pr[ax] - comp(o, ax)) * inv;
+      float t1 = (pr[3 + ax] - comp(o, ax)) * inv;
+      tns[ax] = fminf(t0, t1);
+      tfs[ax] = fmaxf(t0, t1);
+    }
+    float near = fmaxf(fmaxf(tns[0], tns[1]), tns[2]);
+    bool entry = near > p.tmin;
+    bool sel[3];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      bool is_near =
+          tns[ax] >= fmaxf(tns[(ax + 1) % 3], tns[(ax + 2) % 3]);
+      bool is_far = tfs[ax] <= fminf(tfs[(ax + 1) % 3], tfs[(ax + 2) % 3]);
+      sel[ax] = (entry && is_near) || (!entry && is_far);
+    }
+    sel[1] = sel[1] && !sel[0];
+    sel[2] = sel[2] && !sel[0] && !sel[1];
+    float n3[3];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      float d_sign = comp(d, ax) >= 0.0f ? 1.0f : -1.0f;
+      float n_sign = entry ? -d_sign : d_sign;
+      n3[ax] = sel[ax] ? n_sign : 0.0f;
+    }
+    normal = {n3[0], n3[1], n3[2]};
+  }
+  if (xform) {
+    point = affine_point(pr + C_O2W, point);
+    const float* w = pr + C_W2O;   // normals transform with (W2O)^T
+    normal = {w[0] * normal.x + w[4] * normal.y + w[8] * normal.z,
+              w[1] * normal.x + w[5] * normal.y + w[9] * normal.z,
+              w[2] * normal.x + w[6] * normal.y + w[10] * normal.z};
+  }
+  *point_out = point;
+  *normal_out = normalized(normal);
+}
+
+__device__ __forceinline__ float scrub(float x) {
+  return (x == x && fabsf(x) < 3.0e37f) ? x : 0.0f;
+}
+
+// One wavefront iteration of lane i; returns the rays it traced.
+__device__ unsigned lane_step(int i, int n, const float* __restrict__ sf,
+                              const int* __restrict__ si, const float* props,
+                              const int* plan, float* __restrict__ osf,
+                              int* __restrict__ osi, const MegaParams& p) {
+  const float* f = p.f;
+  V3 org = {sf[(F_ORG + 0) * n + i], sf[(F_ORG + 1) * n + i],
+            sf[(F_ORG + 2) * n + i]};
+  V3 dir = {sf[(F_DIR + 0) * n + i], sf[(F_DIR + 1) * n + i],
+            sf[(F_DIR + 2) * n + i]};
+  V3 thr = {sf[(F_THR + 0) * n + i], sf[(F_THR + 1) * n + i],
+            sf[(F_THR + 2) * n + i]};
+  V3 rad = {sf[(F_RAD + 0) * n + i], sf[(F_RAD + 1) * n + i],
+            sf[(F_RAD + 2) * n + i]};
+  V3 acc = {sf[(F_ACC + 0) * n + i], sf[(F_ACC + 1) * n + i],
+            sf[(F_ACC + 2) * n + i]};
+  float time = sf[F_TIME * n + i];
+  float prev_pdf = sf[F_PPDF * n + i];
+  bool alive = si[I_ALIVE * n + i] > 0;
+  bool prevd = si[I_PREVD * n + i] > 0;
+  int depth = si[I_DEPTH * n + i];
+  int sample = si[I_SAMPLE * n + i];
+  int pixel = si[I_PIXEL * n + i];
+
+  uint32_t pk = pcg(pcg(p.h0 + (uint32_t)sample) + (uint32_t)pixel);
+  unsigned rays = 0;
+
+  // ---- regeneration: thin-lens camera ray for the lane's next sample ----
+  if (!alive && sample < p.s_end) {
+    uint32_t hc = pcg(pk + CAM_OFF);
+    float cu0 = slot_u(hc, 0), cu1 = slot_u(hc, 1), cu2 = slot_u(hc, 2),
+          cu3 = slot_u(hc, 3), cu4 = slot_u(hc, 4);
+    float s_img = ((float)(pixel % p.nx) + cu0) * p.inv_nx;
+    float t_img = ((float)(pixel / p.nx) + cu1) * p.inv_ny;
+    float a = cu2 * 2.0f * PI_F;
+    float r = safe_sqrt(cu3);
+    float rdx = sinf(a) * r, rdy = cosf(a) * r;
+    float lens = f[PF_LENS];
+    org = load3(f + PF_CAM_ORG) + load3(f + PF_CU) * (lens * rdx) +
+          load3(f + PF_CV) * (lens * rdy);
+    dir = load3(f + PF_LL) + load3(f + PF_HOR) * s_img +
+          load3(f + PF_VERT) * t_img - org;
+    time = f[PF_T0] + cu4 * (f[PF_T1] - f[PF_T0]);
+    thr = {1.0f, 1.0f, 1.0f};
+    rad = {0.0f, 0.0f, 0.0f};
+    prev_pdf = 1.0f;
+    prevd = false;
+    depth = 0;
+    alive = true;
+  }
+
+  bool still = false;
+  if (alive) {
+    rays = 1;
+    uint32_t hb = pcg(pk + (uint32_t)(depth + 1) * GOLDEN);
+    float best_t;
+    int bi = nearest_hit(props, plan, p, org, dir, &best_t);
+    bool hit = bi >= 0;
+    V3 du = normalized(dir);
+
+    if (!hit) {
+      // sky gradient, gated by the scene's sky flag
+      float sky_t = 0.5f * (du.y + 1.0f);
+      float g = f[PF_SKY];
+      V3 sky = {(1.0f - 0.5f * sky_t) * g, (1.0f - 0.3f * sky_t) * g,
+                1.0f * g};
+      rad = rad + thr * sky;
+    } else {
+      V3 point, nrm;
+      payload(props, plan, p, bi, best_t, org, dir, &point, &nrm);
+      const float* pr = props + bi * p.kdim;
+      int mat = (int)pr[C_MAT];
+      V3 albedo = load3(pr + C_RGB);
+      if (p.checker && (int)pr[C_TEXT] == TEX_CHECKER) {
+        float sines = sinf(10.0f * point.x) * sinf(10.0f * point.y) *
+                      sinf(10.0f * point.z);
+        albedo = sines < 0.0f ? load3(pr + C_ODD) : load3(pr + C_EVEN);
+      }
+      int mp = p.mat_present;
+      bool is_lamb = (mp >> MAT_LAMBERTIAN & 1) && mat == MAT_LAMBERTIAN;
+      bool is_iso = (mp >> MAT_ISOTROPIC & 1) && mat == MAT_ISOTROPIC;
+
+      V3 scatter = du;
+      V3 att = albedo;
+      bool cancel = false, terminate = false;
+      float lamb_pdf = 1.0f;
+
+      if (is_lamb) {
+        V3 w = normalized(nrm);
+        bool big_x = fabsf(w.x) > 0.9f;
+        V3 av = {big_x ? 0.0f : 1.0f, big_x ? 1.0f : 0.0f, 0.0f};
+        V3 v = normalized(cross(w, av));
+        V3 u = cross(w, v);
+        float u1 = slot_u(hb, U_SCATTER_0), u2 = slot_u(hb, U_SCATTER_1);
+        float phi = TWO_PI_F * u1;
+        float sr2 = safe_sqrt(u2);
+        V3 local = {cosf(phi) * sr2, sinf(phi) * sr2, safe_sqrt(1.0f - u2)};
+        V3 ldir = normalized(u * local.x + v * local.y + w * local.z);
+        lamb_pdf = local.z * INV_PI_F;
+        float scatter_pdf = dot(nrm, ldir) * INV_PI_F;
+        cancel = lamb_pdf <= 0.0f || scatter_pdf <= 0.0f;
+        scatter = ldir;
+      } else if ((mp >> MAT_METAL & 1) && mat == MAT_METAL) {
+        V3 refl = reflect(du, nrm);
+        V3 ball = sphere_surface(slot_u(hb, U_SCATTER_0),
+                                 slot_u(hb, U_SCATTER_1)) *
+                  cbrtf(fmaxf(slot_u(hb, U_SCATTER_2), 1e-30f));
+        V3 mdir = normalized(refl + ball * pr[C_FUZZ]);
+        cancel = dot(mdir, nrm) <= 0.0f;
+        scatter = mdir;
+      } else if ((mp >> MAT_DIELECTRIC & 1) && mat == MAT_DIELECTRIC) {
+        float eta = pr[C_ETA];
+        bool outside = dot(du, nrm) < 0.0f;
+        V3 ln = outside ? nrm : -nrm;
+        float eta_i = outside ? 1.0f : eta;
+        float eta_t = outside ? eta : 1.0f;
+        float ratio = eta_i / eta_t;
+        float cos_i = fminf(dot(-du, ln), 1.0f);
+        float sin_i = safe_sqrt(1.0f - cos_i * cos_i);
+        bool tir = ratio * sin_i > 1.0f;
+        float r0 = (eta_i - eta_t) / (eta_i + eta_t);
+        r0 = r0 * r0;
+        float m = fminf(fmaxf(1.0f - cos_i, 0.0f), 1.0f);
+        float m2 = m * m;
+        float reflect_prob = r0 + (1.0f - r0) * (m * (m2 * m2));
+        bool do_reflect = tir || slot_u(hb, U_DIELECTRIC) < reflect_prob;
+        if (do_reflect) {
+          scatter = reflect(du, ln);
+        } else {
+          float sin_t = fminf(ratio * sin_i, 1.0f);
+          float cos_t = safe_sqrt(1.0f - sin_t * sin_t);
+          scatter = (du + ln * cos_i) * ratio - ln * cos_t;
+        }
+        att = {1.0f, 1.0f, 1.0f};
+      } else if (is_iso) {
+        scatter = sphere_surface(slot_u(hb, U_SCATTER_0),
+                                 slot_u(hb, U_SCATTER_1));
+      } else if ((mp >> MAT_DIFFUSE_LIGHT & 1) && mat == MAT_DIFFUSE_LIGHT) {
+        bool facing = dot(nrm, du) < 0.0f;
+        V3 emitted = facing ? albedo : V3{0.0f, 0.0f, 0.0f};
+        float w_bsdf = 1.0f;
+        if (p.mis_bsdf_weight && p.num_lights > 0 && prevd) {
+          // one-sided solid-angle pdf of NEE sampling this direction
+          V3 dv = point - org;
+          float dist2 = dot(dv, dv);
+          float cos_t2 = -dot(du, load3(f + PF_LNRM));
+          float lp = cos_t2 > 1e-6f ? dist2 / (f[PF_LAREA] * cos_t2) : 0.0f;
+          w_bsdf = power_heuristic(prev_pdf, lp);
+        }
+        rad = rad + thr * emitted * w_bsdf;
+        att = {0.0f, 0.0f, 0.0f};
+        terminate = true;
+      } else if ((mp >> MAT_NORMAL & 1) && mat == MAT_NORMAL) {
+        rad = rad + thr * (nrm * 0.5f + V3{0.5f, 0.5f, 0.5f});
+        att = {0.0f, 0.0f, 0.0f};
+        terminate = true;
+      }
+      terminate = terminate || cancel;
+
+      // ---- next-event estimation toward the scene's one light -----------
+      if (p.num_lights > 0 && is_lamb && !cancel) {
+        V3 lpos = load3(f + PF_LPOS) +
+                  load3(f + PF_LU) * slot_u(hb, U_LIGHT_A) +
+                  load3(f + PF_LV) * slot_u(hb, U_LIGHT_B);
+        V3 ldir = lpos - point;
+        float ldist = length(ldir);
+        V3 ldir_u = ldir * (1.0f / fmaxf(ldist, 1e-12f));
+        float costa = dot(-ldir_u, load3(f + PF_LNRM));
+        float bsdf_pdf = fmaxf(dot(ldir_u, nrm), 0.0f) * INV_PI_F;
+        if (ldist > 1e-6f && costa > 1e-6f && bsdf_pdf > 0.0f) {
+          rays += 1;
+          float l_pdf = ldist * ldist /
+                        ((float)p.num_lights * f[PF_LAREA] * costa);
+          V3 shadow_org = offset_point(point, nrm, ldir_u);
+          bool shadowed = occluded(props, plan, p, shadow_org, ldir_u,
+                                   p.shadow_eps, ldist * 0.999f);
+          float w_nee = power_heuristic(l_pdf, bsdf_pdf);
+          float nee_s =
+              w_nee * fmaxf(dot(ldir_u, nrm), 0.0f) * INV_PI_F / l_pdf;
+          V3 nee = albedo * load3(f + PF_LEMIT) * nee_s;
+          if (!shadowed) rad = rad + thr * nee;
+        }
+      }
+
+      // ---- advance and Russian roulette ----------------------------------
+      bool new_alive = !terminate;
+      org = is_iso ? point : offset_point(point, nrm, scatter);
+      if (new_alive) {
+        dir = scatter;
+        thr = thr * att;
+        float p_cont = max_component(thr);
+        bool rr_on = depth >= p.rr_start;
+        bool kill = slot_u(hb, U_RR) > p_cont;
+        still = !(rr_on && kill);
+        if (rr_on && !kill) thr = thr * (1.0f / fmaxf(p_cont, 1e-12f));
+        if (is_lamb) prev_pdf = lamb_pdf;
+      }
+      prevd = new_alive ? is_lamb : prevd;
+    }
+
+    // ---- finish: accumulate the completed sample ------------------------
+    depth += 1;
+    bool finished = !still || depth >= p.max_depth;
+    if (finished) {
+      acc = acc + V3{scrub(rad.x), scrub(rad.y), scrub(rad.z)};
+      sample += 1;
+    }
+    still = still && !finished;
+  } else {
+    depth += 1;   // a dead lane's iteration changes only its depth
+  }
+
+  osf[(F_ORG + 0) * n + i] = org.x;
+  osf[(F_ORG + 1) * n + i] = org.y;
+  osf[(F_ORG + 2) * n + i] = org.z;
+  osf[(F_DIR + 0) * n + i] = dir.x;
+  osf[(F_DIR + 1) * n + i] = dir.y;
+  osf[(F_DIR + 2) * n + i] = dir.z;
+  osf[(F_THR + 0) * n + i] = thr.x;
+  osf[(F_THR + 1) * n + i] = thr.y;
+  osf[(F_THR + 2) * n + i] = thr.z;
+  osf[(F_RAD + 0) * n + i] = rad.x;
+  osf[(F_RAD + 1) * n + i] = rad.y;
+  osf[(F_RAD + 2) * n + i] = rad.z;
+  osf[(F_ACC + 0) * n + i] = acc.x;
+  osf[(F_ACC + 1) * n + i] = acc.y;
+  osf[(F_ACC + 2) * n + i] = acc.z;
+  osf[F_TIME * n + i] = time;
+  osf[F_PPDF * n + i] = prev_pdf;
+  osi[I_ALIVE * n + i] = still ? 1 : 0;
+  osi[I_PREVD * n + i] = prevd ? 1 : 0;
+  osi[I_DEPTH * n + i] = depth;
+  osi[I_SAMPLE * n + i] = sample;
+  osi[I_PIXEL * n + i] = pixel;
+  return rays;
+}
+
+__global__ void __launch_bounds__(kBlock)
+    mega_kernel(const float* __restrict__ sf, const int* __restrict__ si,
+                const float* __restrict__ props, const int* __restrict__ plan,
+                float* __restrict__ osf, int* __restrict__ osi,
+                unsigned long long* __restrict__ rays, int n, MegaParams p) {
+  extern __shared__ float smem[];
+  float* s_props = smem;
+  int* s_plan = reinterpret_cast<int*>(smem + p.n_props * p.kdim);
+  for (int k = threadIdx.x; k < p.n_props * p.kdim; k += blockDim.x)
+    s_props[k] = props[k];
+  for (int k = threadIdx.x; k < p.n_entries * PLAN_COLS; k += blockDim.x)
+    s_plan[k] = plan[k];
+  __syncthreads();
+
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned r = 0;
+  if (i < n) r = lane_step(i, n, sf, si, s_props, s_plan, osf, osi, p);
+  // every thread of the (full) block reaches here: warp sum, one atomic
+  r = __reduce_add_sync(0xffffffffu, r);
+  if ((threadIdx.x & 31) == 0 && r != 0)
+    atomicAdd(rays, (unsigned long long)r);
+}
+
+}  // namespace
+
+// One mega_step on `stream`.  Returns cudaGetLastError() after the launch
+// (0 on success); a refused launch never runs and must not pass silently.
+extern "C" int rtw_mega_step(const float* sf, const int* si,
+                             const float* props, const int* plan, float* osf,
+                             int* osi, unsigned long long* rays, int n,
+                             MegaParams p, void* stream) {
+  if (n <= 0) return 0;
+  size_t smem = sizeof(float) * (size_t)p.n_props * p.kdim +
+                sizeof(int) * (size_t)p.n_entries * PLAN_COLS;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        mega_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int blocks = (n + kBlock - 1) / kBlock;
+  mega_kernel<<<blocks, kBlock, smem, (cudaStream_t)stream>>>(
+      sf, si, props, plan, osf, osi, rays, n, p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* rtw_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,0 +1,235 @@
+"""The estimator physics of one bounce (port of rtw_tpu/ops/bounce.py).
+
+`bounce_core` is the plain definition: the integrator's plain path and the
+megakernel's plain twin both call it, and csrc/mega_kernel.cu computes the
+same steps per lane in the same order.  Every material is evaluated for
+every lane and selected per lane, as in the reference, so each plane rounds
+exactly as the reference's does.
+
+Only `estimator="mis"` (NEE + power-heuristic MIS) is ported; the books'
+mixture estimator raises (ROADMAP item 11).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from rtw_tpu_torch.models import scene as S
+from rtw_tpu_torch.ops import sampling as sm
+from rtw_tpu_torch.ops import vec as V
+from rtw_tpu_torch.ops.intersect import BIG
+from rtw_tpu_torch.ops.vec import Vec3
+from rtw_tpu_torch.utils import rng as R
+
+
+def check_estimator(estimator: str) -> None:
+    if estimator == "book":
+        raise NotImplementedError(
+            "estimator='book' is not ported yet (ROADMAP item 11)")
+    if estimator != "mis":
+        raise ValueError(f"unknown estimator {estimator!r}")
+
+
+class BounceEnv(NamedTuple):
+    """Execution-environment accessors injected by each bounce executor (see
+    the reference's BounceEnv for each signature)."""
+
+    mat_present: tuple            # static MAT_* presence flags
+    num_lights: int
+    mis_bsdf_weight: bool
+    rr_start_depth: int
+    sky_gate: Any                 # scalar: sky_light (0.0 / 1.0)
+    unit_ball: Callable[..., Vec3]
+    light_pdf_at: Optional[Callable[..., Any]]
+    pick_light: Optional[Callable[..., Any]]
+    occlude: Optional[Callable[..., Any]]
+    estimator: str = "mis"
+
+
+class BounceResult(NamedTuple):
+    origin: Vec3
+    direction: Vec3
+    throughput: Vec3
+    radiance: Vec3
+    alive: Any            # [N] bool: path still tracing after this bounce
+    prev_pdf: Any
+    prev_diffuse: Any     # [N] bool
+    rays_lane: Any        # [N] int32: traversal queries this lane issued
+
+
+def bounce_core(env: BounceEnv, U, depth, alive, o: Vec3, d: Vec3,
+                thr: Vec3, rad: Vec3, prev_pdf, prev_diffuse,
+                miss, point: Vec3, nrm: Vec3, mat_type, fuzz, eta,
+                albedo: Vec3, prim_idx) -> BounceResult:
+    """One wavefront bounce after the trace: miss shade, material scatter,
+    NEE + MIS, advance, Russian roulette.  U: [n_slots, N] uniforms indexed
+    by utils.rng slot ids; all other planes [N]."""
+    check_estimator(env.estimator)
+    n = mat_type.shape[0]
+    dev = mat_type.device
+    hit_alive = alive & ~miss
+    rays_lane = alive.to(torch.int32)
+    radiance = rad
+
+    # ----- miss: sky gradient or black ------------------------------------
+    d_unit = d.normalized()
+    sky_t = 0.5 * (d_unit.y + 1.0)
+    sky = Vec3((1.0 - 0.5 * sky_t) * env.sky_gate,
+               (1.0 - 0.3 * sky_t) * env.sky_gate,
+               torch.ones_like(sky_t) * env.sky_gate)
+    radiance = V.where(alive & miss, radiance + thr * sky, radiance)
+
+    mp = env.mat_present
+    false_n = torch.zeros(n, dtype=torch.bool, device=dev)
+    zero3 = V.zeros(n, dev)
+    ones3 = V.ones(n, dev)
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+
+    def is_mat(m):
+        return (mat_type == m) if mp[m] else false_n
+
+    is_lamb = is_mat(S.MAT_LAMBERTIAN)
+    is_metal = is_mat(S.MAT_METAL)
+    is_diel = is_mat(S.MAT_DIELECTRIC)
+    is_light = is_mat(S.MAT_DIFFUSE_LIGHT)
+    is_iso = is_mat(S.MAT_ISOTROPIC)
+    is_norm = is_mat(S.MAT_NORMAL)
+
+    scatter_dir = d_unit  # placeholder for lanes that terminate anyway
+    attenuation = albedo
+    cancel = false_n
+    terminate = false_n
+
+    # ----- lambertian: cosine-hemisphere scatter --------------------------
+    if mp[S.MAT_LAMBERTIAN]:
+        ou, ov, ow = sm.build_onb(nrm)
+        local = sm.cosine_direction(U[R.U_SCATTER_0], U[R.U_SCATTER_1])
+        lamb_dir = sm.onb_local(ou, ov, ow, local).normalized()
+        lamb_pdf = local.z * sm.INV_PI
+        lamb_scatter_pdf = nrm.dot(lamb_dir) * sm.INV_PI
+        lamb_cancel = (lamb_pdf <= 0.0) | (lamb_scatter_pdf <= 0.0)
+        scatter_dir = V.where(is_lamb, lamb_dir, scatter_dir)
+        cancel = cancel | (is_lamb & lamb_cancel)
+    else:
+        lamb_pdf = ones
+
+    # ----- metal: fuzzy mirror --------------------------------------------
+    if mp[S.MAT_METAL]:
+        refl = V.reflect(d_unit, nrm)
+        fuzz_vec = env.unit_ball(U[R.U_SCATTER_0], U[R.U_SCATTER_1],
+                                 U[R.U_SCATTER_2])
+        metal_dir = (refl + fuzz_vec * fuzz).normalized()
+        metal_cancel = metal_dir.dot(nrm) <= 0.0
+        scatter_dir = V.where(is_metal, metal_dir, scatter_dir)
+        cancel = cancel | (is_metal & metal_cancel)
+
+    # ----- dielectric: Snell + Schlick ------------------------------------
+    if mp[S.MAT_DIELECTRIC]:
+        outside = d_unit.dot(nrm) < 0.0
+        ln = V.where(outside, nrm, -nrm)
+        eta_i = torch.where(outside, 1.0, eta)
+        eta_t = torch.where(outside, eta, 1.0)
+        ratio = eta_i / eta_t
+        cos_i = torch.clamp_max((-d_unit).dot(ln), 1.0)
+        sin_i = sm.safe_sqrt(1.0 - cos_i * cos_i)
+        tir = ratio * sin_i > 1.0
+        reflect_prob = sm.fresnel_schlick(cos_i, eta_i, eta_t)
+        do_reflect = tir | (U[R.U_DIELECTRIC] < reflect_prob)
+        sin_t = torch.clamp_max(ratio * sin_i, 1.0)
+        cos_t = sm.safe_sqrt(1.0 - sin_t * sin_t)
+        refr_dir = (d_unit + ln * cos_i) * ratio - ln * cos_t
+        diel_dir = V.where(do_reflect, V.reflect(d_unit, ln), refr_dir)
+        scatter_dir = V.where(is_diel, diel_dir, scatter_dir)
+        attenuation = V.where(is_diel, ones3, attenuation)
+
+    # ----- isotropic: uniform sphere scatter ------------------------------
+    if mp[S.MAT_ISOTROPIC]:
+        iso_dir = sm.sphere_surface(U[R.U_SCATTER_0], U[R.U_SCATTER_1])
+        scatter_dir = V.where(is_iso, iso_dir, scatter_dir)
+
+    # ----- diffuse light: one-sided emission, terminate -------------------
+    if mp[S.MAT_DIFFUSE_LIGHT]:
+        facing = nrm.dot(d_unit) < 0.0
+        emitted = V.where(facing, albedo, zero3)
+        if env.mis_bsdf_weight and env.num_lights > 0:
+            w_mask = hit_alive & is_light & prev_diffuse
+            lp = env.light_pdf_at(o, point, d_unit, prim_idx, w_mask)
+            prev_safe = torch.where(w_mask, prev_pdf, 1.0)
+            w_bsdf = torch.where(w_mask, sm.power_heuristic(prev_safe, lp),
+                                 1.0)
+        else:
+            w_bsdf = ones
+        radiance = V.where(hit_alive & is_light,
+                           radiance + thr * emitted * w_bsdf, radiance)
+        attenuation = V.where(is_light, zero3, attenuation)
+        terminate = terminate | is_light
+
+    # ----- normal-debug: terminate with normal color ----------------------
+    if mp[S.MAT_NORMAL]:
+        radiance = V.where(hit_alive & is_norm,
+                           radiance + thr * (nrm * 0.5 + 0.5), radiance)
+        attenuation = V.where(is_norm, zero3, attenuation)
+        terminate = terminate | is_norm
+
+    terminate = terminate | cancel
+
+    # ----- next-event estimation ------------------------------------------
+    if env.num_lights > 0 and mp[S.MAT_LAMBERTIAN]:
+        lpos, l_area, l_nrm, l_emission = env.pick_light(
+            U[R.U_LIGHT_SELECT], U[R.U_LIGHT_A], U[R.U_LIGHT_B])
+        ldir = lpos - point
+        ldist = ldir.length()
+        ldir_u = ldir * (1.0 / torch.clamp_min(ldist, 1e-12))
+        costa = (-ldir_u).dot(l_nrm)
+        l_valid = (ldist > 1e-6) & (costa > 1e-6)
+        costa_safe = torch.where(l_valid, costa, 1.0)
+        # selection-inclusive pdf (uniform 1/L light x uniform area)
+        l_pdf = torch.where(
+            l_valid,
+            ldist * ldist / (float(env.num_lights) * l_area * costa_safe),
+            0.0)
+        bsdf_pdf = torch.clamp_min(ldir_u.dot(nrm), 0.0) * sm.INV_PI
+
+        nee_active = (hit_alive & is_lamb & ~cancel
+                      & l_valid & (bsdf_pdf > 0.0))
+        rays_lane = rays_lane + nee_active.to(torch.int32)
+        shadow_org = sm.offset_point(point, nrm, ldir_u)
+        occ_tmax = torch.where(nee_active, ldist * float(np.float32(0.999)),
+                               -BIG)
+        shadowed = env.occlude(shadow_org, ldir_u, occ_tmax, nee_active)
+        l_pdf_safe = torch.where(nee_active, l_pdf, 1.0)
+        bsdf_safe = torch.where(nee_active, bsdf_pdf, 1.0)
+        w_nee = sm.power_heuristic(l_pdf_safe, bsdf_safe)
+        nee_s = (w_nee * torch.clamp_min(ldir_u.dot(nrm), 0.0) * sm.INV_PI
+                 / l_pdf_safe)
+        nee = albedo * l_emission * nee_s
+        radiance = V.where(nee_active & ~shadowed,
+                           radiance + thr * nee, radiance)
+
+    # ----- advance ---------------------------------------------------------
+    new_alive = hit_alive & ~terminate
+    next_org = V.where(is_iso, point,
+                       sm.offset_point(point, nrm, scatter_dir))
+    origin = V.where(hit_alive, next_org, o)
+    direction = V.where(new_alive, scatter_dir, d)
+    throughput = V.where(new_alive, thr * attenuation, thr)
+
+    # ----- russian roulette ------------------------------------------------
+    rr_on = depth >= env.rr_start_depth
+    p_cont = throughput.max_component()
+    kill = U[R.U_RR] > p_cont
+    alive_out = new_alive & ~(rr_on & kill)
+    rr_scale = torch.where(rr_on & ~kill & new_alive,
+                           1.0 / torch.clamp_min(p_cont, 1e-12), 1.0)
+    throughput = throughput * rr_scale
+
+    prev_pdf = torch.where(new_alive & is_lamb, lamb_pdf, prev_pdf)
+    prev_diffuse = (new_alive & is_lamb) | (~new_alive & prev_diffuse)
+
+    return BounceResult(origin=origin, direction=direction,
+                        throughput=throughput, radiance=radiance,
+                        alive=alive_out, prev_pdf=prev_pdf,
+                        prev_diffuse=prev_diffuse, rays_lane=rays_lane)

@@ -1,0 +1,281 @@
+"""Plain torch scene intersection (port of rtw_tpu/ops/intersect.py).
+
+The same chunked sweep as the reference: each statically typed block of C
+primitives yields a [C, N] t-matrix, and a running (t, prim) argmin is
+merged block by block (lowest index wins ties, as the reference's argmin
+and strict `<` merge do).  The winner's payload is computed once per ray
+from its group's static type.
+
+This is the plain version that the CPU tests hold against the reference
+and that the CUDA megakernel (csrc/mega_kernel.cu) is held against on the
+card.  Types outside the megakernel slice raise: moving spheres (ROADMAP
+item 7) and volumes (ROADMAP item 6).  Texture uv is not computed: only
+image and noise textures read it, and those are not ported (item 8).
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from rtw_tpu_torch.models import scene as S
+from rtw_tpu_torch.ops import vec as V
+from rtw_tpu_torch.ops.vec import Vec3
+from rtw_tpu_torch.ops.sampling import safe_sqrt
+
+BIG = float(np.float32(1e30))
+
+UNPORTED_PRIMS = {
+    S.PRIM_MOVING_SPHERE: "moving spheres (ROADMAP item 7)",
+    S.PRIM_VOLUME_SPHERE: "volume spheres (ROADMAP item 6)",
+    S.PRIM_VOLUME_BOX: "volume boxes (ROADMAP item 6)",
+}
+
+
+def check_prim_type(ptype: int) -> None:
+    if ptype in UNPORTED_PRIMS:
+        raise NotImplementedError(
+            f"primitive type {ptype} is not ported yet: "
+            f"{UNPORTED_PRIMS[ptype]}")
+    if ptype not in (S.PRIM_SPHERE, S.PRIM_RECT, S.PRIM_BOX):
+        raise ValueError(f"unknown prim type {ptype}")
+
+
+class Hit(NamedTuple):
+    """Per-ray nearest-hit record; SoA planes."""
+
+    t: Any          # [N] float32; BIG means miss
+    prim_idx: Any   # [N] int64; -1 = miss
+    mat_id: Any     # [N] int32
+    point: Vec3
+    normal: Vec3
+
+
+def _col(params, i):
+    """[C, 9] chunk param table -> [C, 1] broadcast column."""
+    return params[:, i:i + 1]
+
+
+def _sphere_roots(o: Vec3, d: Vec3, center: Vec3, radius):
+    oc = o - center
+    a = d.dot(d)
+    b = oc.dot(d)
+    c = oc.dot(oc) - radius * radius
+    disc = b * b - a * c
+    valid = disc >= 0.0
+    sq = safe_sqrt(disc)
+    inv_a = 1.0 / a
+    return (-b - sq) * inv_a, (-b + sq) * inv_a, valid
+
+
+def _in_window(t, tmin, tmax):
+    return (t > tmin) & (t < tmax)
+
+
+def sphere_t(params, o, d, tmin, tmax):
+    center = Vec3(_col(params, 0), _col(params, 1), _col(params, 2))
+    t1, t2, valid = _sphere_roots(o, d, center, _col(params, 3))
+    t = torch.where(_in_window(t1, tmin, tmax), t1,
+                    torch.where(_in_window(t2, tmin, tmax), t2, BIG))
+    return torch.where(valid, t, BIG)
+
+
+_AXIS_OTHERS = {S.AXIS_X: (1, 2), S.AXIS_Y: (0, 2), S.AXIS_Z: (0, 1)}
+
+
+def _nonzero(x):
+    return torch.where(x == 0.0, 1e-30, x)
+
+
+def rect_t(params, o: Vec3, d: Vec3, tmin, tmax, axis: int):
+    """Axis-aligned rect plane-slab test."""
+    a0, a1, b0, b1, k = (_col(params, i) for i in range(5))
+    ia, ib = _AXIS_OTHERS[axis]
+    t = (k - o[axis]) / _nonzero(d[axis])
+    pa = o[ia] + t * d[ia]
+    pb = o[ib] + t * d[ib]
+    inside = (pa >= a0) & (pa <= a1) & (pb >= b0) & (pb <= b1)
+    return torch.where(inside & _in_window(t, tmin, tmax), t, BIG)
+
+
+def _box_roots(o: Vec3, d: Vec3, bmin: Vec3, bmax: Vec3):
+    near = torch.full_like(o.x + d.x, -BIG)
+    far = torch.full_like(near, BIG)
+    for ax in range(3):
+        inv = 1.0 / _nonzero(d[ax])
+        t0 = (bmin[ax] - o[ax]) * inv
+        t1 = (bmax[ax] - o[ax]) * inv
+        near = torch.maximum(near, torch.minimum(t0, t1))
+        far = torch.minimum(far, torch.maximum(t0, t1))
+    return near, far
+
+
+def box_t(params, o, d, tmin, tmax):
+    """Solid axis-aligned box via one slab test."""
+    bmin = Vec3(_col(params, 0), _col(params, 1), _col(params, 2))
+    bmax = Vec3(_col(params, 3), _col(params, 4), _col(params, 5))
+    near, far = _box_roots(o, d, bmin, bmax)
+    t = torch.where(_in_window(near, tmin, tmax), near,
+                    torch.where(_in_window(far, tmin, tmax), far, BIG))
+    return torch.where(near <= far, t, BIG)
+
+
+def _box_payload(p9, o: Vec3, d: Vec3, t, tmin):
+    """Hit point and outward face normal of the box prim."""
+    point = o + d * t
+    bmin = [p9[0], p9[1], p9[2]]
+    bmax = [p9[3], p9[4], p9[5]]
+    tns, tfs = [], []
+    for ax in range(3):
+        inv = 1.0 / _nonzero(d[ax])
+        t0 = (bmin[ax] - o[ax]) * inv
+        t1 = (bmax[ax] - o[ax]) * inv
+        tns.append(torch.minimum(t0, t1))
+        tfs.append(torch.maximum(t0, t1))
+    near = torch.maximum(torch.maximum(tns[0], tns[1]), tns[2])
+    entry = near > tmin
+    sel = []
+    for ax in range(3):
+        is_near = tns[ax] >= torch.maximum(tns[(ax + 1) % 3],
+                                           tns[(ax + 2) % 3])
+        is_far = tfs[ax] <= torch.minimum(tfs[(ax + 1) % 3],
+                                          tfs[(ax + 2) % 3])
+        sel.append((entry & is_near) | (~entry & is_far))
+    sel[1] = sel[1] & ~sel[0]
+    sel[2] = sel[2] & ~sel[0] & ~sel[1]
+    comps = []
+    for ax in range(3):
+        d_sign = torch.where(d[ax] >= 0.0, 1.0, -1.0)
+        n_sign = torch.where(entry, -d_sign, d_sign)
+        comps.append(torch.where(sel[ax], n_sign, 0.0))
+    return point, Vec3(*comps)
+
+
+def _payload(ptype: int, axis: int, p9, o: Vec3, d: Vec3, t, tmin):
+    """World-or-object-space (point, normal) for one gathered prim per ray;
+    p9: list of 9 [N] param planes."""
+    check_prim_type(ptype)
+    if ptype == S.PRIM_BOX:
+        return _box_payload(p9, o, d, t, tmin)
+    point = o + d * t
+    if ptype == S.PRIM_SPHERE:
+        r_safe = torch.where(p9[3].abs() > 1e-20, p9[3], 1.0)
+        normal = (point - Vec3(p9[0], p9[1], p9[2])) * (1.0 / r_safe)
+        return point, normal
+    zero = torch.zeros_like(t)
+    sign = torch.where(p9[6] > 0.5, -1.0, 1.0)
+    comps = [zero, zero, zero]
+    comps[axis] = sign
+    return point, Vec3(*comps)
+
+
+def _chunk_mat(m):
+    """[C, 3, 4] affine batch -> nested [C, 1] columns for vec.affine_*."""
+    return [[m[:, i, j:j + 1] for j in range(4)] for i in range(3)]
+
+
+def _xform_rays(w2o, o: Vec3, d: Vec3):
+    """Object-space rays per prim: Vec3 of [C, N] planes."""
+    m = _chunk_mat(w2o)
+    return V.affine_point(m, o), V.affine_vec(m, d)
+
+
+def _block_t(ptype, axis, has_xform, params, w2o, o, d, tmin, tmax, valid):
+    """t-matrix [C, N] for one block of C same-typed primitives."""
+    check_prim_type(ptype)
+    if has_xform:
+        o, d = _xform_rays(w2o, o, d)
+    if ptype == S.PRIM_SPHERE:
+        t = sphere_t(params, o, d, tmin, tmax)
+    elif ptype == S.PRIM_RECT:
+        t = rect_t(params, o, d, tmin, tmax, axis)
+    else:
+        t = box_t(params, o, d, tmin, tmax)
+    return torch.where(valid[:, None], t, BIG)
+
+
+def _block_ts(scene, entry, o, d, tmin, tmax):
+    """(first row, [C, N] t-matrix) of each block of one group: the
+    reference's scan over fixed-size blocks as a Python loop."""
+    start, count, size, ptype, axis, has_xform, block = entry
+    prims = scene.prims
+    for b0 in range(start, start + size, block):
+        c = min(block, start + size - b0)
+        valid = torch.arange(b0 - start, b0 - start + c,
+                             device=prims.params.device) < count
+        yield b0, _block_t(ptype, axis, has_xform, prims.params[b0:b0 + c],
+                           prims.w2o[b0:b0 + c], o, d, tmin, tmax, valid)
+
+
+def intersect_scene(scene, o: Vec3, d: Vec3, tmin, tmax) -> Hit:
+    """Nearest hit of each ray against every primitive.  `tmax` is a scalar
+    or a per-lane [N] tensor; t is in units of |d|."""
+    n = o.x.shape[0]
+    dev = o.x.device
+    best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    best_prim = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    for entry in scene.chunk_plan:
+        for b0, t_mat in _block_ts(scene, entry, o, d, tmin, tmax):
+            c_t, c_arg = torch.min(t_mat, dim=0)
+            better = c_t < best_t
+            best_t = torch.where(better, c_t, best_t)
+            best_prim = torch.where(better, b0 + c_arg, best_prim)
+
+    prims = scene.prims
+    hit_mask = best_prim >= 0
+    safe_prim = torch.clamp_min(best_prim, 0)
+    t_pay = torch.where(hit_mask, best_t, 0.0)
+    p9 = [prims.params[:, k][safe_prim] for k in range(S.NUM_PRIM_PARAMS)]
+    point, normal = _winner_payload(scene, safe_prim, hit_mask, p9, o, d,
+                                    t_pay, tmin)
+    mat_id = torch.where(hit_mask, prims.material_id[safe_prim], 0)
+    return Hit(t=best_t, prim_idx=best_prim, mat_id=mat_id, point=point,
+               normal=normal)
+
+
+def _winner_payload(scene, safe_prim, hit_mask, p9, o: Vec3, d: Vec3, t_pay,
+                    tmin):
+    """(point, unit normal) for per-ray winners: one statically typed
+    payload per chunk-plan group, selected by the group owning the winner."""
+    n = t_pay.shape[0]
+    prims = scene.prims
+    if any(e[5] for e in scene.chunk_plan):
+        w2o_g = [[prims.w2o[:, i, j][safe_prim] for j in range(4)]
+                 for i in range(3)]
+        o2w_g = [[prims.o2w[:, i, j][safe_prim] for j in range(4)]
+                 for i in range(3)]
+        o_x, d_x = V.affine_point(w2o_g, o), V.affine_vec(w2o_g, d)
+
+    zero = torch.zeros(n, dtype=torch.float32, device=t_pay.device)
+    point = Vec3(zero, zero, zero)
+    normal = Vec3(zero, zero, zero)
+    for start, count, size, ptype, axis, has_xform, _ in scene.chunk_plan:
+        in_group = hit_mask & (safe_prim >= start) & (safe_prim < start + size)
+        o_sel, d_sel = (o_x, d_x) if has_xform else (o, d)
+        g_point, g_normal = _payload(ptype, axis, p9, o_sel, d_sel, t_pay,
+                                     tmin)
+        if has_xform:
+            g_point = V.affine_point(o2w_g, g_point)
+            # normal transforms with (W2O)^T
+            g_normal = Vec3(
+                w2o_g[0][0] * g_normal.x + w2o_g[1][0] * g_normal.y
+                + w2o_g[2][0] * g_normal.z,
+                w2o_g[0][1] * g_normal.x + w2o_g[1][1] * g_normal.y
+                + w2o_g[2][1] * g_normal.z,
+                w2o_g[0][2] * g_normal.x + w2o_g[1][2] * g_normal.y
+                + w2o_g[2][2] * g_normal.z,
+            )
+        point = V.where(in_group, g_point, point)
+        normal = V.where(in_group, g_normal, normal)
+    return point, normal.normalized()
+
+
+def occluded(scene, o: Vec3, d: Vec3, tmin, tmax):
+    """Boolean shadow query: any hit in (tmin, tmax)?"""
+    occ = torch.zeros(o.x.shape[0], dtype=torch.bool, device=o.x.device)
+    for entry in scene.chunk_plan:
+        for _, t_mat in _block_ts(scene, entry, o, d, tmin, tmax):
+            occ = occ | (t_mat < BIG).any(dim=0)
+    return occ

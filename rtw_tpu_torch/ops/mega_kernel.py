@@ -1,0 +1,344 @@
+"""Whole-bounce megakernel: one regenerating-wavefront iteration per launch
+(port of rtw_tpu/ops/mega_kernel.py).
+
+`mega_step` runs one iteration on the carry: path hash, camera-ray
+regeneration of finished lanes, the fast-RNG bounce uniforms, nearest hit,
+checker albedo, `bounce_core` with single-light NEE + MIS and the any-hit
+shadow test, Russian roulette, NaN scrub and sample accumulation.  On CUDA
+tensors it launches the hand-written kernel of csrc/mega_kernel.cu (built
+by utils/kernels.py); on CPU tensors it runs `mega_step_plain`, the same
+function in plain torch on the same carry layout.  There is no fallback: a
+CUDA tensor gets the kernel or an error.
+
+The kernel's envelope is the reference's (`integrator._validate_mega`):
+fast RNG, at most one light, constant/checker textures, spheres, rects and
+boxes, fewer than 128 prims, no gradients, estimator "mis".
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from rtw_tpu_torch.integrator import _validate_mega, bounce_env
+from rtw_tpu_torch.models import scene as S
+from rtw_tpu_torch.ops import sampling as sm
+from rtw_tpu_torch.ops.bounce import bounce_core
+from rtw_tpu_torch.ops import vec as V
+from rtw_tpu_torch.ops.intersect import BIG, intersect_scene
+from rtw_tpu_torch.ops.shading import gather_shade, resolve_albedo
+from rtw_tpu_torch.ops.trace_kernel import build_props
+from rtw_tpu_torch.ops.vec import Vec3
+from rtw_tpu_torch.utils import kernels
+from rtw_tpu_torch.utils import rng as R
+
+# --- carry layout (the reference's) ----------------------------------------
+# f32 rows [NF, N]
+F_ORG = 0        # 3: ray origin
+F_DIR = 3        # 3: ray direction
+F_THR = 6        # 3: throughput
+F_RAD = 9        # 3: path radiance
+F_ACC = 12       # 3: accumulated radiance of finished samples
+F_TIME = 15      # shutter time
+F_PPDF = 16      # previous-bounce bsdf pdf (MIS carry)
+NF = 17
+# i32 rows [NI, N]
+I_ALIVE = 0
+I_PREVD = 1      # previous bounce was diffuse (MIS carry)
+I_DEPTH = 2
+I_SAMPLE = 3
+I_PIXEL = 4
+NI = 5
+
+# --- float parameter layout (the reference's SMEM row; here the first
+# member of the kernel's by-value parameter struct) -------------------------
+PF_CAM_ORG = 0       # 3
+PF_LL = 3            # 3 lower_left
+PF_HOR = 6           # 3 horizontal
+PF_VERT = 9          # 3 vertical
+PF_CU = 12           # 3 camera u basis
+PF_CV = 15           # 3 camera v basis
+PF_LENS = 18
+PF_T0 = 19
+PF_T1 = 20
+PF_SKY = 21
+PF_LPOS = 22         # 3
+PF_LU = 25           # 3
+PF_LV = 28           # 3
+PF_LEMIT = 31        # 3
+PF_LAREA = 34
+PF_LNRM = 35         # 3
+PF = 40
+
+PLAN_COLS = 7        # (start, count, size, ptype, axis, has_xform, block)
+KERNEL_PRIMS = (S.PRIM_SPHERE, S.PRIM_RECT, S.PRIM_BOX)
+
+# Launches of the CUDA kernel since import (or since a caller reset it).
+launches = 0
+# The bound kernel library, loaded by `library()` at the first launch.
+_lib: ctypes.CDLL | None = None
+
+
+class _CParams(ctypes.Structure):
+    """The kernel's by-value parameter struct (MegaParams in
+    csrc/mega_kernel.cu; every member is 4 bytes, so no padding)."""
+
+    _fields_ = [
+        ("f", ctypes.c_float * PF),
+        ("inv_nx", ctypes.c_float),
+        ("inv_ny", ctypes.c_float),
+        ("tmin", ctypes.c_float),
+        ("tmax", ctypes.c_float),
+        ("shadow_eps", ctypes.c_float),
+        ("h0", ctypes.c_uint32),
+        ("s_end", ctypes.c_int32),
+        ("nx", ctypes.c_int32),
+        ("ny", ctypes.c_int32),
+        ("rr_start", ctypes.c_int32),
+        ("max_depth", ctypes.c_int32),
+        ("n_entries", ctypes.c_int32),
+        ("n_props", ctypes.c_int32),
+        ("kdim", ctypes.c_int32),
+        ("num_lights", ctypes.c_int32),
+        ("mat_present", ctypes.c_int32),
+        ("checker", ctypes.c_int32),
+        ("mis_bsdf_weight", ctypes.c_int32),
+    ]
+
+
+@dataclasses.dataclass
+class MegaParams:
+    """Everything one render's launches share: the float row `parf`, the
+    path-hash base `h0` (one uint32), the sample end `s_end`, the props
+    table and the chunk plan (both on the scene's device), and the kernel's
+    parameter struct built from them."""
+
+    parf: np.ndarray          # float32 [PF]
+    h0: int
+    s_end: int
+    props: torch.Tensor       # float32 [P, K]
+    plan: torch.Tensor        # int32 [E, PLAN_COLS]
+    c_params: _CParams
+
+
+def check_plan(scene: S.Scene) -> None:
+    """Every plan entry must be a type the kernel's sweeps implement."""
+    for e in scene.chunk_plan:
+        if e[3] not in KERNEL_PRIMS:
+            raise NotImplementedError(
+                f"chunk plan entry {e}: prim type {e[3]} is outside the "
+                "megakernel (spheres, rects and boxes only; ROADMAP items 6 "
+                "and 7)")
+
+
+def mega_params(scene: S.Scene, seed: int, cfg, s_end: int) -> MegaParams:
+    """Validate the envelope and assemble the launch parameters."""
+    _validate_mega(cfg, scene)
+    check_plan(scene)
+    cam = scene.camera
+    lt = scene.lights
+
+    def flat(t):
+        return t.detach().to("cpu", torch.float32).reshape(-1).numpy()
+
+    parf = np.zeros(PF, np.float32)
+    parts = [cam.origin, cam.lower_left, cam.horizontal, cam.vertical,
+             cam.u, cam.v, cam.lens_radius, cam.time0, cam.time1,
+             scene.sky_light, lt.position[0], lt.vec_u[0], lt.vec_v[0],
+             lt.emission[0], lt.area[0], lt.normal[0]]
+    vals = np.concatenate([flat(p) for p in parts])
+    parf[:vals.size] = vals
+
+    any_xform = any(e[5] for e in scene.chunk_plan)
+    props = build_props(scene, any_xform)
+    plan = torch.tensor([list(map(int, e)) for e in scene.chunk_plan],
+                        dtype=torch.int32, device=props.device)
+    h0 = R.path_hash_base(seed)
+    c = _CParams()
+    c.f[:] = parf.tolist()
+    c.inv_nx = float(np.float32(1.0 / cfg.nx))
+    c.inv_ny = float(np.float32(1.0 / cfg.ny))
+    c.tmin = cfg.t_min
+    c.tmax = cfg.t_max
+    c.shadow_eps = cfg.shadow_eps
+    c.h0 = h0
+    c.s_end = s_end
+    c.nx, c.ny = cfg.nx, cfg.ny
+    c.rr_start = cfg.rr_start_depth
+    c.max_depth = cfg.max_depth
+    c.n_entries = len(scene.chunk_plan)
+    c.n_props, c.kdim = props.shape
+    c.num_lights = scene.num_lights
+    c.mat_present = sum(1 << m for m, on in enumerate(scene.mat_present)
+                        if on)
+    c.checker = int(bool(scene.tex_present[S.TEX_CHECKER]))
+    c.mis_bsdf_weight = int(bool(cfg.mis_bsdf_weight))
+    return MegaParams(parf=parf, h0=h0, s_end=s_end, props=props, plan=plan,
+                      c_params=c)
+
+
+def init_carry(pixel_idx, s0: int):
+    """The carry before the first iteration: every lane dead with its
+    sample cursor at s0, so the first launch regenerates it."""
+    n = pixel_idx.shape[0]
+    dev = pixel_idx.device
+    sf = torch.zeros((NF, n), dtype=torch.float32, device=dev)
+    sf[F_PPDF] = 1.0
+    si = torch.zeros((NI, n), dtype=torch.int32, device=dev)
+    si[I_SAMPLE] = s0
+    si[I_PIXEL] = pixel_idx.to(torch.int32)
+    return sf, si
+
+
+def _scrub(x):
+    """Zero NaN, inf and |x| >= 3e37 (the reference kernel's scrub)."""
+    ok = (x == x) & (x.abs() < float(np.float32(3.0e37)))
+    return torch.where(ok, x, 0.0)
+
+
+def mega_step_plain(scene: S.Scene, cfg, sf, si, params: MegaParams, rays):
+    """One wavefront iteration in plain torch.  Returns (sf', si') and adds
+    the rays traced (camera + bounce + NEE queries) into `rays` (int64)."""
+    pf = [float(v) for v in params.parf]
+
+    def pv(base):
+        return Vec3(pf[base], pf[base + 1], pf[base + 2])
+
+    pixel = si[I_PIXEL].to(torch.int64)
+    sample = si[I_SAMPLE].to(torch.int64)
+    depth = si[I_DEPTH].to(torch.int64)
+    alive = si[I_ALIVE] > 0
+    prev_diffuse = si[I_PREVD] > 0
+    org = Vec3(sf[F_ORG], sf[F_ORG + 1], sf[F_ORG + 2])
+    dirn = Vec3(sf[F_DIR], sf[F_DIR + 1], sf[F_DIR + 2])
+    thr = Vec3(sf[F_THR], sf[F_THR + 1], sf[F_THR + 2])
+    rad = Vec3(sf[F_RAD], sf[F_RAD + 1], sf[F_RAD + 2])
+    acc = Vec3(sf[F_ACC], sf[F_ACC + 1], sf[F_ACC + 2])
+    time = sf[F_TIME]
+    prev_pdf = sf[F_PPDF]
+
+    pk = R.pcg_hash(R.pcg_hash(sample + params.h0) + pixel)
+
+    # ---- regeneration of finished lanes ----------------------------------
+    regen = ~alive & (sample < params.s_end)
+    x_pix = (pixel % cfg.nx).to(torch.float32)
+    y_pix = (pixel // cfg.nx).to(torch.float32)
+    cu = R.camera_uniforms(pk)
+    s_img = (x_pix + cu[0]) * float(np.float32(1.0 / cfg.nx))
+    t_img = (y_pix + cu[1]) * float(np.float32(1.0 / cfg.ny))
+    rdx, rdy = sm.unit_disk(cu[2], cu[3])
+    lens = pf[PF_LENS]
+    forg = pv(PF_CAM_ORG) + pv(PF_CU) * (lens * rdx) + pv(PF_CV) * (lens * rdy)
+    fdir = pv(PF_LL) + pv(PF_HOR) * s_img + pv(PF_VERT) * t_img - forg
+    ftime = pf[PF_T0] + cu[4] * (pf[PF_T1] - pf[PF_T0])
+    n = pixel.shape[0]
+    ones = torch.ones(n, dtype=torch.float32, device=sf.device)
+    zeros = torch.zeros_like(ones)
+    org = V.where(regen, forg, org)
+    dirn = V.where(regen, fdir, dirn)
+    thr = V.where(regen, Vec3(ones, ones, ones), thr)
+    rad = V.where(regen, Vec3(zeros, zeros, zeros), rad)
+    time = torch.where(regen, ftime, time)
+    prev_pdf = torch.where(regen, 1.0, prev_pdf)
+    prev_diffuse = prev_diffuse & ~regen
+    depth = torch.where(regen, 0, depth)
+    alive = alive | regen
+
+    # ---- bounce uniforms, trace, shade, one bounce -----------------------
+    U = R.bounce_uniforms(pk, depth + 1, R.NUM_FIXED_SLOTS)
+    tmax_lane = torch.where(alive, float(np.float32(cfg.t_max)), -BIG)
+    hit = intersect_scene(scene, org, dirn, cfg.t_min, tmax_lane)
+    hit_mask = hit.prim_idx >= 0
+    shade = gather_shade(scene, hit.prim_idx, hit_mask)
+    albedo = resolve_albedo(scene, shade, hit.point)
+    res = bounce_core(bounce_env(scene, cfg), U, depth, alive, org, dirn,
+                      thr, rad, prev_pdf, prev_diffuse, ~hit_mask, hit.point,
+                      hit.normal, shade.mat_type, shade.fuzz, shade.eta,
+                      albedo, hit.prim_idx)
+
+    # ---- finish / accumulate ---------------------------------------------
+    depth = depth + 1
+    finished = alive & (~res.alive | (depth >= cfg.max_depth))
+    rad_s = Vec3(*(_scrub(c) for c in res.radiance))
+    acc = V.where(finished, acc + rad_s, acc)
+    sample = torch.where(finished, sample + 1, sample)
+    alive_out = res.alive & ~finished
+    rays += res.rays_lane.sum(dtype=torch.int64)
+
+    sf2 = torch.stack([*res.origin, *res.direction, *res.throughput,
+                       *res.radiance, *acc, time, res.prev_pdf])
+    si2 = torch.stack([r.to(torch.int32) for r in (
+        alive_out, res.prev_diffuse, depth, sample, pixel)])
+    return sf2, si2
+
+
+def _check_tensors(sf, si, params: MegaParams, rays) -> int:
+    n = sf.shape[-1]
+    for name, t, dtype, shape in (
+            ("sf", sf, torch.float32, (NF, n)),
+            ("si", si, torch.int32, (NI, n)),
+            ("props", params.props, torch.float32, tuple(params.props.shape)),
+            ("plan", params.plan, torch.int32,
+             (params.c_params.n_entries, PLAN_COLS)),
+            ("rays", rays, torch.int64, (1,))):
+        if t.device != sf.device:
+            raise ValueError(f"{name} is on {t.device}, sf on {sf.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, needs {dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, needs "
+                             f"{shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return n
+
+
+def mega_step(scene: S.Scene, cfg, sf, si, params: MegaParams, rays):
+    """One whole wavefront iteration.  Returns (sf', si') and adds this
+    iteration's ray count into the int64 [1] tensor `rays`.
+
+    CPU tensors run `mega_step_plain`; CUDA tensors launch the kernel on
+    the current stream (no synchronisation) or raise."""
+    global launches
+    if sf.device.type == "cpu":
+        return mega_step_plain(scene, cfg, sf, si, params, rays)
+    if sf.device.type != "cuda":
+        raise ValueError(f"mega_step runs on CPU or CUDA tensors, not "
+                         f"{sf.device}")
+    n = _check_tensors(sf, si, params, rays)
+    osf = torch.empty_like(sf)
+    osi = torch.empty_like(si)
+    lib = library()
+    with torch.cuda.device(sf.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rtw_mega_step(sf.data_ptr(), si.data_ptr(),
+                                params.props.data_ptr(),
+                                params.plan.data_ptr(), osf.data_ptr(),
+                                osi.data_ptr(), rays.data_ptr(), n,
+                                params.c_params, stream)
+    if err != 0:
+        raise RuntimeError(f"mega_step kernel launch failed: "
+                           f"{lib.rtw_error_string(err).decode()} ({err})")
+    launches += 1
+    return osf, osi
+
+
+def library() -> ctypes.CDLL:
+    """csrc/mega_kernel.cu, built at first use and bound to its C
+    interface."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = kernels.load("mega_kernel")
+    lib.rtw_mega_step.restype = ctypes.c_int
+    lib.rtw_mega_step.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        _CParams, ctypes.c_void_p]
+    lib.rtw_error_string.restype = ctypes.c_char_p
+    lib.rtw_error_string.argtypes = [ctypes.c_int]
+    _lib = lib
+    return lib

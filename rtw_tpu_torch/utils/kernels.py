@@ -1,0 +1,84 @@
+"""Build the CUDA kernels of csrc/ with nvcc at first use and load them with
+ctypes.
+
+Each `csrc/<name>.cu` exposes a plain C interface (no PyTorch headers, so
+nvcc takes seconds), is compiled for `sm_90a` into
+`build/rtw_tpu_torch/<name>-<source hash>.so` at the repository root, and is
+bound by its wrapper module.  The build runs from the sources
+in the checkout only; a changed source gets a new hash and is rebuilt.
+`-Xptxas -v` reports registers, shared memory and spills; the report is
+kept in `build_log[name]`.  No `--use_fast_math`; `-fmad=false` keeps each
+float operation rounded on its own, as torch's separate elementwise
+kernels round it, so the kernel can be held tightly against its plain
+version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import time
+
+_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
+CSRC = os.path.join(_ROOT, "rtw_tpu_torch", "csrc")
+BUILD_DIR = os.path.join(_ROOT, "build", "rtw_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-fmad=false"]
+
+build_log: dict[str, str] = {}
+build_seconds: dict[str, float] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu if its hashed library is missing; returns the
+    library path.  The compiler's report goes to build_log[name]."""
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        tag = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
+                             ).hexdigest()[:16]
+    so_path = os.path.join(BUILD_DIR, f"{name}-{tag}.so")
+    if os.path.exists(so_path):
+        build_log.setdefault(name, "(cached build)")
+        return so_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so_path}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    build_seconds[name] = time.perf_counter() - t0
+    build_log[name] = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{build_log[name]}")
+    os.replace(tmp, so_path)
+    return so_path
+
+
+def ptxas_summary(name: str) -> str:
+    """The 'Used N registers' and spill lines of the build report."""
+    lines = build_log.get(name, "").splitlines()
+    keep = [ln.strip() for ln in lines
+            if re.search(r"registers|spill", ln)]
+    return "\n".join(keep) if keep else build_log.get(name, "")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library of csrc/<name>.cu, built if needed (unbound: the wrapper
+    module declares its C interface)."""
+    return ctypes.CDLL(build(name))
+

@@ -1,0 +1,153 @@
+"""The megakernel's plain twin and the port's schedulers against rtw_tpu.
+
+`mega_step_plain` is held against the reference's Pallas megakernel run
+in interpret mode (as tests/test_mega.py runs it), step by step from the
+same carry; the port's `trace_wavefront_mega` against the reference's
+`trace_wavefront_regen`.  The CUDA kernel itself is held against the plain
+twin on the card by chip_smoke.py (phases 3 and 4)."""
+
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+import rtw_tpu as rt
+from rtw_tpu.integrator import trace_wavefront_regen as j_regen
+from rtw_tpu.ops import mega_kernel as JMK
+from rtw_tpu.utils import rng as JR
+import rtw_tpu_torch as rtt
+from rtw_tpu_torch import integrator as TI
+from rtw_tpu_torch.ops import mega_kernel as TMK
+
+NX, NY = 48, 24           # tests/test_mega.py's configuration
+TOL = 2e-4
+
+
+def _cfg(sid, **kw):
+    return rtt.RenderConfig(nx=NX, ny=NY, spp=3, max_depth=6, scene_id=sid,
+                            seed=9, **kw)
+
+
+def _assert_carry_close(got, want, extent, msg):
+    """f32 carry rows: every row of >= 99.9% of the lanes within atol/rtol
+    2e-4, and every value within 2e-4 of the scene's extent.  XLA's CPU
+    code contracts a + b*c into one FMA where torch rounds twice; a 1-ulp
+    difference in a camera direction then moves a grazing hit point by up
+    to ~1e-5 of the ray length (measured: 0.0073 in one of 34816 values,
+    a ceiling hit at z = 15 on Cornell)."""
+    close = np.abs(got - want) <= TOL + TOL * np.abs(want)
+    assert close.all(axis=0).mean() >= 0.999, msg
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL * extent,
+                               err_msg=msg)
+
+
+def test_mega_step_plain_matches_pallas_kernel():
+    """Scene 0, 1152 lanes padded to 2048 as the reference pads them, four
+    successive steps, each started from the reference's carry."""
+    sid = 0
+    cfg = _cfg(sid)
+    jcfg = rt.RenderConfig(**dataclasses.asdict(cfg))
+    js, ts = rt.build_scene(sid, NX, NY), rtt.build_scene(sid, NX, NY)
+    n, n_pad = cfg.num_pixels, 2 * JMK.TILE
+    s_end = cfg.spp
+
+    sf = jnp.zeros((JMK.NF, n_pad), jnp.float32).at[JMK.F_PPDF].set(1.0)
+    si = jnp.zeros((JMK.NI, n_pad), jnp.int32)
+    si = si.at[JMK.I_PIXEL, :n].set(jnp.arange(n, dtype=jnp.int32))
+    si = si.at[JMK.I_SAMPLE, n:].set(s_end)      # pad lanes never regenerate
+    parf, pari = JMK.mega_params(js, JR.base_key(cfg.seed), jcfg)
+    pari = pari.at[0, JMK.PI_SEND].set(s_end)
+    params = TMK.mega_params(ts, cfg.seed, cfg, s_end)
+    np.testing.assert_array_equal(params.parf, np.asarray(parf)[0])
+    extent = float(ts.block_aabbs[:, :6].abs().max())
+    launches = TMK.launches
+
+    with pltpu.force_tpu_interpret_mode():
+        step = jax.jit(lambda a, b: JMK.mega_step(js, jcfg, a, b, parf,
+                                                  pari))
+        for it in range(4):
+            j_sf, j_si, j_rays = step(sf, si)
+            rays = torch.zeros(1, dtype=torch.int64)
+            t_sf, t_si = TMK.mega_step(ts, cfg, torch.tensor(np.asarray(sf)),
+                                       torch.tensor(np.asarray(si)), params,
+                                       rays)
+            np.testing.assert_array_equal(t_si.numpy(), np.asarray(j_si),
+                                          err_msg=f"step {it}")
+            _assert_carry_close(t_sf.numpy(), np.asarray(j_sf), extent,
+                                f"step {it}")
+            assert int(rays) == int(np.asarray(j_rays).sum())
+            sf, si = j_sf, j_si
+    assert TMK.launches == launches   # CPU tensors never reach the kernel
+
+
+@pytest.mark.parametrize("sid", [0, 5])
+def test_trace_wavefront_mega_matches_reference_regen(sid):
+    cfg = _cfg(sid)
+    jcfg = rt.RenderConfig(**dataclasses.asdict(cfg))
+    js, ts = rt.build_scene(sid, NX, NY), rtt.build_scene(sid, NX, NY)
+    pix = np.arange(cfg.num_pixels, dtype=np.int32)
+    ref, ref_rays, _ = jax.jit(lambda: j_regen(
+        js, jcfg, jnp.asarray(pix), JR.base_key(cfg.seed), 0, cfg.spp))()
+    got, rays, _ = TI.trace_wavefront_mega(ts, cfg, torch.as_tensor(pix),
+                                           cfg.seed, 0, cfg.spp)
+    a = np.stack([np.asarray(c) for c in ref])
+    b = np.stack([c.numpy() for c in got])
+    assert np.isfinite(b).all()
+    np.testing.assert_allclose(b, a, atol=TOL, rtol=TOL)
+    assert int(rays) == pytest.approx(float(ref_rays), rel=1e-6)
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("scheduler", "queue", "ROADMAP item 7"),
+    ("scheduler", "qmega", "queue 2 item D"),
+    ("rng", "threefry", "ROADMAP item 11"),
+    ("rng", "tea", "ROADMAP item 11"),
+    ("estimator", "book", "ROADMAP item 11"),
+    ("differentiable", True, "ROADMAP item 12"),
+    ("bounce_stats", True, "ROADMAP item 11"),
+    ("backend", "pallas", "ROADMAP items 7 and 8"),
+])
+def test_gate_refuses_unported_options(field, value, item):
+    ts = rtt.build_scene(0, 8, 8)
+    cfg = dataclasses.replace(rtt.RenderConfig(nx=8, ny=8, spp=1), **{
+        field: value})
+    with pytest.raises(NotImplementedError, match=item):
+        rtt.render(ts, cfg)
+
+
+def test_gate_selection_on_cpu():
+    ts = rtt.build_scene(0, 8, 8)
+    cfg = rtt.RenderConfig(nx=8, ny=8, spp=1)
+    assert not TI._mega_backend(cfg, ts)          # CPU auto: plain regen
+    assert TI._mega_backend(dataclasses.replace(cfg, backend="mega"), ts)
+    assert not TI._mega_backend(dataclasses.replace(cfg, backend="jnp"), ts)
+    with pytest.raises(ValueError, match="scheduler"):
+        TI.trace_wavefront(ts, dataclasses.replace(
+            cfg, backend="mega", scheduler="queue"),
+            torch.arange(64), 0, 0, 1)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+        TI._mega_backend(dataclasses.replace(cfg, backend="mega"),
+                         rtt.build_scene(2, 8, 8))
+
+
+def test_mega_step_checks_its_inputs():
+    ts = rtt.build_scene(0, 8, 8)
+    cfg = rtt.RenderConfig(nx=8, ny=8, spp=1)
+    params = TMK.mega_params(ts, 0, cfg, 1)
+    assert params.c_params.kdim == 49 and params.c_params.n_props == 40
+    assert params.c_params.n_entries == 5
+    sf, si = TMK.init_carry(torch.arange(64, dtype=torch.int32), 0)
+    rays = torch.zeros(1, dtype=torch.int64)
+    with pytest.raises(TypeError):
+        TMK._check_tensors(sf, si.to(torch.int64), params, rays)
+    with pytest.raises(ValueError):
+        TMK._check_tensors(sf[:, :10], si, params, rays)
+    with pytest.raises(ValueError):
+        TMK._check_tensors(sf.t().contiguous().t(), si, params, rays)
+    with pytest.raises(ValueError):
+        TMK.mega_step(ts, cfg, sf.to("meta"), si, params, rays)
+

@@ -1,0 +1,100 @@
+"""Whole renders of the port against the reference goldens, and the port's
+independence from JAX."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from rtw_tpu.render import tile_permutation as j_tile_permutation
+from rtw_tpu.render import to_srgb8 as j_to_srgb8
+import rtw_tpu_torch as rtt
+from rtw_tpu_torch.render import tile_permutation, to_srgb8
+
+from tests.test_goldens import CFG, EXPECTED, GOLDEN_DIR
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("sid", [0, 5])
+def test_render_matches_goldens(sid):
+    """The golden config (64x48, 32 spp, depth 10, seed 0, regen) through
+    the port's plain path: every pixel within the goldens' rtol/atol 1e-4
+    (measured: all pixels, max abs diff 2.2e-5 on scene 0)."""
+    cfg = rtt.RenderConfig(scene_id=sid, **CFG)
+    m = {}
+    img = rtt.render(rtt.build_scene(sid, cfg.nx, cfg.ny), cfg, metrics=m)
+    img = img.numpy()
+    assert img.shape == (cfg.ny, cfg.nx, 3) and np.isfinite(img).all()
+    np.testing.assert_allclose(img.reshape(-1, 3).mean(axis=0),
+                               EXPECTED[sid], rtol=0.02, atol=0.003)
+    with np.load(os.path.join(GOLDEN_DIR, f"scene{sid}.npz")) as z:
+        ref = z["img"]
+    np.testing.assert_allclose(img, ref, rtol=1e-4, atol=1e-4)
+    assert m["paths"] == cfg.num_pixels * cfg.spp
+    assert m["rays"] > m["paths"]
+
+
+@pytest.mark.parametrize("sid", [0, 5])
+def test_mega_scheduler_renders_the_same_image(sid):
+    """The megakernel's plain twin draws the same samples as the regen path:
+    the same ray count and the same image to float rounding."""
+    cfg = rtt.RenderConfig(nx=32, ny=24, spp=4, max_depth=8, scene_id=sid)
+    scene = rtt.build_scene(sid, cfg.nx, cfg.ny)
+    ma, mb = {}, {}
+    a = rtt.render(scene, cfg, metrics=ma)
+    b = rtt.render(scene, rtt.RenderConfig(**{**cfg.__dict__,
+                                              "scheduler": "mega"}),
+                   metrics=mb)
+    assert ma["rays"] == mb["rays"]
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("sid,item", [(1, "ROADMAP item 7"),
+                                      (2, "ROADMAP item 8"),
+                                      (3, "ROADMAP item 6"),
+                                      (4, "ROADMAP item")])
+def test_unported_scenes_raise(sid, item):
+    cfg = rtt.RenderConfig(nx=8, ny=8, spp=1, scene_id=sid)
+    with pytest.raises(NotImplementedError, match=item):
+        rtt.render(rtt.build_scene(sid, 8, 8), cfg)
+
+
+def test_render_refuses_checkpointing():
+    cfg = rtt.RenderConfig(nx=8, ny=8, spp=1, scene_id=5)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+        rtt.render(rtt.build_scene(5, 8, 8), cfg, checkpoint_path="x.npz")
+
+
+def test_tile_permutation_and_srgb_match_reference():
+    np.testing.assert_array_equal(tile_permutation(70, 45),
+                                  j_tile_permutation(70, 45))
+    lin = np.random.default_rng(0).uniform(-0.2, 1.5, (45, 70, 3))
+    lin = lin.astype(np.float32)
+    want = (np.clip(lin, 0.0, 1.0) ** 0.5 * 255.99).astype(np.uint8)[::-1]
+    got = to_srgb8(torch.as_tensor(lin), 2.0)
+    np.testing.assert_array_equal(got, want)
+    ref = j_to_srgb8(lin, 2.0)
+    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+
+
+def test_render_image_is_the_encoded_render():
+    cfg = rtt.RenderConfig(nx=16, ny=8, spp=2, max_depth=4, scene_id=5)
+    scene = rtt.build_scene(5, 16, 8)
+    img = rtt.render_image(scene, cfg)
+    assert img.shape == (8, 16, 3) and img.dtype == np.uint8
+    np.testing.assert_array_equal(img, to_srgb8(rtt.render(scene, cfg)))
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import sys, rtw_tpu_torch, rtw_tpu_torch.ops.mega_kernel, "
+            "rtw_tpu_torch.utils.kernels; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'rtw_tpu.')) or m == 'rtw_tpu']; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
