@@ -38,6 +38,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "geometry.cuh"
+
+using namespace rtw;
+
 namespace {
 
 constexpr int kBlock = 128;
@@ -67,9 +71,6 @@ constexpr int TEX_CHECKER = 1;
 constexpr int U_SCATTER_0 = 0, U_SCATTER_1 = 1, U_SCATTER_2 = 2,
               U_DIELECTRIC = 3, U_LIGHT_A = 5, U_LIGHT_B = 6, U_RR = 7;
 
-constexpr float BIG = 1e30f;
-constexpr float PI_F = 3.1415927410125732f;        // float32(pi)
-constexpr float TWO_PI_F = 6.2831854820251465f;    // 2 * float32(pi)
 constexpr float INV_PI_F = 0.31830987334251404f;   // float32(1/pi)
 constexpr uint32_t GOLDEN = 0x9E3779B9u;
 constexpr uint32_t CAM_OFF = 0xF53EA684u;          // 0x0CA4 * GOLDEN mod 2^32
@@ -89,59 +90,8 @@ struct MegaParams {
 
 namespace {
 
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 operator+(V3 a, V3 b) {
-  return {a.x + b.x, a.y + b.y, a.z + b.z};
-}
-__device__ __forceinline__ V3 operator-(V3 a, V3 b) {
-  return {a.x - b.x, a.y - b.y, a.z - b.z};
-}
-__device__ __forceinline__ V3 operator-(V3 a) { return {-a.x, -a.y, -a.z}; }
-__device__ __forceinline__ V3 operator*(V3 a, V3 b) {
-  return {a.x * b.x, a.y * b.y, a.z * b.z};
-}
-__device__ __forceinline__ V3 operator*(V3 a, float s) {
-  return {a.x * s, a.y * s, a.z * s};
-}
-__device__ __forceinline__ float dot(V3 a, V3 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
-}
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
-          a.x * b.y - a.y * b.x};
-}
-__device__ __forceinline__ float length(V3 a) {
-  return sqrtf(fmaxf(dot(a, a), 1e-30f));
-}
-__device__ __forceinline__ V3 normalized(V3 a) {
-  return a * (1.0f / length(a));
-}
-__device__ __forceinline__ float max_component(V3 a) {
-  return fmaxf(a.x, fmaxf(a.y, a.z));
-}
-__device__ __forceinline__ float comp(V3 a, int ax) {
-  return ax == 0 ? a.x : (ax == 1 ? a.y : a.z);
-}
-__device__ __forceinline__ V3 load3(const float* p) { return {p[0], p[1], p[2]}; }
-__device__ __forceinline__ float safe_sqrt(float x) {
-  return sqrtf(fmaxf(x, 1e-20f));
-}
 __device__ __forceinline__ V3 reflect(V3 d, V3 n) {
   return d - n * (2.0f * dot(d, n));
-}
-// m: a row-major 3x4 affine
-__device__ __forceinline__ V3 affine_point(const float* m, V3 p) {
-  return {m[0] * p.x + m[1] * p.y + m[2] * p.z + m[3],
-          m[4] * p.x + m[5] * p.y + m[6] * p.z + m[7],
-          m[8] * p.x + m[9] * p.y + m[10] * p.z + m[11]};
-}
-__device__ __forceinline__ V3 affine_vec(const float* m, V3 v) {
-  return {m[0] * v.x + m[1] * v.y + m[2] * v.z,
-          m[4] * v.x + m[5] * v.y + m[6] * v.z,
-          m[8] * v.x + m[9] * v.y + m[10] * v.z};
 }
 __device__ __forceinline__ float power_heuristic(float a, float b) {
   float t = a * a;
@@ -176,55 +126,6 @@ __device__ __forceinline__ V3 sphere_surface(float u1, float u2) {
   float r = safe_sqrt(1.0f - z * z);
   float phi = TWO_PI_F * u2;
   return {r * cosf(phi), r * sinf(phi), z};
-}
-
-// ---- primitive tests (rtw_tpu/ops/intersect.py) ---------------------------
-__device__ __forceinline__ bool in_window(float t, float tmin, float tmax) {
-  return t > tmin && t < tmax;
-}
-
-__device__ float sphere_t(const float* pr, V3 o, V3 d, float tmin,
-                          float tmax) {
-  V3 oc = o - load3(pr);
-  float a = dot(d, d);
-  float b = dot(oc, d);
-  float c = dot(oc, oc) - pr[3] * pr[3];
-  float disc = b * b - a * c;
-  if (!(disc >= 0.0f)) return BIG;
-  float sq = safe_sqrt(disc);
-  float inv_a = 1.0f / a;
-  float t1 = (-b - sq) * inv_a;
-  float t2 = (-b + sq) * inv_a;
-  return in_window(t1, tmin, tmax) ? t1
-                                   : (in_window(t2, tmin, tmax) ? t2 : BIG);
-}
-
-__device__ float rect_t(const float* pr, int axis, V3 o, V3 d, float tmin,
-                        float tmax) {
-  int ia = axis == 0 ? 1 : 0;
-  int ib = axis == 2 ? 1 : 2;
-  float dk = comp(d, axis);
-  float t = (pr[4] - comp(o, axis)) / (dk == 0.0f ? 1e-30f : dk);
-  float pa = comp(o, ia) + t * comp(d, ia);
-  float pb = comp(o, ib) + t * comp(d, ib);
-  bool inside = pa >= pr[0] && pa <= pr[1] && pb >= pr[2] && pb <= pr[3];
-  return inside && in_window(t, tmin, tmax) ? t : BIG;
-}
-
-__device__ float box_t(const float* pr, V3 o, V3 d, float tmin, float tmax) {
-  float near = -BIG, far = BIG;
-#pragma unroll
-  for (int ax = 0; ax < 3; ++ax) {
-    float dk = comp(d, ax);
-    float inv = 1.0f / (dk == 0.0f ? 1e-30f : dk);
-    float t0 = (pr[ax] - comp(o, ax)) * inv;
-    float t1 = (pr[3 + ax] - comp(o, ax)) * inv;
-    near = fmaxf(near, fminf(t0, t1));
-    far = fminf(far, fmaxf(t0, t1));
-  }
-  if (!(near <= far)) return BIG;
-  return in_window(near, tmin, tmax) ? near
-                                     : (in_window(far, tmin, tmax) ? far : BIG);
 }
 
 __device__ __forceinline__ float prim_t(const float* pr, int ptype, int axis,
@@ -299,7 +200,7 @@ __device__ void payload(const float* props, const int* plan,
     o = affine_point(pr + C_W2O, o);
     d = affine_vec(pr + C_W2O, d);
   }
-  V3 point = o + d * t;
+  V3 point = ray_point(o, d, t);
   V3 normal;
   if (ptype == PRIM_SPHERE) {
     float r_safe = fabsf(pr[3]) > 1e-20f ? pr[3] : 1.0f;
@@ -309,43 +210,11 @@ __device__ void payload(const float* props, const int* plan,
     normal = {axis == 0 ? sign : 0.0f, axis == 1 ? sign : 0.0f,
               axis == 2 ? sign : 0.0f};
   } else {
-    float tns[3], tfs[3];
-#pragma unroll
-    for (int ax = 0; ax < 3; ++ax) {
-      float dk = comp(d, ax);
-      float inv = 1.0f / (dk == 0.0f ? 1e-30f : dk);
-      float t0 = (pr[ax] - comp(o, ax)) * inv;
-      float t1 = (pr[3 + ax] - comp(o, ax)) * inv;
-      tns[ax] = fminf(t0, t1);
-      tfs[ax] = fmaxf(t0, t1);
-    }
-    float near = fmaxf(fmaxf(tns[0], tns[1]), tns[2]);
-    bool entry = near > p.tmin;
-    bool sel[3];
-#pragma unroll
-    for (int ax = 0; ax < 3; ++ax) {
-      bool is_near =
-          tns[ax] >= fmaxf(tns[(ax + 1) % 3], tns[(ax + 2) % 3]);
-      bool is_far = tfs[ax] <= fminf(tfs[(ax + 1) % 3], tfs[(ax + 2) % 3]);
-      sel[ax] = (entry && is_near) || (!entry && is_far);
-    }
-    sel[1] = sel[1] && !sel[0];
-    sel[2] = sel[2] && !sel[0] && !sel[1];
-    float n3[3];
-#pragma unroll
-    for (int ax = 0; ax < 3; ++ax) {
-      float d_sign = comp(d, ax) >= 0.0f ? 1.0f : -1.0f;
-      float n_sign = entry ? -d_sign : d_sign;
-      n3[ax] = sel[ax] ? n_sign : 0.0f;
-    }
-    normal = {n3[0], n3[1], n3[2]};
+    box_face(pr, o, d, p.tmin, &normal);
   }
   if (xform) {
     point = affine_point(pr + C_O2W, point);
-    const float* w = pr + C_W2O;   // normals transform with (W2O)^T
-    normal = {w[0] * normal.x + w[4] * normal.y + w[8] * normal.z,
-              w[1] * normal.x + w[5] * normal.y + w[9] * normal.z,
-              w[2] * normal.x + w[6] * normal.y + w[10] * normal.z};
+    normal = transpose_vec(pr + C_W2O, normal);
   }
   *point_out = point;
   *normal_out = normalized(normal);

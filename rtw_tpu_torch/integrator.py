@@ -1,18 +1,23 @@
 """Wavefront path-tracing integrator (port of rtw_tpu/integrator.py).
 
-Two executors of the same estimator, both drawing the reference's fast-RNG
-chain (so both trace the same paths):
+Three executors of the same estimator, all drawing the reference's fast-RNG
+chain (so all trace the same paths):
 
-- `trace_wavefront_regen`: the plain path.  Each lane owns one pixel and
-  regenerates its next sample when its path ends; every bounce is a chain
-  of torch ops (`bounce_step`).  It runs on the CPU and, when asked for by
-  `scheduler="regen"`, on a CUDA scene.
+- `trace_wavefront_regen`: each lane owns one pixel and regenerates its
+  next sample when its path ends; every bounce is `bounce_step`.
+- `trace_wavefront_queue`: the split tier's global work queue: a lane that
+  finishes claims the next unclaimed (pixel, sample) item.  `bounce_step`
+  traces through the split kernels (ops/trace_kernel.trace and
+  occluded_kernel) when `_split_backend` holds: on a CUDA scene of 128 or
+  more prims.
 - `trace_wavefront_mega`: a loop of `mega_kernel.mega_step` launches, one
   whole wavefront iteration each; on a CUDA scene that is the hand-written
-  CUDA megakernel.  It is the main path: `scheduler="auto"` picks it for a
-  CUDA scene inside the kernel's envelope.
+  CUDA megakernel.
 
-`trace_wavefront` dispatches.  What is not ported raises
+`trace_wavefront` dispatches: `scheduler="auto"` on a CUDA scene picks the
+megakernel inside its envelope (fewer than 128 prims) and the queue with
+the split kernels at 128 prims and above, as the reference does on its
+TPU; a CPU scene runs the plain regen path.  What is not ported raises
 NotImplementedError naming its ROADMAP item; nothing falls back silently
 to the plain path on the card in place of an unported kernel.
 """
@@ -29,20 +34,21 @@ from rtw_tpu_torch.models import scene as S
 from rtw_tpu_torch.ops import sampling as sm
 from rtw_tpu_torch.ops import vec as V
 from rtw_tpu_torch.ops.vec import Vec3
+from rtw_tpu_torch.ops import trace_kernel as TK
 from rtw_tpu_torch.ops.bounce import BounceEnv, bounce_core
-from rtw_tpu_torch.ops.intersect import (BIG, check_prim_type,
-                                         intersect_scene, occluded)
-from rtw_tpu_torch.ops.shading import (check_textures, gather_shade,
-                                       resolve_albedo)
+from rtw_tpu_torch.ops.intersect import BIG, check_prim_type, fma
+from rtw_tpu_torch.ops.shading import resolve_albedo
 from rtw_tpu_torch.utils import rng as R
 
-# Scenes at or above this many prims run the split-tier kernels B and C in
-# the reference (integrator._pallas_backend); the megakernel's envelope
+# Scenes at or above this many prims run the split-tier kernels (the
+# reference's integrator._pallas_backend); the megakernel's auto envelope
 # stops below it.
 SPLIT_TIER_PRIMS = 128
 
-# trace_wavefront_mega reads its termination test once per this many
-# launches: each read is a host sync, and a launch past the end is harmless.
+# The card's loops (trace_wavefront_mega, trace_wavefront_queue) read their
+# termination test once per this many iterations: each read is a host sync,
+# and an iteration past the end is exact (it changes nothing a result
+# reads).
 _CHECK_EVERY = 8
 
 
@@ -63,17 +69,23 @@ def generate_camera_rays(scene: S.Scene, cfg, pixel_idx, path_keys) -> PathState
     """Thin-lens primary rays."""
     cam = scene.camera
     u = R.camera_uniforms(path_keys, cfg.rng)          # [5, N]
-    x = (pixel_idx % cfg.nx).to(torch.float32)
-    y = (pixel_idx // cfg.nx).to(torch.float32)
-    s = (x + u[0]) / float(cfg.nx)
-    t = (y + u[1]) / float(cfg.ny)
+    sx = (pixel_idx % cfg.nx).to(torch.float32) + u[0]
+    sy = (pixel_idx // cfg.nx).to(torch.float32) + u[1]
 
     rdx, rdy = sm.unit_disk(u[2], u[3])
     rdx = cam.lens_radius * rdx
     rdy = cam.lens_radius * rdy
     origin = V.v3(cam.origin) + V.v3(cam.u) * rdx + V.v3(cam.v) * rdy
-    direction = (V.v3(cam.lower_left) + V.v3(cam.horizontal) * s
-                 + V.v3(cam.vertical) * t - origin)
+    # lower_left + horizontal * (sx / nx) + vertical * (sy / ny) - origin,
+    # rounded as the reference's compiled CPU code rounds it: the division
+    # by the image size becomes a product with the f32 reciprocal, folded
+    # into the camera vector, and the two products are fused into the sums
+    inv_nx = float(np.float32(1.0 / cfg.nx))
+    inv_ny = float(np.float32(1.0 / cfg.ny))
+    direction = Vec3(*(
+        fma(sy, vv * inv_ny, fma(sx, hh * inv_nx, ll)) - oo
+        for ll, hh, vv, oo in zip(V.v3(cam.lower_left), V.v3(cam.horizontal),
+                                  V.v3(cam.vertical), origin)))
     time = cam.time0 + u[4] * (cam.time1 - cam.time0)
 
     n = pixel_idx.shape[0]
@@ -134,13 +146,25 @@ def _pick_light(scene: S.Scene, u_sel, ua, ub):
             V.gather_rows(lights.emission, li))
 
 
-def _occlude(scene: S.Scene, cfg, shadow_org, ldir_u, occ_tmax, want):
-    del want  # the plain sweep tests every lane; occ_tmax masks the rest
-    return occluded(scene, shadow_org, ldir_u, cfg.shadow_eps, occ_tmax)
+def _occlude(scene: S.Scene, cfg, use_split, tables, time, occ_u,
+             shadow_org, ldir_u, occ_tmax, want):
+    """BounceEnv.occlude: the shadow query through the configured trace
+    backend.  `want` is implied by occ_tmax (-BIG on lanes that do not
+    want the query), and `occ_u`, the volumes' shadow-ray free-flight
+    uniforms, is unused until volumes are ported (ROADMAP item 6)."""
+    del want, occ_u
+    if use_split:
+        return TK.occluded_kernel(scene, shadow_org, ldir_u, cfg.shadow_eps,
+                                  occ_tmax, time, tables)
+    return TK.occluded_plain(scene, shadow_org, ldir_u, cfg.shadow_eps,
+                             occ_tmax, time)
 
 
-def bounce_env(scene: S.Scene, cfg) -> BounceEnv:
-    """The plain executor's BounceEnv (also the megakernel's plain twin's)."""
+def bounce_env(scene: S.Scene, cfg, time, occ_u=None, use_split=False,
+               tables=None) -> BounceEnv:
+    """The BounceEnv of `bounce_step` (and of the megakernel's plain twin):
+    `time` and `occ_u` are bound into the occlusion query, which goes
+    through the split kernel when `use_split`."""
     return BounceEnv(
         mat_present=scene.mat_present,
         num_lights=scene.num_lights,
@@ -150,25 +174,46 @@ def bounce_env(scene: S.Scene, cfg) -> BounceEnv:
         unit_ball=sm.unit_ball,
         light_pdf_at=functools.partial(_light_pdf_at, scene),
         pick_light=functools.partial(_pick_light, scene),
-        occlude=functools.partial(_occlude, scene, cfg),
+        occlude=functools.partial(_occlude, scene, cfg, use_split, tables,
+                                  time, occ_u),
         estimator=cfg.estimator,
     )
 
 
-def bounce_step(scene: S.Scene, cfg, path_keys, state: PathState, bounce):
+def bounce_step(scene: S.Scene, cfg, path_keys, state: PathState, bounce,
+                tables=None):
     """One wavefront bounce: trace, shade, NEE, RR.  Returns
-    (new state, [N] int32 rays issued per lane)."""
-    n_slots = R.NUM_FIXED_SLOTS + 2 * max(scene.n_vol, 1)
+    (new state, [N] int32 rays traced per lane).  `tables`: the scene's
+    split-kernel tables (ops/trace_kernel.split_tables), built once per
+    render by the caller; built here when None."""
+    use_split = _split_backend(cfg, scene)
+    if use_split and tables is None:
+        tables = TK.split_tables(scene)
+    nv = max(scene.n_vol, 1)
+    # stochastic texture filtering draws its row uniform from a dedicated
+    # trailing slot: slot streams are independent by index, so appending it
+    # leaves every estimator draw as it was
+    tex_slot = (cfg.tex_filter == "stoch565"
+                and bool(scene.tex_present[S.TEX_IMAGE]))
+    n_slots = R.NUM_FIXED_SLOTS + 2 * nv + (1 if tex_slot else 0)
     U = R.bounce_uniforms(path_keys, bounce + 1, n_slots, cfg.rng)
+    occ_u = U[R.NUM_FIXED_SLOTS + nv: R.NUM_FIXED_SLOTS + 2 * nv]
+    tex_u = U[R.NUM_FIXED_SLOTS + 2 * nv] if tex_slot else None
 
     o, d = state.origin, state.direction
     # dead lanes get tmax = -BIG: a forced miss, masked by alive below
     tmax_lane = torch.where(state.alive, float(np.float32(cfg.t_max)), -BIG)
-    hit = intersect_scene(scene, o, d, cfg.t_min, tmax_lane)
-    shade = gather_shade(scene, hit.prim_idx, hit.prim_idx >= 0)
-    albedo = resolve_albedo(scene, shade, hit.point)
+    if use_split:
+        hit, shade = TK.trace(scene, o, d, cfg.t_min, tmax_lane, state.time,
+                              tables)
+    else:
+        hit, shade = TK.trace_plain(scene, o, d, cfg.t_min, tmax_lane,
+                                    state.time)
+    albedo = resolve_albedo(scene, shade, hit.point, hit.u, hit.v,
+                            cfg.tex_filter, cfg.tex_tile_gate, tex_u)
 
-    res = bounce_core(bounce_env(scene, cfg), U, bounce, state.alive, o, d,
+    env = bounce_env(scene, cfg, state.time, occ_u, use_split, tables)
+    res = bounce_core(env, U, bounce, state.alive, o, d, state.time,
                       state.throughput, state.radiance, state.prev_pdf,
                       state.prev_diffuse, hit.prim_idx < 0, hit.point,
                       hit.normal, shade.mat_type, shade.fuzz, shade.eta,
@@ -202,10 +247,6 @@ def unported(cfg, scene) -> list[str]:
             check_prim_type(e[3])
         except NotImplementedError as err:
             out.append(str(err))
-    try:
-        check_textures(scene)
-    except NotImplementedError as err:
-        out.append(str(err))
     return out
 
 
@@ -218,7 +259,8 @@ def _raise_unported(cfg, scene) -> None:
 def _validate_mega(cfg, scene):
     """The megakernel's feature envelope, checked loudly: what the port has
     not ported raises NotImplementedError, and a scene the kernel can never
-    take (more than one light, unregistered emissives) raises ValueError."""
+    take (more than one light, unregistered emissives, noise or image
+    textures) raises ValueError."""
     _raise_unported(cfg, scene)
     problems = []
     if scene.num_lights > 1:
@@ -227,32 +269,49 @@ def _validate_mega(cfg, scene):
     if scene.emissives_unregistered:
         problems.append("unregistered emissive prims (kernel MIS "
                         "attributes all emissive hits to light row 0)")
+    if scene.tex_present[S.TEX_NOISE] or scene.tex_present[S.TEX_IMAGE]:
+        problems.append("noise/image textures (no in-kernel atlas fetch)")
     if problems:
         raise ValueError("backend='mega' unsupported for this render: "
                          + "; ".join(problems))
-    n_prims = sum(e[1] for e in scene.chunk_plan)
-    if n_prims >= SPLIT_TIER_PRIMS:
-        raise NotImplementedError(
-            f"{n_prims} prims: scenes at or above {SPLIT_TIER_PRIMS} prims "
-            "run the split-tier trace and occlusion kernels (ROADMAP items "
-            "7 and 8; queue 2 items B and C), not ported yet")
+
+
+def _n_prims(scene) -> int:
+    return sum(e[1] for e in scene.chunk_plan)
 
 
 def _mega_backend(cfg, scene) -> bool:
     """Whether the render runs the megakernel scheduler: forced by
-    backend="mega", or chosen by "auto" for a CUDA scene (which must then
-    be inside the envelope: an unported kernel raises rather than the plain
-    path running on the card in its place).  CPU scenes run the plain
-    regen path under "auto", as the reference does on its CPU."""
+    backend="mega", or chosen by "auto" for a CUDA scene below the split
+    tier (which must then be inside the envelope: an unported kernel raises
+    rather than the plain path running on the card in its place).  CPU
+    scenes run the plain regen path under "auto", as the reference does on
+    its CPU."""
     if cfg.backend == "mega":
         _validate_mega(cfg, scene)
         return True
     if cfg.backend != "auto":
         return False
-    if scene.device.type != "cuda":
+    if scene.device.type != "cuda" or _n_prims(scene) >= SPLIT_TIER_PRIMS:
         return False
     _validate_mega(cfg, scene)
     return True
+
+
+def _split_backend(cfg, scene) -> bool:
+    """Whether `bounce_step` traces through the split-tier kernels
+    (ops/trace_kernel): forced by backend="pallas" (a CUDA scene only),
+    refused by "jnp", chosen by "auto" for a CUDA scene of 128 or more
+    prims (the reference's _pallas_backend)."""
+    if cfg.backend == "pallas":
+        if scene.device.type != "cuda":
+            raise ValueError(f"backend='pallas' runs the split-tier CUDA "
+                             f"kernels; the scene is on {scene.device}")
+        return True
+    if cfg.backend != "auto":
+        return False
+    return (scene.device.type == "cuda"
+            and _n_prims(scene) >= SPLIT_TIER_PRIMS)
 
 
 def trace_wavefront(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
@@ -262,33 +321,26 @@ def trace_wavefront(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
     sched = cfg.scheduler
     if cfg.backend not in ("auto", "mega", "jnp", "pallas"):
         raise ValueError(f"unknown backend {cfg.backend!r}")
-    if cfg.backend == "pallas":
-        raise NotImplementedError(
-            "backend='pallas' (the split-tier kernels) is not ported yet "
-            "(ROADMAP items 7 and 8)")
     if cfg.backend == "mega" and sched not in ("auto", "mega"):
         raise ValueError(
             f"backend='mega' requires scheduler 'auto' or 'mega', got "
             f"{cfg.scheduler!r}")
-    if sched in ("queue", "qmega"):
-        item = ("ROADMAP item 7" if sched == "queue"
-                else "ROADMAP queue 2 item D")
+    if sched == "qmega":
         raise NotImplementedError(
-            f"scheduler={sched!r} is not ported yet ({item})")
+            "scheduler='qmega' is not ported yet (ROADMAP queue 2 item D)")
     if sched == "auto":
-        sched = "mega" if _mega_backend(cfg, scene) else "regen"
-    elif sched not in ("mega", "regen"):
+        if _mega_backend(cfg, scene):
+            sched = "mega"
+        else:
+            sched = "queue" if _split_backend(cfg, scene) else "regen"
+    elif sched not in ("mega", "regen", "queue"):
         raise ValueError(f"unknown scheduler {cfg.scheduler!r}")
-    n_prims = sum(e[1] for e in scene.chunk_plan)
-    if (sched == "regen" and scene.device.type == "cuda"
-            and n_prims >= SPLIT_TIER_PRIMS):
-        raise NotImplementedError(
-            f"{n_prims} prims on the card: the reference traces these with "
-            "its split-tier kernels (ROADMAP items 7 and 8; queue 2 items B "
-            "and C), not ported yet")
     if sched == "mega":
         return trace_wavefront_mega(scene, cfg, pixel_idx, seed, s0,
                                     n_samples)
+    if sched == "queue":
+        return trace_wavefront_queue(scene, cfg, pixel_idx, seed, s0,
+                                     n_samples)
     return trace_wavefront_regen(scene, cfg, pixel_idx, seed, s0, n_samples)
 
 
@@ -327,6 +379,8 @@ def trace_wavefront_regen(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
     tail compaction is compiled out on its plain path too, and is not
     ported."""
     _raise_unported(cfg, scene)
+    tables = (TK.split_tables(scene) if _split_backend(cfg, scene)
+              else None)
     n = pixel_idx.shape[0]
     dev = pixel_idx.device
     sample = torch.full((n,), s0, dtype=torch.int64, device=dev)
@@ -338,7 +392,8 @@ def trace_wavefront_regen(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
     rays = torch.zeros(1, dtype=torch.int64, device=dev)
 
     while bool(path.alive.any()):
-        st, rays_lane = bounce_step(scene, cfg, path_keys, path, depth)
+        st, rays_lane = bounce_step(scene, cfg, path_keys, path, depth,
+                                    tables)
         rays += rays_lane.sum(dtype=torch.int64)
         depth = depth + 1
         finished = path.alive & (~st.alive | (depth >= cfg.max_depth))
@@ -362,4 +417,105 @@ def trace_wavefront_regen(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
         )
         path_keys = torch.where(regen, new_keys, path_keys)
         depth = torch.where(regen, 0, depth)
+    return accum, rays, ()
+
+
+def trace_wavefront_queue(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
+                          n_samples: int):
+    """Persistent wavefront with a global work queue.
+
+    Items are (pixel, sample) pairs, sample-major: item i is
+    (pixel_idx[i mod N], s0 + i div N).  Lane i starts on item i; a lane
+    whose path ends turns pending, and at a flush every pending lane adds
+    its sample into its accum column and claims item `cursor + rank` (rank:
+    its place among the pending lanes), so the wavefront stays full until
+    the queue drains.  The draws are keyed by (pixel, sample), so the
+    samples are the regen scheduler's; per-pixel sums are added in claim
+    order.
+
+    A flush happens when pending * flush_denom >= N, or when no lane runs
+    and some are pending (flush_denom 0: every iteration).  That decision
+    is made on the device and applied through masks, so the loop makes no
+    host sync per iteration and claims exactly the reference's items in the
+    reference's order; an iteration without a flush leaves every carry
+    value as it was.  The termination test (some lane alive or pending) is
+    read once per `_CHECK_EVERY` iterations on the card (every iteration on
+    the CPU, where a read costs nothing); the iterations past the end find
+    no lane alive or pending, trace no ray and flush nothing.
+
+    Returns (accum Vec3 of [N] positional sums, rays int64 [1], ())."""
+    _raise_unported(cfg, scene)
+    use_split = _split_backend(cfg, scene)
+    tables = TK.split_tables(scene) if use_split else None
+    n = pixel_idx.shape[0]
+    dev = pixel_idx.device
+    i64 = torch.int64
+    pixel_idx = pixel_idx.to(i64)
+    n_items = n * n_samples
+    sample = torch.full((n,), s0, dtype=i64, device=dev)
+    path_keys = R.make_path_keys(seed, pixel_idx, sample, cfg.rng)
+    path = generate_camera_rays(scene, cfg, pixel_idx, path_keys)
+    depth = torch.zeros(n, dtype=i64, device=dev)
+    item_pos = torch.arange(n, dtype=i64, device=dev)
+    pixel = pixel_idx
+    pending = torch.zeros(n, dtype=torch.bool, device=dev)
+    # three distinct planes: the flush adds into them in place
+    accum = Vec3(*(torch.zeros(n, dtype=torch.float32, device=dev)
+                   for _ in range(3)))
+    rays = torch.zeros(1, dtype=i64, device=dev)
+    cursor = torch.full((1,), n, dtype=i64, device=dev)
+    fd = cfg.flush_denom
+    check_every = _CHECK_EVERY if dev.type == "cuda" else 1
+
+    while True:
+        for _ in range(check_every):
+            st, rays_lane = bounce_step(scene, cfg, path_keys, path, depth,
+                                        tables)
+            rays += rays_lane.sum(dtype=i64)
+            # pending lanes keep their final depth
+            depth = torch.where(path.alive, depth + 1, depth)
+            finished = path.alive & (~st.alive | (depth >= cfg.max_depth))
+            pending = pending | finished
+            running = st.alive & ~finished
+            path = st._replace(alive=running)
+
+            # ---- flush: decided on the device, applied through masks ----
+            if fd <= 0:
+                pend = pending
+            else:
+                n_pend = pending.sum(dtype=i64)
+                n_run = running.sum(dtype=i64)
+                do_flush = (n_pend * fd >= n) | ((n_run == 0) & (n_pend > 0))
+                pend = pending & do_flush
+            rad = Vec3(*(_nan_to_zero(c) for c in path.radiance))
+            for a, r in zip(accum, rad):
+                a.index_add_(0, item_pos, torch.where(pend, r, 0.0))
+            fin = pend.to(i64)
+            new_item = cursor + torch.cumsum(fin, 0) - 1
+            have = pend & (new_item < n_items)
+            q = new_item // n
+            item_pos = torch.where(have, new_item - q * n, item_pos)
+            sample = torch.where(have, s0 + q, sample)
+            claimed = pixel_idx[torch.clamp_max(item_pos, n - 1)]
+            pixel = torch.where(have, claimed, pixel)
+
+            new_keys = R.make_path_keys(seed, pixel, sample, cfg.rng)
+            fresh = generate_camera_rays(scene, cfg, pixel, new_keys)
+            path = PathState(
+                origin=V.where(have, fresh.origin, path.origin),
+                direction=V.where(have, fresh.direction, path.direction),
+                throughput=V.where(have, fresh.throughput, path.throughput),
+                radiance=V.where(pend, fresh.radiance, path.radiance),
+                alive=path.alive | have,
+                time=torch.where(have, fresh.time, path.time),
+                prev_pdf=torch.where(have, fresh.prev_pdf, path.prev_pdf),
+                prev_diffuse=torch.where(have, fresh.prev_diffuse,
+                                         path.prev_diffuse),
+            )
+            path_keys = torch.where(have, new_keys, path_keys)
+            depth = torch.where(have, 0, depth)
+            pending = pending & ~pend
+            cursor = cursor + fin.sum()
+        if not bool((path.alive.any() | pending.any())):
+            break
     return accum, rays, ()

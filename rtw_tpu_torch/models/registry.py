@@ -18,6 +18,7 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from rtw_tpu_torch.models import scene as S
 from rtw_tpu_torch.models.builder import (SceneBuilder, translate, rotate_y,
@@ -316,9 +317,16 @@ _BUILDERS = {
 
 
 def build_scene(scene_id: int, nx: int, ny: int, dof: str = "reference",
-                device="cpu") -> S.Scene:
+                device="cuda") -> S.Scene:
     """Scene `scene_id` framed for an nx x ny image, its tensors on
-    `device`; a render runs on its scene's device."""
+    `device`: the card unless the caller asks for the CPU.  A render runs
+    on its scene's device.  Where CUDA is absent the default raises; it
+    never builds on the CPU in its place."""
     if scene_id not in _BUILDERS:
         raise ValueError(f"ERROR: Scene {scene_id} unknown.")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "build_scene: no CUDA device; pass device='cpu' to build the "
+            "scene on the CPU")
     return _BUILDERS[scene_id](float(nx) / float(ny), dof=dof).to(device)

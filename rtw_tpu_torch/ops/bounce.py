@@ -60,13 +60,15 @@ class BounceResult(NamedTuple):
     rays_lane: Any        # [N] int32: traversal queries this lane issued
 
 
-def bounce_core(env: BounceEnv, U, depth, alive, o: Vec3, d: Vec3,
+def bounce_core(env: BounceEnv, U, depth, alive, o: Vec3, d: Vec3, time,
                 thr: Vec3, rad: Vec3, prev_pdf, prev_diffuse,
                 miss, point: Vec3, nrm: Vec3, mat_type, fuzz, eta,
                 albedo: Vec3, prim_idx) -> BounceResult:
     """One wavefront bounce after the trace: miss shade, material scatter,
     NEE + MIS, advance, Russian roulette.  U: [n_slots, N] uniforms indexed
-    by utils.rng slot ids; all other planes [N]."""
+    by utils.rng slot ids; all other planes [N].  `time` is in the
+    reference's signature; the executors bind it into `env.occlude`."""
+    del time
     check_estimator(env.estimator)
     n = mat_type.shape[0]
     dev = mat_type.device

@@ -7,10 +7,10 @@ and strict `<` merge do).  The winner's payload is computed once per ray
 from its group's static type.
 
 This is the plain version that the CPU tests hold against the reference
-and that the CUDA megakernel (csrc/mega_kernel.cu) is held against on the
-card.  Types outside the megakernel slice raise: moving spheres (ROADMAP
-item 7) and volumes (ROADMAP item 6).  Texture uv is not computed: only
-image and noise textures read it, and those are not ported (item 8).
+and that the CUDA kernels (csrc/mega_kernel.cu, csrc/trace_kernel.cu) are
+held against on the card.  Volumes raise (ROADMAP item 6).  Moving spheres
+read the per-ray shutter `time`; uv is the reference's exact spherical,
+rect and per-face box map.
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ from rtw_tpu_torch.ops.sampling import safe_sqrt
 BIG = float(np.float32(1e30))
 
 UNPORTED_PRIMS = {
-    S.PRIM_MOVING_SPHERE: "moving spheres (ROADMAP item 7)",
     S.PRIM_VOLUME_SPHERE: "volume spheres (ROADMAP item 6)",
     S.PRIM_VOLUME_BOX: "volume boxes (ROADMAP item 6)",
 }
@@ -39,7 +38,8 @@ def check_prim_type(ptype: int) -> None:
         raise NotImplementedError(
             f"primitive type {ptype} is not ported yet: "
             f"{UNPORTED_PRIMS[ptype]}")
-    if ptype not in (S.PRIM_SPHERE, S.PRIM_RECT, S.PRIM_BOX):
+    if ptype not in (S.PRIM_SPHERE, S.PRIM_MOVING_SPHERE, S.PRIM_RECT,
+                     S.PRIM_BOX):
         raise ValueError(f"unknown prim type {ptype}")
 
 
@@ -51,6 +51,8 @@ class Hit(NamedTuple):
     mat_id: Any     # [N] int32
     point: Vec3
     normal: Vec3
+    u: Any          # [N] texture u
+    v: Any          # [N] texture v
 
 
 def _col(params, i):
@@ -58,12 +60,30 @@ def _col(params, i):
     return params[:, i:i + 1]
 
 
+def fma(x, y, z):
+    """x * y + z rounded once, as a fused multiply-add rounds it: the f32
+    product is exact in float64, so only the sum rounds (in float64, then
+    to f32; the two roundings differ from one only on ties, ~2^-29 of
+    inputs)."""
+    return (x.double() * y.double() + z.double()).float()
+
+
+def _fdot(u: Vec3, w: Vec3):
+    """u . w with the reference's fused multiply-adds: XLA's CPU code
+    computes x*x' + y*y' + z*z' as fma(z, z', fma(x, x', y*y'))."""
+    return fma(u.z, w.z, fma(u.x, w.x, u.y * w.y))
+
+
 def _sphere_roots(o: Vec3, d: Vec3, center: Vec3, radius):
+    """The quadratic's roots, fused as the reference's compiled CPU code
+    fuses it.  Fusion matters here: where b*b and a*c, or |oc|^2 and r^2,
+    cancel (the r = 1000 ground sphere of scenes 1 and 2), the ulps the
+    fused multiply-adds save become ~1e-4 of t."""
     oc = o - center
-    a = d.dot(d)
-    b = oc.dot(d)
-    c = oc.dot(oc) - radius * radius
-    disc = b * b - a * c
+    a = _fdot(d, d)
+    b = _fdot(oc, d)
+    c = _fdot(oc, oc) - radius * radius
+    disc = fma(b, b, -(a * c))
     valid = disc >= 0.0
     sq = safe_sqrt(disc)
     inv_a = 1.0 / a
@@ -74,12 +94,35 @@ def _in_window(t, tmin, tmax):
     return (t > tmin) & (t < tmax)
 
 
-def sphere_t(params, o, d, tmin, tmax):
-    center = Vec3(_col(params, 0), _col(params, 1), _col(params, 2))
-    t1, t2, valid = _sphere_roots(o, d, center, _col(params, 3))
+def _nearer_root(t1, t2, valid, tmin, tmax):
     t = torch.where(_in_window(t1, tmin, tmax), t1,
                     torch.where(_in_window(t2, tmin, tmax), t2, BIG))
     return torch.where(valid, t, BIG)
+
+
+def sphere_t(params, o, d, tmin, tmax):
+    center = Vec3(_col(params, 0), _col(params, 1), _col(params, 2))
+    return _nearer_root(*_sphere_roots(o, d, center, _col(params, 3)),
+                        tmin, tmax)
+
+
+def _moving_center(c0: Vec3, c1: Vec3, t0, t1, time) -> Vec3:
+    """Center lerped by the ray's shutter time (the reference's
+    moving_sphere_t and _payload), c0 + (c1 - c0) * frac fused as the
+    reference's compiled code fuses it."""
+    span = t1 - t0
+    frac = torch.where(span == 0.0, 0.0,
+                       (time - t0) / torch.where(span == 0.0, 1.0, span))
+    return Vec3(*(fma(b - a, frac, a) for a, b in zip(c0, c1)))
+
+
+def moving_sphere_t(params, o, d, tmin, tmax, time):
+    center = _moving_center(
+        Vec3(_col(params, 0), _col(params, 1), _col(params, 2)),
+        Vec3(_col(params, 4), _col(params, 5), _col(params, 6)),
+        _col(params, 7), _col(params, 8), time)
+    return _nearer_root(*_sphere_roots(o, d, center, _col(params, 3)),
+                        tmin, tmax)
 
 
 _AXIS_OTHERS = {S.AXIS_X: (1, 2), S.AXIS_Y: (0, 2), S.AXIS_Z: (0, 1)}
@@ -122,9 +165,15 @@ def box_t(params, o, d, tmin, tmax):
     return torch.where(near <= far, t, BIG)
 
 
+def _ray_point(o: Vec3, d: Vec3, t) -> Vec3:
+    """o + d * t, fused as the reference's compiled CPU code fuses it."""
+    return Vec3(*(fma(dc, t, oc) for oc, dc in zip(o, d)))
+
+
 def _box_payload(p9, o: Vec3, d: Vec3, t, tmin):
-    """Hit point and outward face normal of the box prim."""
-    point = o + d * t
+    """Hit point, outward face normal and per-face uv of the box prim: Z
+    faces map (x, y), Y faces (x, z), X faces (y, z)."""
+    point = _ray_point(o, d, t)
     bmin = [p9[0], p9[1], p9[2]]
     bmax = [p9[3], p9[4], p9[5]]
     tns, tfs = [], []
@@ -150,25 +199,50 @@ def _box_payload(p9, o: Vec3, d: Vec3, t, tmin):
         d_sign = torch.where(d[ax] >= 0.0, 1.0, -1.0)
         n_sign = torch.where(entry, -d_sign, d_sign)
         comps.append(torch.where(sel[ax], n_sign, 0.0))
-    return point, Vec3(*comps)
+    uu = vv = torch.zeros_like(t)
+    for ax, (ia, ib) in ((0, (1, 2)), (1, (0, 2)), (2, (0, 1))):
+        fu = (point[ia] - bmin[ia]) / torch.clamp_min(bmax[ia] - bmin[ia],
+                                                      1e-20)
+        fv = (point[ib] - bmin[ib]) / torch.clamp_min(bmax[ib] - bmin[ib],
+                                                      1e-20)
+        uu = torch.where(sel[ax], fu, uu)
+        vv = torch.where(sel[ax], fv, vv)
+    return point, Vec3(*comps), uu, vv
 
 
-def _payload(ptype: int, axis: int, p9, o: Vec3, d: Vec3, t, tmin):
-    """World-or-object-space (point, normal) for one gathered prim per ray;
-    p9: list of 9 [N] param planes."""
+def _sphere_uv(n: Vec3):
+    """Spherical uv from the unit normal (the reference's _sphere_uv, with
+    the exact atan2 and asin)."""
+    phi = torch.atan2(n.z, n.x)
+    theta = torch.asin(torch.clamp(n.y, -1.0, 1.0))
+    u = 1.0 - (phi + np.pi) / (2.0 * np.pi)
+    v = (theta + np.pi / 2.0) / np.pi
+    return u, v
+
+
+def _payload(ptype: int, axis: int, p9, o: Vec3, d: Vec3, t, time, tmin):
+    """World-or-object-space (point, normal, u, v) for one gathered prim per
+    ray; p9: list of 9 [N] param planes."""
     check_prim_type(ptype)
     if ptype == S.PRIM_BOX:
         return _box_payload(p9, o, d, t, tmin)
-    point = o + d * t
-    if ptype == S.PRIM_SPHERE:
+    point = _ray_point(o, d, t)
+    if ptype in (S.PRIM_SPHERE, S.PRIM_MOVING_SPHERE):
+        center = Vec3(p9[0], p9[1], p9[2])
+        if ptype == S.PRIM_MOVING_SPHERE:
+            center = _moving_center(center, Vec3(p9[4], p9[5], p9[6]),
+                                    p9[7], p9[8], time)
         r_safe = torch.where(p9[3].abs() > 1e-20, p9[3], 1.0)
-        normal = (point - Vec3(p9[0], p9[1], p9[2])) * (1.0 / r_safe)
-        return point, normal
+        normal = (point - center) * (1.0 / r_safe)
+        return (point, normal, *_sphere_uv(normal))
+    ia, ib = _AXIS_OTHERS[axis]
     zero = torch.zeros_like(t)
     sign = torch.where(p9[6] > 0.5, -1.0, 1.0)
     comps = [zero, zero, zero]
     comps[axis] = sign
-    return point, Vec3(*comps)
+    u = (point[ia] - p9[0]) / torch.clamp_min(p9[1] - p9[0], 1e-20)
+    v = (point[ib] - p9[2]) / torch.clamp_min(p9[3] - p9[2], 1e-20)
+    return point, Vec3(*comps), u, v
 
 
 def _chunk_mat(m):
@@ -182,13 +256,16 @@ def _xform_rays(w2o, o: Vec3, d: Vec3):
     return V.affine_point(m, o), V.affine_vec(m, d)
 
 
-def _block_t(ptype, axis, has_xform, params, w2o, o, d, tmin, tmax, valid):
+def _block_t(ptype, axis, has_xform, params, w2o, o, d, tmin, tmax, time,
+             valid):
     """t-matrix [C, N] for one block of C same-typed primitives."""
     check_prim_type(ptype)
     if has_xform:
         o, d = _xform_rays(w2o, o, d)
     if ptype == S.PRIM_SPHERE:
         t = sphere_t(params, o, d, tmin, tmax)
+    elif ptype == S.PRIM_MOVING_SPHERE:
+        t = moving_sphere_t(params, o, d, tmin, tmax, time)
     elif ptype == S.PRIM_RECT:
         t = rect_t(params, o, d, tmin, tmax, axis)
     else:
@@ -196,7 +273,7 @@ def _block_t(ptype, axis, has_xform, params, w2o, o, d, tmin, tmax, valid):
     return torch.where(valid[:, None], t, BIG)
 
 
-def _block_ts(scene, entry, o, d, tmin, tmax):
+def _block_ts(scene, entry, o, d, tmin, tmax, time):
     """(first row, [C, N] t-matrix) of each block of one group: the
     reference's scan over fixed-size blocks as a Python loop."""
     start, count, size, ptype, axis, has_xform, block = entry
@@ -206,18 +283,20 @@ def _block_ts(scene, entry, o, d, tmin, tmax):
         valid = torch.arange(b0 - start, b0 - start + c,
                              device=prims.params.device) < count
         yield b0, _block_t(ptype, axis, has_xform, prims.params[b0:b0 + c],
-                           prims.w2o[b0:b0 + c], o, d, tmin, tmax, valid)
+                           prims.w2o[b0:b0 + c], o, d, tmin, tmax, time,
+                           valid)
 
 
-def intersect_scene(scene, o: Vec3, d: Vec3, tmin, tmax) -> Hit:
+def intersect_scene(scene, o: Vec3, d: Vec3, tmin, tmax, time=0.0) -> Hit:
     """Nearest hit of each ray against every primitive.  `tmax` is a scalar
-    or a per-lane [N] tensor; t is in units of |d|."""
+    or a per-lane [N] tensor; `time` the per-lane [N] shutter time (only
+    moving spheres read it); t is in units of |d|."""
     n = o.x.shape[0]
     dev = o.x.device
     best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     best_prim = torch.full((n,), -1, dtype=torch.int64, device=dev)
     for entry in scene.chunk_plan:
-        for b0, t_mat in _block_ts(scene, entry, o, d, tmin, tmax):
+        for b0, t_mat in _block_ts(scene, entry, o, d, tmin, tmax, time):
             c_t, c_arg = torch.min(t_mat, dim=0)
             better = c_t < best_t
             best_t = torch.where(better, c_t, best_t)
@@ -228,16 +307,16 @@ def intersect_scene(scene, o: Vec3, d: Vec3, tmin, tmax) -> Hit:
     safe_prim = torch.clamp_min(best_prim, 0)
     t_pay = torch.where(hit_mask, best_t, 0.0)
     p9 = [prims.params[:, k][safe_prim] for k in range(S.NUM_PRIM_PARAMS)]
-    point, normal = _winner_payload(scene, safe_prim, hit_mask, p9, o, d,
-                                    t_pay, tmin)
+    point, normal, u, v = _winner_payload(scene, safe_prim, hit_mask, p9, o,
+                                          d, t_pay, time, tmin)
     mat_id = torch.where(hit_mask, prims.material_id[safe_prim], 0)
     return Hit(t=best_t, prim_idx=best_prim, mat_id=mat_id, point=point,
-               normal=normal)
+               normal=normal, u=u, v=v)
 
 
 def _winner_payload(scene, safe_prim, hit_mask, p9, o: Vec3, d: Vec3, t_pay,
-                    tmin):
-    """(point, unit normal) for per-ray winners: one statically typed
+                    time, tmin):
+    """(point, unit normal, u, v) for per-ray winners: one statically typed
     payload per chunk-plan group, selected by the group owning the winner."""
     n = t_pay.shape[0]
     prims = scene.prims
@@ -251,11 +330,12 @@ def _winner_payload(scene, safe_prim, hit_mask, p9, o: Vec3, d: Vec3, t_pay,
     zero = torch.zeros(n, dtype=torch.float32, device=t_pay.device)
     point = Vec3(zero, zero, zero)
     normal = Vec3(zero, zero, zero)
+    uu = vv = zero
     for start, count, size, ptype, axis, has_xform, _ in scene.chunk_plan:
         in_group = hit_mask & (safe_prim >= start) & (safe_prim < start + size)
         o_sel, d_sel = (o_x, d_x) if has_xform else (o, d)
-        g_point, g_normal = _payload(ptype, axis, p9, o_sel, d_sel, t_pay,
-                                     tmin)
+        g_point, g_normal, g_u, g_v = _payload(ptype, axis, p9, o_sel, d_sel,
+                                               t_pay, time, tmin)
         if has_xform:
             g_point = V.affine_point(o2w_g, g_point)
             # normal transforms with (W2O)^T
@@ -269,13 +349,15 @@ def _winner_payload(scene, safe_prim, hit_mask, p9, o: Vec3, d: Vec3, t_pay,
             )
         point = V.where(in_group, g_point, point)
         normal = V.where(in_group, g_normal, normal)
-    return point, normal.normalized()
+        uu = torch.where(in_group, g_u, uu)
+        vv = torch.where(in_group, g_v, vv)
+    return point, normal.normalized(), uu, vv
 
 
-def occluded(scene, o: Vec3, d: Vec3, tmin, tmax):
+def occluded(scene, o: Vec3, d: Vec3, tmin, tmax, time=0.0):
     """Boolean shadow query: any hit in (tmin, tmax)?"""
     occ = torch.zeros(o.x.shape[0], dtype=torch.bool, device=o.x.device)
     for entry in scene.chunk_plan:
-        for _, t_mat in _block_ts(scene, entry, o, d, tmin, tmax):
+        for _, t_mat in _block_ts(scene, entry, o, d, tmin, tmax, time):
             occ = occ | (t_mat < BIG).any(dim=0)
     return occ

@@ -12,7 +12,7 @@ CUDA tensor gets the kernel or an error.
 
 The kernel's envelope is the reference's (`integrator._validate_mega`):
 fast RNG, at most one light, constant/checker textures, spheres, rects and
-boxes, fewer than 128 prims, no gradients, estimator "mis".
+boxes, no gradients, estimator "mis"; "auto" takes it below 128 prims.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from rtw_tpu_torch.ops.bounce import bounce_core
 from rtw_tpu_torch.ops import vec as V
 from rtw_tpu_torch.ops.intersect import BIG, intersect_scene
 from rtw_tpu_torch.ops.shading import gather_shade, resolve_albedo
-from rtw_tpu_torch.ops.trace_kernel import build_props
+from rtw_tpu_torch.ops.trace_kernel import PLAN_COLS, build_props, plan_table
 from rtw_tpu_torch.ops.vec import Vec3
 from rtw_tpu_torch.utils import kernels
 from rtw_tpu_torch.utils import rng as R
@@ -73,7 +73,6 @@ PF_LAREA = 34
 PF_LNRM = 35         # 3
 PF = 40
 
-PLAN_COLS = 7        # (start, count, size, ptype, axis, has_xform, block)
 KERNEL_PRIMS = (S.PRIM_SPHERE, S.PRIM_RECT, S.PRIM_BOX)
 
 # Launches of the CUDA kernel since import (or since a caller reset it).
@@ -130,8 +129,8 @@ def check_plan(scene: S.Scene) -> None:
         if e[3] not in KERNEL_PRIMS:
             raise NotImplementedError(
                 f"chunk plan entry {e}: prim type {e[3]} is outside the "
-                "megakernel (spheres, rects and boxes only; ROADMAP items 6 "
-                "and 7)")
+                "megakernel (spheres, rects and boxes only; moving spheres "
+                "run on the split tier, volumes are ROADMAP item 6)")
 
 
 def mega_params(scene: S.Scene, seed: int, cfg, s_end: int) -> MegaParams:
@@ -154,8 +153,7 @@ def mega_params(scene: S.Scene, seed: int, cfg, s_end: int) -> MegaParams:
 
     any_xform = any(e[5] for e in scene.chunk_plan)
     props = build_props(scene, any_xform)
-    plan = torch.tensor([list(map(int, e)) for e in scene.chunk_plan],
-                        dtype=torch.int32, device=props.device)
+    plan = plan_table(scene)
     h0 = R.path_hash_base(seed)
     c = _CParams()
     c.f[:] = parf.tolist()
@@ -250,14 +248,14 @@ def mega_step_plain(scene: S.Scene, cfg, sf, si, params: MegaParams, rays):
     # ---- bounce uniforms, trace, shade, one bounce -----------------------
     U = R.bounce_uniforms(pk, depth + 1, R.NUM_FIXED_SLOTS)
     tmax_lane = torch.where(alive, float(np.float32(cfg.t_max)), -BIG)
-    hit = intersect_scene(scene, org, dirn, cfg.t_min, tmax_lane)
+    hit = intersect_scene(scene, org, dirn, cfg.t_min, tmax_lane, time)
     hit_mask = hit.prim_idx >= 0
     shade = gather_shade(scene, hit.prim_idx, hit_mask)
-    albedo = resolve_albedo(scene, shade, hit.point)
-    res = bounce_core(bounce_env(scene, cfg), U, depth, alive, org, dirn,
-                      thr, rad, prev_pdf, prev_diffuse, ~hit_mask, hit.point,
-                      hit.normal, shade.mat_type, shade.fuzz, shade.eta,
-                      albedo, hit.prim_idx)
+    albedo = resolve_albedo(scene, shade, hit.point, hit.u, hit.v)
+    res = bounce_core(bounce_env(scene, cfg, time), U, depth, alive, org,
+                      dirn, time, thr, rad, prev_pdf, prev_diffuse,
+                      ~hit_mask, hit.point, hit.normal, shade.mat_type,
+                      shade.fuzz, shade.eta, albedo, hit.prim_idx)
 
     # ---- finish / accumulate ---------------------------------------------
     depth = depth + 1

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rtw_tpu_torch.ops import vec as V
 from rtw_tpu_torch.ops.vec import Vec3
 
 PI = float(np.float32(np.pi))
@@ -19,7 +20,7 @@ TWO_PI = float(np.float32(2.0) * np.float32(np.pi))
 
 
 def safe_sqrt(x, eps=1e-20):
-    return torch.sqrt(torch.clamp_min(x, eps))
+    return V.sqrt(torch.clamp_min(x, eps))
 
 
 def power_heuristic(a, b):

@@ -13,6 +13,13 @@ from typing import Any, NamedTuple
 import torch
 
 
+def sqrt(x):
+    """float32 square root, correctly rounded on every device: torch's CPU
+    kernel can miss by an ulp where XLA and CUDA's sqrtf round correctly,
+    so the root is taken in float64 and rounded once to float32."""
+    return torch.sqrt(x.double()).float()
+
+
 class Vec3(NamedTuple):
     x: Any
     y: Any
@@ -62,7 +69,7 @@ class Vec3(NamedTuple):
         return self.dot(self)
 
     def length(self):
-        return torch.sqrt(torch.clamp_min(self.norm2(), 1e-30))
+        return sqrt(torch.clamp_min(self.norm2(), 1e-30))
 
     def normalized(self) -> "Vec3":
         return self * (1.0 / self.length())

@@ -38,17 +38,21 @@ class RenderConfig:
     spp_chunk: int = 0            # samples per step; 0 = auto
 
     # "auto" | "mega" | "jnp" | "pallas".  On a CUDA scene "auto" selects the
-    # hand-written megakernel (ops/mega_kernel.py) inside its envelope.
+    # hand-written megakernel (ops/mega_kernel.py) below 128 prims and the
+    # split-tier trace and occlusion kernels (ops/trace_kernel.py, forced by
+    # "pallas") from 128 prims up; "jnp" is the plain torch path.
     backend: str = "auto"
 
-    # Image-texture filtering (image textures: ROADMAP item 8).
+    # Image-texture filtering: "stoch565" | "rgb565" | "nearest565" | "rgb8".
     tex_filter: str = "stoch565"
     tex_tile_gate: bool = True    # a TPU mechanism; accepted as a no-op
 
-    # "auto" | "regen" | "mega" | "queue" | "qmega" (queue: ROADMAP item 7,
-    # qmega: ROADMAP queue 2 item D).
+    # "auto" | "regen" | "mega" | "queue" | "qmega" (qmega: ROADMAP queue 2
+    # item D).
     scheduler: str = "auto"
     flush_denom: int = 2          # queue scheduler flush policy
+    # The reference's arithmetic pixel decode (a TPU mechanism: Mosaic has
+    # no per-lane gather); accepted as a no-op, the queue gathers.
     pixel_layout: str = "generic"
 
     # "fast" (pcg_hash, bit-exact with the reference) | "tea" | "threefry"

@@ -5,7 +5,9 @@ Each `csrc/<name>.cu` exposes a plain C interface (no PyTorch headers, so
 nvcc takes seconds), is compiled for `sm_90a` into
 `build/rtw_tpu_torch/<name>-<source hash>.so` at the repository root, and is
 bound by its wrapper module.  The build runs from the sources
-in the checkout only; a changed source gets a new hash and is rebuilt.
+in the checkout only; the hash covers the source and the shared headers
+(`csrc/*.cuh`), so a change to either is rebuilt.  `build_all` starts one
+nvcc per source, all at once.
 `-Xptxas -v` reports registers, shared memory and spills; the report is
 kept in `build_log[name]`.  No `--use_fast_math`; `-fmad=false` keeps each
 float operation rounded on its own, as torch's separate elementwise
@@ -15,7 +17,9 @@ version.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
+import glob
 import hashlib
 import os
 import re
@@ -45,13 +49,19 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _tag(src: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> str:
     """Compile csrc/<name>.cu if its hashed library is missing; returns the
     library path.  The compiler's report goes to build_log[name]."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        tag = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                             ).hexdigest()[:16]
+    tag = _tag(src)
     so_path = os.path.join(BUILD_DIR, f"{name}-{tag}.so")
     if os.path.exists(so_path):
         build_log.setdefault(name, "(cached build)")
@@ -67,6 +77,13 @@ def build(name: str) -> str:
         raise RuntimeError(f"nvcc failed for {src}:\n{build_log[name]}")
     os.replace(tmp, so_path)
     return so_path
+
+
+def build_all(names) -> None:
+    """Build every named source at once, one nvcc process each."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        for fut in [pool.submit(build, n) for n in names]:
+            fut.result()
 
 
 def ptxas_summary(name: str) -> str:

@@ -84,6 +84,13 @@ def make_path_keys(seed: int, pixel_idx, sample_idx, impl: str = "fast"):
     return pixel_sample_hash(seed, pixel_idx, sample_idx)
 
 
+def _slot_rows(h, n_slots: int):
+    """Uniform k of stream h for k < n_slots, as one [n_slots, N] batch:
+    to_unit(pcg(pcg(h + k + 1)))."""
+    k = torch.arange(1, n_slots + 1, device=h.device).reshape(-1, 1)
+    return to_unit(pcg_hash(pcg_hash(h + k)))
+
+
 def bounce_uniforms(path_keys, bounce, n_slots: int, impl: str = "fast"):
     """The per-bounce uniform block: float32 [n_slots, N] in [0, 1).
     `bounce` is a scalar or a per-lane [N] tensor."""
@@ -91,8 +98,7 @@ def bounce_uniforms(path_keys, bounce, n_slots: int, impl: str = "fast"):
     if torch.is_tensor(bounce):
         bounce = bounce.to(torch.int64)
     hb = pcg_hash(path_keys + ((bounce * GOLDEN) & MASK32))
-    rows = [to_unit(pcg_hash(pcg_hash(hb + (k + 1)))) for k in range(n_slots)]
-    return torch.stack(rows, dim=0)
+    return _slot_rows(hb, n_slots)
 
 
 def camera_uniforms(path_keys, impl: str = "fast"):
@@ -100,8 +106,7 @@ def camera_uniforms(path_keys, impl: str = "fast"):
     Returns float32 [5, N]."""
     check_impl(impl)
     hc = pcg_hash(path_keys + CAM_OFF)
-    rows = [to_unit(pcg_hash(pcg_hash(hc + (k + 1)))) for k in range(5)]
-    return torch.stack(rows, dim=0)
+    return _slot_rows(hc, 5)
 
 
 class XorShift32:

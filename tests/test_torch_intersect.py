@@ -16,6 +16,10 @@ import rtw_tpu_torch as rtt
 from rtw_tpu_torch.ops import intersect as TI
 from rtw_tpu_torch.ops.vec import Vec3 as TV
 
+# The suite runs in several worker processes on shared cores: one
+# intra-op thread each keeps torch's thread pools from oversubscribing them.
+torch.set_num_threads(1)
+
 N = 4096
 # per scene: (origin box lo, hi) inside which rays start
 BOUNDS = {0: (0.0, 555.0), 5: (-2.0, 2.0)}
@@ -43,7 +47,8 @@ def _tv(a):
 @pytest.mark.parametrize("sid", [0, 5])
 def test_intersect_scene_matches_reference(sid):
     o, d, tmax = _rays(sid)
-    js, ts = rt.build_scene(sid, 64, 48), rtt.build_scene(sid, 64, 48)
+    js = rt.build_scene(sid, 64, 48)
+    ts = rtt.build_scene(sid, 64, 48, device="cpu")
     zeros = jnp.zeros(N, jnp.float32)
     want = jax.jit(lambda o_, d_, tm: JI.intersect_scene(
         js, o_, d_, 1e-6, tm, zeros, zeros[None]))(_jv(o), _jv(d),
@@ -67,7 +72,8 @@ def test_intersect_scene_matches_reference(sid):
 def test_occluded_matches_reference(sid):
     o, d, tmax = _rays(sid)
     tmax = np.where(np.arange(N) % 3 == 0, -1e30, tmax).astype(np.float32)
-    js, ts = rt.build_scene(sid, 64, 48), rtt.build_scene(sid, 64, 48)
+    js = rt.build_scene(sid, 64, 48)
+    ts = rtt.build_scene(sid, 64, 48, device="cpu")
     zeros = jnp.zeros(N, jnp.float32)
     want = jax.jit(lambda o_, d_, tm: JI.occluded(
         js, o_, d_, 5e-5, tm, zeros, zeros[None]))(_jv(o), _jv(d),
@@ -78,10 +84,9 @@ def test_occluded_matches_reference(sid):
     assert 0.1 < want.mean() < 0.9
 
 
-@pytest.mark.parametrize("sid,what", [(1, "moving spheres"),
-                                      (3, "volume")])
+@pytest.mark.parametrize("sid,what", [(3, "volume"), (4, "volume")])
 def test_unported_prim_types_raise(sid, what):
-    ts = rtt.build_scene(sid, 16, 16)
+    ts = rtt.build_scene(sid, 16, 16, device="cpu")
     o = TV(*torch.zeros(3, 4))
     with pytest.raises(NotImplementedError, match=what):
-        TI.intersect_scene(ts, o, o, 1e-6, 1e27)
+        TI.intersect_scene(ts, o, o, 1e-6, 1e27, torch.zeros(4))

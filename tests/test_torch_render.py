@@ -16,24 +16,47 @@ from rtw_tpu_torch.render import tile_permutation, to_srgb8
 
 from tests.test_goldens import CFG, EXPECTED, GOLDEN_DIR
 
+# The suite runs in several worker processes on shared cores: one
+# intra-op thread each keeps torch's thread pools from oversubscribing them.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.mark.parametrize("sid", [0, 5])
+# Scenes 1 and 2: the share of pixels within the goldens' 1e-4.  The
+# reference's compiled CPU code computes 1/sqrt with an approximate rsqrt
+# (right to the ulp on ~89% of inputs) in every normalisation of its
+# shading; scenes 1 and 2 (small spheres over an r = 1000 ground sphere)
+# can amplify such an ulp until a path goes elsewhere: measured 99.90%
+# (scene 1, 3 pixels) and 99.97% (scene 2, 1 pixel) within 1e-4
+# (ROADMAP "Faults found").
+GOLDEN_PIXEL_SHARE = {1: 0.999, 2: 0.999}
+
+
+@pytest.mark.parametrize("sid", [0, 1, 2, 5])
 def test_render_matches_goldens(sid):
     """The golden config (64x48, 32 spp, depth 10, seed 0, regen) through
     the port's plain path: every pixel within the goldens' rtol/atol 1e-4
-    (measured: all pixels, max abs diff 2.2e-5 on scene 0)."""
+    on scenes 0 and 5 (measured: max abs diff 6.1e-6); on scenes 1 and 2
+    the pixel share of GOLDEN_PIXEL_SHARE within it, and the channel means
+    within 1e-3 of the golden image's."""
     cfg = rtt.RenderConfig(scene_id=sid, **CFG)
     m = {}
-    img = rtt.render(rtt.build_scene(sid, cfg.nx, cfg.ny), cfg, metrics=m)
+    img = rtt.render(rtt.build_scene(sid, cfg.nx, cfg.ny, device="cpu"), cfg,
+                     metrics=m)
     img = img.numpy()
     assert img.shape == (cfg.ny, cfg.nx, 3) and np.isfinite(img).all()
     np.testing.assert_allclose(img.reshape(-1, 3).mean(axis=0),
                                EXPECTED[sid], rtol=0.02, atol=0.003)
     with np.load(os.path.join(GOLDEN_DIR, f"scene{sid}.npz")) as z:
         ref = z["img"]
-    np.testing.assert_allclose(img, ref, rtol=1e-4, atol=1e-4)
+    if sid in GOLDEN_PIXEL_SHARE:
+        close = (np.abs(img - ref) <= 1e-4 + 1e-4 * np.abs(ref)).all(-1)
+        assert close.mean() >= GOLDEN_PIXEL_SHARE[sid]
+        np.testing.assert_allclose(img.reshape(-1, 3).mean(0),
+                                   ref.reshape(-1, 3).mean(0), atol=1e-3)
+    else:
+        np.testing.assert_allclose(img, ref, rtol=1e-4, atol=1e-4)
     assert m["paths"] == cfg.num_pixels * cfg.spp
     assert m["rays"] > m["paths"]
 
@@ -43,7 +66,7 @@ def test_mega_scheduler_renders_the_same_image(sid):
     """The megakernel's plain twin draws the same samples as the regen path:
     the same ray count and the same image to float rounding."""
     cfg = rtt.RenderConfig(nx=32, ny=24, spp=4, max_depth=8, scene_id=sid)
-    scene = rtt.build_scene(sid, cfg.nx, cfg.ny)
+    scene = rtt.build_scene(sid, cfg.nx, cfg.ny, device="cpu")
     ma, mb = {}, {}
     a = rtt.render(scene, cfg, metrics=ma)
     b = rtt.render(scene, rtt.RenderConfig(**{**cfg.__dict__,
@@ -53,20 +76,29 @@ def test_mega_scheduler_renders_the_same_image(sid):
     torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("sid,item", [(1, "ROADMAP item 7"),
-                                      (2, "ROADMAP item 8"),
-                                      (3, "ROADMAP item 6"),
+@pytest.mark.parametrize("sid,item", [(3, "ROADMAP item 6"),
                                       (4, "ROADMAP item")])
 def test_unported_scenes_raise(sid, item):
     cfg = rtt.RenderConfig(nx=8, ny=8, spp=1, scene_id=sid)
     with pytest.raises(NotImplementedError, match=item):
-        rtt.render(rtt.build_scene(sid, 8, 8), cfg)
+        rtt.render(rtt.build_scene(sid, 8, 8, device="cpu"), cfg)
+
+
+def test_build_scene_defaults_to_the_card():
+    """No device asked for: the scene goes to CUDA, and without a card
+    that raises instead of building on the CPU."""
+    if torch.cuda.is_available():
+        assert rtt.build_scene(5, 8, 8).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            rtt.build_scene(5, 8, 8)
 
 
 def test_render_refuses_checkpointing():
     cfg = rtt.RenderConfig(nx=8, ny=8, spp=1, scene_id=5)
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        rtt.render(rtt.build_scene(5, 8, 8), cfg, checkpoint_path="x.npz")
+        rtt.render(rtt.build_scene(5, 8, 8, device="cpu"), cfg,
+                   checkpoint_path="x.npz")
 
 
 def test_tile_permutation_and_srgb_match_reference():
@@ -83,7 +115,7 @@ def test_tile_permutation_and_srgb_match_reference():
 
 def test_render_image_is_the_encoded_render():
     cfg = rtt.RenderConfig(nx=16, ny=8, spp=2, max_depth=4, scene_id=5)
-    scene = rtt.build_scene(5, 16, 8)
+    scene = rtt.build_scene(5, 16, 8, device="cpu")
     img = rtt.render_image(scene, cfg)
     assert img.shape == (8, 16, 3) and img.dtype == np.uint8
     np.testing.assert_array_equal(img, to_srgb8(rtt.render(scene, cfg)))
@@ -91,7 +123,8 @@ def test_render_image_is_the_encoded_render():
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, rtw_tpu_torch, rtw_tpu_torch.ops.mega_kernel, "
-            "rtw_tpu_torch.utils.kernels; "
+            "rtw_tpu_torch.ops.trace_kernel, rtw_tpu_torch.ops.textures, "
+            "rtw_tpu_torch.integrator, rtw_tpu_torch.utils.kernels; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'rtw_tpu.')) or m == 'rtw_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -10,6 +10,10 @@ import torch
 from rtw_tpu.utils import rng as JR
 from rtw_tpu_torch.utils import rng as TR
 
+# The suite runs in several worker processes on shared cores: one
+# intra-op thread each keeps torch's thread pools from oversubscribing them.
+torch.set_num_threads(1)
+
 N = 4096
 
 

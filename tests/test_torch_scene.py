@@ -14,6 +14,10 @@ import rtw_tpu_torch as rtt
 from rtw_tpu_torch.models import scene as TS
 from rtw_tpu_torch.ops import trace_kernel as TTK
 
+# The suite runs in several worker processes on shared cores: one
+# intra-op thread each keeps torch's thread pools from oversubscribing them.
+torch.set_num_threads(1)
+
 NX, NY = 64, 48
 GROUPS = ("prims", "materials", "textures", "lights", "camera")
 
@@ -47,7 +51,7 @@ def _assert_same(got: dict, want: dict):
 @pytest.mark.parametrize("sid", range(6))
 def test_build_scene_equals_reference(sid):
     ref = rt.build_scene(sid, NX, NY)
-    got = rtt.build_scene(sid, NX, NY)
+    got = rtt.build_scene(sid, NX, NY, device="cpu")
     _assert_same(_leaves(got, lambda t: t.numpy()), _jax_state(ref)[0])
     for k in TS.STATIC_FIELDS:
         assert getattr(got, k) == getattr(ref, k), k
@@ -58,7 +62,7 @@ def test_build_scene_equals_reference(sid):
 def test_scene_from_numpy_matches_port_build(sid):
     arrays, static = _jax_state(rt.build_scene(sid, NX, NY))
     carried = TS.scene_from_numpy(arrays, static)
-    own = rtt.build_scene(sid, NX, NY)
+    own = rtt.build_scene(sid, NX, NY, device="cpu")
     _assert_same(_leaves(carried, lambda t: t.numpy()),
                  _leaves(own, lambda t: t.numpy()))
     for k in TS.STATIC_FIELDS:
@@ -73,7 +77,8 @@ def test_scene_from_numpy_matches_port_build(sid):
 def test_build_props_equals_reference(sid, any_xform):
     want = np.asarray(JTK.build_props(rt.build_scene(sid, NX, NY),
                                       any_xform))
-    got = TTK.build_props(rtt.build_scene(sid, NX, NY), any_xform).numpy()
+    got = TTK.build_props(rtt.build_scene(sid, NX, NY, device="cpu"),
+                          any_xform).numpy()
     assert got.shape == want.shape == (40 if sid == 0 else 8,
                                        49 if any_xform else 25)
     np.testing.assert_array_equal(got, want)
@@ -81,12 +86,12 @@ def test_build_props_equals_reference(sid, any_xform):
 
 def test_dof_book_and_bad_inputs():
     ref = rt.build_scene(0, NX, NY, dof="book")
-    got = rtt.build_scene(0, NX, NY, dof="book")
+    got = rtt.build_scene(0, NX, NY, dof="book", device="cpu")
     assert float(got.camera.lens_radius) == float(ref.camera.lens_radius) == 0.5
     with pytest.raises(ValueError):
-        rtt.build_scene(6, NX, NY)
+        rtt.build_scene(6, NX, NY, device="cpu")
     with pytest.raises(ValueError):
-        rtt.build_scene(0, NX, NY, dof="thin")
+        rtt.build_scene(0, NX, NY, dof="thin", device="cpu")
 
 
 def test_make_camera_equals_reference():
