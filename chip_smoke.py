@@ -5,18 +5,20 @@
 
 Builds the CUDA kernels from the checkout's sources (one nvcc per source,
 all at once) and holds each against its plain torch version on the card.
-Then it drives the port's two paths through `render`:
+Then it drives the port's paths through `render`:
 
 - the megakernel path: the Cornell box, 800x800, depth 20, `--spp`
-  samples (default 64; `--spp 1000` is bench.py's workload);
-- the split tier: scenes 1 and 2 at tools/bench_scenes.py's workloads
-  (800x400, 16 spp, depth 20) on the work queue with the trace and
-  occlusion kernels;
+  samples (default 64; `--spp 1000` is bench.py's workload), and scene 3
+  (volumes) at tools/bench_scenes.py's 400x400, 32 spp, depth 20;
+- the split tier: scenes 1, 2 (800x400, 16 spp, depth 20) and 4 (800x400,
+  8 spp, depth 20) on the work queue with the trace and occlusion kernels;
+- scheduler="qmega": scene 1 at 800x400, 16 spp, depth 20 on the work
+  queue with the megakernel's hybrid mode;
 
 and checks that each path launched its kernels.  `--profile` adds a
-torch.profiler breakdown of one scene-2 render.  Each phase prints one
-line; any failure raises, so the run exits non-zero and prints no result.
-With no CUDA device it exits 1.
+torch.profiler breakdown of one scene-2 and one scene-4 render.  Each
+phase prints one line; any failure raises, so the run exits non-zero and
+prints no result.  With no CUDA device it exits 1.
 
 The line before the last is `nvidia-smi`'s name and power limit of the
 card; before it, one JSON object has an entry for each kernel on each
@@ -27,6 +29,7 @@ path, with that path's own launch count; the last line is {"ok": true,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import shutil
 import subprocess
@@ -38,18 +41,23 @@ import torch
 
 BENCH_NX = BENCH_NY = 800
 BENCH_DEPTH = 20
-# tools/bench_scenes.py's split-tier workloads: scene -> (nx, ny, spp)
-SPLIT_WORKLOADS = {1: (800, 400, 16), 2: (800, 400, 16)}
+# tools/bench_scenes.py's workloads: scene -> (nx, ny, spp)
+SCENE3_WORKLOAD = (400, 400, 32)
+SPLIT_WORKLOADS = {1: (800, 400, 16), 2: (800, 400, 16), 4: (800, 400, 8)}
+QMEGA_SCENE = 1
 SPLIT_LANES = 800 * 400
 # the card's published peaks (NVIDIA's data sheet, H100 SXM at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 # f32 operations of one prim test by prim type (intersect.py's arithmetic:
 # sphere 0 quadratic, moving sphere 2 = centre lerp + quadratic, rect 1
-# plane, box 5 slab), of the world->object transform of a ray, of a block's
-# AABB slab test, and of the winner's payload (point, normal, uv, with
-# atan2 and asin at ~20 operations each)
-PRIM_FLOPS = {0: 30, 2: 42, 1: 14, 5: 33}
+# plane, box 5 slab; the volume sphere 3 and volume box 4 are the sphere's
+# quadratic or the box's slab plus _volume_t's 40: |d| 7, the boundary
+# clamps 5, the flight 5 with its log at ~20, the test and t 3), of the
+# world->object transform of a ray, of a block's AABB slab test, and of the
+# winner's payload (point, normal, uv, with atan2 and asin at ~20
+# operations each)
+PRIM_FLOPS = {0: 30, 2: 42, 1: 14, 5: 33, 3: 70, 4: 73}
 XFORM_FLOPS = 33
 SLAB_FLOPS = 33
 PAYLOAD_FLOPS = 100
@@ -57,7 +65,11 @@ PAYLOAD_FLOPS = 100
 SPLIT_BOXES = {0: ((0.0, 0.0, 0.0), (555.0, 555.0, 555.0)),
                1: ((-13.0, 0.0, -13.0), (13.0, 3.0, 13.0)),
                2: ((-13.0, 0.0, -13.0), (13.0, 3.0, 13.0)),
-               5: ((-2.0, -0.5, -2.0), (2.0, 1.5, 1.0))}
+               5: ((-2.0, -0.5, -2.0), (2.0, 1.5, 1.0)),
+               # the union of the block AABBs, without scene 4's radius-500
+               # fog and its ground boxes' outer reach
+               3: ((0.0, 0.0, 0.0), (555.0, 555.0, 555.0)),
+               4: ((-100.0, 0.0, -25.0), (600.0, 555.0, 600.0))}
 
 
 def _run(cmd: list[str]) -> str:
@@ -121,18 +133,19 @@ RAYS_PER_LANE = 2
 
 
 def _compare_step(label, scene, cfg, params, sf, si, tol=1e-3,
-                  min_equal=0.999):
-    """One kernel step against one plain step from the same carry.  i32
-    rows equal on >= 99.9% of lanes, f32 rows within atol/rtol 1e-3 on those
-    lanes, ray counts equal up to the lanes that differ: libm differences
-    (cbrtf vs powf, sinf vs torch's sin) and near-tie winner flips may move
-    a few lanes onto another path.  Returns (max abs diff, report)."""
+                  min_equal=0.999, hybrid=False):
+    """One kernel step against one plain step from the same carry (in
+    hybrid mode with `hybrid`).  i32 rows equal on >= 99.9% of lanes, f32
+    rows within atol/rtol 1e-3 on those lanes, ray counts equal up to the
+    lanes that differ: libm differences (cbrtf vs powf, sinf vs torch's sin)
+    and near-tie winner flips may move a few lanes onto another path.
+    Returns (max abs diff, report)."""
     from rtw_tpu_torch.ops import mega_kernel as MK
 
     rk = torch.zeros(1, dtype=torch.int64, device="cuda")
     rp = torch.zeros_like(rk)
-    k_sf, k_si = MK.mega_step(scene, cfg, sf, si, params, rk)
-    p_sf, p_si = MK.mega_step_plain(scene, cfg, sf, si, params, rp)
+    k_sf, k_si = MK.mega_step(scene, cfg, sf, si, params, rk, hybrid)
+    p_sf, p_si = MK.mega_step_plain(scene, cfg, sf, si, params, rp, hybrid)
     torch.cuda.synchronize()
     same = (k_si == p_si).all(dim=0)
     n_diff = int((~same).sum())
@@ -162,7 +175,7 @@ def phase_one_step():
 
     worst = 0.0
     parts = []
-    for sid in (0, 5):
+    for sid in (0, 5, 3):
         cfg = rtt.RenderConfig(nx=64, ny=48, spp=4, max_depth=10,
                                scene_id=sid)
         scene = rtt.build_scene(sid, cfg.nx, cfg.ny, device="cuda")
@@ -175,21 +188,38 @@ def phase_one_step():
     return worst
 
 
-def phase_small_render():
-    """Kernel render (auto) against the plain regen path on the card."""
-    import dataclasses
+@contextlib.contextmanager
+def _plain_mega():
+    """`mega_step` replaced by its plain twin while the block runs: the same
+    scheduler on the same carry, each step in plain torch on the card."""
+    from rtw_tpu_torch.ops import mega_kernel as MK
 
+    kernel = MK.mega_step
+    MK.mega_step = (lambda scene, cfg, sf, si, params, rays, hybrid=False:
+                    MK.mega_step_plain(scene, cfg, sf, si, params, rays,
+                                       hybrid))
+    try:
+        yield
+    finally:
+        MK.mega_step = kernel
+
+
+def phase_small_render():
+    """Kernel render (auto) against the same render with the plain twin on
+    the card, 128x128, 16 spp, depth 10: channel means within rtol 0.02 /
+    atol 0.003, rays within 0.5%; scene 3 (volumes) equal rays and every
+    pixel within 1e-4."""
     import rtw_tpu_torch as rtt
 
     parts = []
-    for sid in (0, 5):
+    for sid in (0, 5, 3):
         cfg = rtt.RenderConfig(nx=128, ny=128, spp=16, max_depth=10,
                                scene_id=sid)
         scene = rtt.build_scene(sid, cfg.nx, cfg.ny, device="cuda")
         mk, mp = {}, {}
         img_k = rtt.render(scene, cfg, metrics=mk)
-        img_p = rtt.render(scene, dataclasses.replace(cfg, scheduler="regen"),
-                           metrics=mp)
+        with _plain_mega():
+            img_p = rtt.render(scene, cfg, metrics=mp)
         if not bool(torch.isfinite(img_k).all()):
             raise AssertionError(f"scene {sid}: non-finite kernel image")
         mean_k = img_k.reshape(-1, 3).mean(0).cpu().numpy()
@@ -201,9 +231,13 @@ def phase_small_render():
                                  f"{mp['rays']}")
         px = float(((img_k - img_p).abs() <= 1e-4 + 1e-4 * img_p.abs())
                    .all(-1).float().mean())
-        parts.append(f"scene {sid}: means {_fmt(mean_k)} vs {_fmt(mean_p)}, "
-                     f"rays {mk['rays']} vs {mp['rays']}, pixels within "
-                     f"1e-4: {px:.4f}")
+        report = (f"scene {sid}: means {_fmt(mean_k)} vs {_fmt(mean_p)}, "
+                  f"rays {mk['rays']} vs {mp['rays']}, pixels within 1e-4: "
+                  f"{px:.4f}")
+        if sid == 3 and (mk["rays"] != mp["rays"] or px < 1.0):
+            raise AssertionError(f"{report}: scene 3 needs equal rays and "
+                                 "every pixel within 1e-4")
+        parts.append(report)
     print("[4 small render] " + "; ".join(parts), flush=True)
 
 
@@ -219,68 +253,90 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def phase_main(spp: int):
-    """The main path through `render`, then the step times at its width."""
+def _turns(kernel, plain):
+    """(kernel ms, plain ms, report): CUDA-event times in turns, plain,
+    kernel, kernel, plain, each the mean of its reps."""
+    plain(), kernel()
+    p1 = _time_ms(plain, 5)
+    k1 = _time_ms(kernel, 50)
+    k2 = _time_ms(kernel, 50)
+    p2 = _time_ms(plain, 5)
+    return ((k1 + k2) / 2, (p1 + p2) / 2,
+            f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
+
+
+def _mega_bound(scene, sf, si):
+    """Bound of one megakernel step: the carry read and written once (17
+    f32 + 5 i32 rows each way), or the f32 work of the alive lanes: the
+    nearest-hit sweep over every prim, the shadow ray's where the scene has
+    a light, and ~300 operations of shading."""
+    from rtw_tpu_torch.ops import mega_kernel as MK
+
+    n = sf.shape[1]
+    n_alive = int((si[MK.I_ALIVE] > 0).sum())
+    sweep = sum(e[1] * PRIM_FLOPS[e[3]] + e[1] * XFORM_FLOPS * e[5]
+                for e in scene.chunk_plan)
+    sweeps = 1 + (scene.num_lights > 0)
+    return _bound(2 * (MK.NF + MK.NI) * 4 * n,
+                  n_alive * (sweeps * sweep + 300))
+
+
+def _mega_path(label, sid, nx, ny, spp):
+    """A megakernel path through `render` (warm-up with the identical
+    config, then timed with the launch count set to 0 just before it), then
+    kernel against plain at its width and depth from one mid-render carry
+    (after 10 iterations) and the per-iteration step times from that
+    carry."""
     import rtw_tpu_torch as rtt
     from rtw_tpu_torch.ops import mega_kernel as MK
 
-    cfg = rtt.RenderConfig(nx=BENCH_NX, ny=BENCH_NY, spp=spp,
-                           max_depth=BENCH_DEPTH, scene_id=0)
-    scene = rtt.build_scene(0, cfg.nx, cfg.ny, device="cuda")
+    cfg = rtt.RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=BENCH_DEPTH,
+                           scene_id=sid)
+    scene = rtt.build_scene(sid, nx, ny, device="cuda")
     rtt.render(scene, cfg)                    # warm-up, identical config
     m = {}
     MK.launches = 0
     img = rtt.render(scene, cfg, metrics=m)
     launches = MK.launches
     if launches <= 0:
-        raise AssertionError("the main path launched no mega_step kernel")
+        raise AssertionError(f"{label}: no mega_step kernel launched")
     if tuple(img.shape) != (cfg.ny, cfg.nx, 3):
-        raise AssertionError(f"main-path image has shape {tuple(img.shape)}")
+        raise AssertionError(f"{label}: image has shape {tuple(img.shape)}")
     if not bool(torch.isfinite(img).all()):
-        raise AssertionError("non-finite main-path image")
+        raise AssertionError(f"{label}: non-finite image")
     mean = img.reshape(-1, 3).mean(0).cpu().numpy()
-    print(f"[5 main path] Cornell {cfg.nx}x{cfg.ny} spp {spp} depth "
+    print(f"[{label}] scene {sid} {nx}x{ny} spp {spp} depth "
           f"{cfg.max_depth}: {m['wall_seconds']:.3f} s, {m['rays']} rays, "
           f"{m['mrays_per_sec']:.2f} Mrays/s, {launches} launches, mean "
           f"{_fmt(mean)} on {card_line()}", flush=True)
 
-    # kernel against plain at the main path's width and depth (640k lanes,
-    # max_depth 20) from one mid-render carry, then the per-iteration step
-    # times from that carry, in turns: plain, kernel, kernel, plain
     params, sf, si = _carry_after(scene, cfg, 10)
-    err, report = _compare_step(f"Cornell {cfg.num_pixels} lanes, carry "
+    err, report = _compare_step(f"scene {sid} {cfg.num_pixels} lanes, carry "
                                 f"after 10 iterations", scene, cfg, params,
                                 sf, si)
-    print(f"[5 main-path step check] {report}", flush=True)
+    print(f"[{label} step check] {report}", flush=True)
     rays = torch.zeros(1, dtype=torch.int64, device="cuda")
-
-    def kernel():
-        MK.mega_step(scene, cfg, sf, si, params, rays)
-
-    def plain():
-        MK.mega_step_plain(scene, cfg, sf, si, params, rays)
-
-    plain(), kernel()
-    p1 = _time_ms(plain, 5)
-    k1 = _time_ms(kernel, 50)
-    k2 = _time_ms(kernel, 50)
-    p2 = _time_ms(plain, 5)
-    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    per_launch = m["wall_seconds"] * 1e3 / launches
-    # bound: the carry read and written once (17 f32 + 5 i32 rows each
-    # way), or the f32 work of the alive lanes: both sweeps over every prim
-    # (nearest hit, shadow ray) and ~300 operations of shading
-    n = cfg.num_pixels
-    n_alive = int((si[MK.I_ALIVE] > 0).sum())
-    sweep = sum(e[1] * PRIM_FLOPS[e[3]] + e[1] * XFORM_FLOPS * e[5]
-                for e in scene.chunk_plan)
-    bound = _bound(2 * (MK.NF + MK.NI) * 4 * n, n_alive * (2 * sweep + 300))
-    print(f"[5 step times] {n} lanes, carry after 10 iterations: kernel "
-          f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms per iteration; "
-          f"bound {bound[0]:.4f} ms ({bound[1]}); main-path wall per launch "
-          f"{per_launch:.4f} ms", flush=True)
+    ms, plain_ms, times = _turns(
+        lambda: MK.mega_step(scene, cfg, sf, si, params, rays),
+        lambda: MK.mega_step_plain(scene, cfg, sf, si, params, rays))
+    bound = _mega_bound(scene, sf, si)
+    print(f"[{label} step times] {cfg.num_pixels} lanes, carry after 10 "
+          f"iterations: {times} per iteration; bound {bound[0]:.4f} ms "
+          f"({bound[1]}); wall per launch "
+          f"{m['wall_seconds'] * 1e3 / launches:.4f} ms", flush=True)
     return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+
+
+def phase_main(spp: int):
+    """The main path: the Cornell box at 800x800, depth 20."""
+    return _mega_path("5 main path", 0, BENCH_NX, BENCH_NY, spp)
+
+
+def phase_scene3():
+    """Scene 3 (a volume sphere and a transformed volume box, sky, no
+    light) on the megakernel path at bench_scenes' workload."""
+    return _mega_path("11 scene 3 path", 3, *SCENE3_WORKLOAD)
 
 
 def _bound(n_bytes, n_flops):
@@ -292,7 +348,7 @@ def _bound(n_bytes, n_flops):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
-def _split_work(scene, o, d, tmin, tmax, time, nearest):
+def _split_work(scene, o, d, tmin, tmax, time, vol_u, nearest):
     """f32 operations the split kernel needs for these rays, counted by
     replaying its traversal in plain torch.  Only live lanes (tmax > tmin)
     count: a dead lane's answer (a miss, not occluded) needs no test.  Each
@@ -314,7 +370,8 @@ def _split_work(scene, o, d, tmin, tmax, time, nearest):
     for entry in scene.chunk_plan:
         start, count, size, ptype, axis, xform, block = entry
         per = PRIM_FLOPS[ptype] + XFORM_FLOPS * int(xform)
-        for b0, t_mat in I._block_ts(scene, entry, o, d, tmin, tmax, time):
+        for b0, t_mat in I._block_ts(scene, entry, o, d, tmin, tmax, time,
+                                     vol_u):
             ab = scene.block_aabbs[bid]
             near = torch.full_like(best, -I.BIG)
             far = torch.full_like(best, I.BIG)
@@ -448,47 +505,51 @@ def _compare_occluded(label, scene, tables, args, min_equal=0.999):
 
 
 def phase_split_kernels():
-    """Kernels B and C against their plain versions on scenes 0, 1, 2, 5
-    (scene 0 for the transformed box), 320k rays each; every 8th lane is
-    dead (tmax = -BIG)."""
+    """Kernels B and C against their plain versions on scenes 0, 1, 2, 5, 3
+    and 4 (scene 0 for the transformed box, 3 and 4 for the volumes), 320k
+    rays each, with random volume uniforms in [0, 1) (the trace's rows and
+    the shadow ray's own); every 8th lane is dead (tmax = -BIG)."""
     import rtw_tpu_torch as rtt
     from rtw_tpu_torch.ops import trace_kernel as TK
     from rtw_tpu_torch.ops.intersect import BIG
 
     worst = {"trace": 0.0, "occluded": 0.0}
-    for sid in (0, 1, 2, 5):
+    for sid in (0, 1, 2, 5, 3, 4):
         scene = rtt.build_scene(sid, 800, 400, device="cuda")
         tables = TK.split_tables(scene)
         o, d, time, extent = _split_rays(sid, scene, SPLIT_LANES, 100 + sid)
+        g = torch.Generator(device="cuda").manual_seed(200 + sid)
+        vol_u, occ_u = torch.rand((2, max(scene.n_vol, 1), SPLIT_LANES),
+                                  generator=g, device="cuda")
         lane = torch.arange(SPLIT_LANES, device="cuda")
         dead = lane % 8 == 7
         tmax = torch.where(dead, -BIG, 1e27)
         err, rep = _compare_trace(f"B scene {sid}", scene, tables,
-                                  (o, d, 1e-6, tmax, time))
+                                  (o, d, 1e-6, tmax, time, vol_u))
         worst["trace"] = max(worst["trace"], err)
         print(f"[6 split kernels] {rep}", flush=True)
-        g = torch.Generator(device="cuda").manual_seed(200 + sid)
         occ_tmax = torch.where(dead, -BIG, extent * torch.rand(
             SPLIT_LANES, generator=g, device="cuda"))
         err, rep = _compare_occluded(f"C scene {sid}", scene, tables,
-                                     (o, d, 5e-5, occ_tmax, time))
+                                     (o, d, 5e-5, occ_tmax, time, occ_u))
         worst["occluded"] = max(worst["occluded"], err)
         print(f"[6 split kernels] {rep}", flush=True)
     return worst
 
 
 def phase_split_small_render():
-    """Scenes 1 and 2 at 128x128, 8 spp, depth 10: `auto` (the queue with
-    kernels B and C) against the plain queue (backend="jnp") on the card.
-    Rays equal up to 2 per bounce of a differing pixel's paths, >= 99.9% of
-    pixels within 1e-4, channel means within rtol 0.02 / atol 0.003."""
+    """Scenes 1, 2 and 4 at 128x128, 8 spp, depth 10: `auto` (the queue
+    with kernels B and C) against the plain queue (backend="jnp") on the
+    card.  Rays equal up to 2 per bounce of a differing pixel's paths, >=
+    99.9% of pixels within 1e-4, channel means within rtol 0.02 / atol
+    0.003."""
     import dataclasses
 
     import rtw_tpu_torch as rtt
     from rtw_tpu_torch.ops import trace_kernel as TK
 
     parts = []
-    for sid in (1, 2):
+    for sid in (1, 2, 4):
         cfg = rtt.RenderConfig(nx=128, ny=128, spp=8, max_depth=10,
                                scene_id=sid)
         scene = rtt.build_scene(sid, cfg.nx, cfg.ny, device="cuda")
@@ -522,11 +583,11 @@ def phase_split_small_render():
 
 
 def phase_split_main():
-    """The split tier through `render` at full width: scenes 1 and 2 at
+    """The split tier through `render` at full width: scenes 1, 2 and 4 at
     bench_scenes' workloads, each a path of its own: warm-up with the
     identical config, then the timed render with the launch counts set to
     0 just before it and read just after.  Returns {scene: (trace
-    launches, occlusion launches)}."""
+    launches, occlusion launches, metrics)}."""
     import rtw_tpu_torch as rtt
     from rtw_tpu_torch.ops import trace_kernel as TK
 
@@ -549,7 +610,7 @@ def phase_split_main():
         if tuple(img.shape) != (ny, nx, 3) or not bool(
                 torch.isfinite(img).all()):
             raise AssertionError(f"scene {sid}: bad image {tuple(img.shape)}")
-        counts[sid] = (nt, no)
+        counts[sid] = (nt, no, m)
         mean = img.reshape(-1, 3).mean(0).cpu().numpy()
         print(f"[8 split main path] scene {sid} {nx}x{ny} spp {spp} depth "
               f"{cfg.max_depth}: {m['wall_seconds']:.3f} s, {m['rays']} "
@@ -559,17 +620,18 @@ def phase_split_main():
     return counts
 
 
-def _capture_split_inputs(sid, call=10):
-    """The arguments of the `call`-th trace and occlusion launch of a
-    full-width render of scene `sid` (the queue's wavefront is full then)."""
+class _Captured(Exception):
+    """Ends a render once every wrapped launch has been recorded."""
+
+
+def _capture(cfg, wrappers, call=10):
+    """{name: arguments} of the `call`-th call of each wrapper, one
+    (module, attribute) per name, in a full-width render with `cfg` (the
+    queue's wavefront is full then); the render stops there."""
     import rtw_tpu_torch as rtt
-    from rtw_tpu_torch.ops import trace_kernel as TK
     from rtw_tpu_torch.ops.vec import Vec3
 
-    nx, ny, spp = SPLIT_WORKLOADS[sid]
-    cfg = rtt.RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=BENCH_DEPTH,
-                           scene_id=sid)
-    scene = rtt.build_scene(sid, nx, ny)
+    scene = rtt.build_scene(cfg.scene_id, cfg.nx, cfg.ny)
     got = {}
 
     def keep(x):
@@ -580,80 +642,216 @@ def _capture_split_inputs(sid, call=10):
     def recorder(name, fn):
         count = [0]
 
-        def call_it(*args):
+        def call_it(*args, **kw):
             count[0] += 1
             if count[0] == call:
-                got[name] = tuple(keep(a) for a in args)
-            return fn(*args)
+                got[name] = (tuple(keep(a) for a in args),
+                             {k: keep(v) for k, v in kw.items()})
+                if len(got) == len(wrappers):
+                    raise _Captured
+            return fn(*args, **kw)
         return call_it
 
-    orig = TK.trace, TK.occluded_kernel
-    TK.trace = recorder("trace", orig[0])
-    TK.occluded_kernel = recorder("occluded", orig[1])
+    orig = {name: getattr(mod, attr)
+            for name, (mod, attr) in wrappers.items()}
+    for name, (mod, attr) in wrappers.items():
+        setattr(mod, attr, recorder(name, orig[name]))
     try:
         rtt.render(scene, cfg)
+    except _Captured:
+        pass
     finally:
-        TK.trace, TK.occluded_kernel = orig
+        for name, (mod, attr) in wrappers.items():
+            setattr(mod, attr, orig[name])
     return got
+
+
+def _without_volumes(scene):
+    """The scene with its volume groups (and their block AABBs) taken out
+    of the chunk plan: the trace kernel's time on it, at the same rays,
+    less its time on the whole scene, is the volume tests' share."""
+    import dataclasses
+
+    from rtw_tpu_torch.ops.intersect import VOLUME_PRIMS
+
+    plan, rows, bid = [], [], 0
+    for e in scene.chunk_plan:
+        n_blocks = e[2] // e[6]
+        if e[3] not in VOLUME_PRIMS:
+            plan.append(e)
+            rows += range(bid, bid + n_blocks)
+        bid += n_blocks
+    return dataclasses.replace(scene, chunk_plan=tuple(plan),
+                               block_aabbs=scene.block_aabbs[rows])
 
 
 def phase_split_step_times():
     """B and C at each split path's shapes: the inputs of the 10th launch
-    of a full-width render of scene 1 (B) and scene 2 (B and C), 320k
-    lanes, kernel against plain, then CUDA-event times in turns: plain,
-    kernel, kernel, plain.  Returns {(name, scene): row}."""
+    of a full-width render of scenes 1 (B), 2 and 4 (B and C), 320k lanes,
+    kernel against plain, then CUDA-event times in turns: plain, kernel,
+    kernel, plain.  On scene 4, B also at the same rays without the volume
+    groups, for the volume tests' share.  Returns {(name, scene): row}."""
+    import rtw_tpu_torch as rtt
     from rtw_tpu_torch.ops import trace_kernel as TK
 
     out = {}
-    for sid in SPLIT_WORKLOADS:
-        got = _capture_split_inputs(sid)
+    for sid, (nx, ny, spp) in SPLIT_WORKLOADS.items():
+        cfg = rtt.RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=BENCH_DEPTH,
+                               scene_id=sid)
+        wrappers = {"trace": (TK, "trace")}
+        if sid != 1:                      # scene 1 has no light: no NEE
+            wrappers["occluded"] = (TK, "occluded_kernel")
+        got = _capture(cfg, wrappers)
         for name, kern, plain, nearest in (
                 ("trace", TK.trace, TK.trace_plain, True),
                 ("occluded", TK.occluded_kernel, TK.occluded_plain, False)):
             if name not in got:
-                continue                  # scene 1 has no light: no NEE
-            scene, *args, tables = got[name]
+                continue
+            (scene, *args, tables), _ = got[name]
             args = tuple(args)
             cmp = _compare_trace if nearest else _compare_occluded
             err, rep = cmp(f"{name} scene {sid} at launch 10", scene, tables,
                            args)
             print(f"[9 split step check] {rep}", flush=True)
-
-            def k(kern=kern, scene=scene, args=args, tables=tables):
-                kern(scene, *args, tables)
-
-            def p(plain=plain, scene=scene, args=args):
-                plain(scene, *args)
-
-            p(), k()
-            p1 = _time_ms(p, 5)
-            k1 = _time_ms(k, 50)
-            k2 = _time_ms(k, 50)
-            p2 = _time_ms(p, 5)
+            ms, plain_ms, times = _turns(
+                lambda: kern(scene, *args, tables),
+                lambda: plain(scene, *args))
             bound = _split_bound(scene, tables, args, nearest)
             n = args[0].x.shape[0]
             live = int((args[3] > args[2]).sum())
             print(f"[9 split step times] {name} scene {sid}: {n} lanes "
-                  f"({live} live), kernel {k1:.4f}/{k2:.4f} ms, plain "
-                  f"{p1:.4f}/{p2:.4f} ms; bound {bound[0]:.4f} ms "
+                  f"({live} live), {times}; bound {bound[0]:.4f} ms "
                   f"({bound[1]})", flush=True)
-            out[name, sid] = dict(max_abs_err=err, ms=(k1 + k2) / 2,
-                                  plain_ms=(p1 + p2) / 2, bound_ms=bound[0],
-                                  bound_by=bound[1], library_ms=None)
+            if nearest and scene.n_vol:
+                bare = _without_volumes(scene)
+                bare_tables = TK.split_tables(bare)
+
+                def whole():
+                    kern(scene, *args, tables)
+
+                def without():
+                    kern(bare, *args, bare_tables)
+
+                w1, b1, b2, w2 = (_time_ms(f, 50) for f in
+                                  (whole, without, without, whole))
+                share = 1.0 - (b1 + b2) / (w1 + w2)
+                print(f"[9 split step times] trace scene {sid}, same rays: "
+                      f"{w1:.4f}/{w2:.4f} ms with its volume groups, "
+                      f"{b1:.4f}/{b2:.4f} ms without; the volume tests' "
+                      f"share of B {share:.3f}", flush=True)
+            out[name, sid] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound[0], bound_by=bound[1],
+                                  library_ms=None)
     return out
 
 
-def phase_profile():
-    """torch.profiler over one full-width scene-2 render: device time of
-    kernels B and C, of the torch glue (every other kernel), and the idle
-    remainder, as shares of the wall."""
+def phase_hybrid_step():
+    """D against its plain version: one hybrid step from the carry of the
+    10th hybrid launch of a full-width qmega render, on scene 0 (800x800,
+    the main path's lanes) and scene 1 (800x400), with `_compare_step`'s
+    test; then D's step times at scene 1's carry, in turns.  Returns D's
+    row of the kernels line, without its launches."""
+    import rtw_tpu_torch as rtt
+    from rtw_tpu_torch.ops import mega_kernel as MK
+
+    worst = 0.0
+    for sid, (nx, ny, spp) in ((0, (BENCH_NX, BENCH_NY, 64)),
+                               (QMEGA_SCENE, SPLIT_WORKLOADS[QMEGA_SCENE])):
+        cfg = rtt.RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=BENCH_DEPTH,
+                               scene_id=sid, scheduler="qmega")
+        (scene, cfg, sf, si, params, _), _ = _capture(
+            cfg, {"mega_step": (MK, "mega_step")})["mega_step"]
+        err, report = _compare_step(
+            f"scene {sid} {sf.shape[1]} lanes, carry of hybrid launch 10",
+            scene, cfg, params, sf, si, hybrid=True)
+        worst = max(worst, err)
+        print(f"[12 hybrid step check] {report}", flush=True)
+    rays = torch.zeros(1, dtype=torch.int64, device="cuda")
+    ms, plain_ms, times = _turns(
+        lambda: MK.mega_step(scene, cfg, sf, si, params, rays, hybrid=True),
+        lambda: MK.mega_step_plain(scene, cfg, sf, si, params, rays,
+                                   hybrid=True))
+    bound = _mega_bound(scene, sf, si)
+    print(f"[12 hybrid step times] scene {QMEGA_SCENE} {sf.shape[1]} lanes, "
+          f"carry of hybrid launch 10: {times}; bound {bound[0]:.4f} ms "
+          f"({bound[1]})", flush=True)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+
+
+def phase_qmega_small():
+    """scheduler="qmega" on scene 1 at 128x128, 8 spp, depth 10: the
+    hybrid kernel against the same render with the plain twin on the card:
+    equal rays and every pixel within 1e-4."""
+    import rtw_tpu_torch as rtt
+    from rtw_tpu_torch.ops import mega_kernel as MK
+
+    cfg = rtt.RenderConfig(nx=128, ny=128, spp=8, max_depth=10,
+                           scene_id=QMEGA_SCENE, scheduler="qmega")
+    scene = rtt.build_scene(QMEGA_SCENE, cfg.nx, cfg.ny)
+    mk, mp = {}, {}
+    n0 = MK.hybrid_launches
+    img_k = rtt.render(scene, cfg, metrics=mk)
+    if MK.hybrid_launches == n0:
+        raise AssertionError("qmega launched no hybrid mega_step kernel")
+    with _plain_mega():
+        img_p = rtt.render(scene, cfg, metrics=mp)
+    if not bool(torch.isfinite(img_k).all()):
+        raise AssertionError("qmega: non-finite kernel image")
+    close = ((img_k - img_p).abs() <= 1e-4 + 1e-4 * img_p.abs()).all(-1)
+    px = float(close.float().mean())
+    report = (f"scene {QMEGA_SCENE} 128x128 spp 8: rays {mk['rays']} vs "
+              f"{mp['rays']}, pixels within 1e-4: {px:.5f} "
+              f"({int((~close).sum())} outside)")
+    if mk["rays"] != mp["rays"] or px < 1.0:
+        raise AssertionError(f"{report}: needs equal rays and every pixel")
+    print(f"[13 qmega small render] {report}", flush=True)
+
+
+def phase_qmega_main(queue):
+    """scheduler="qmega" through `render` on scene 1 at bench_scenes'
+    workload (800x400, 16 spp, depth 20): warm-up with the identical
+    config, then timed with the hybrid launch count set to 0 just before it
+    and read just after, beside the queue's figure for the same workload
+    (`queue`: phase 8's metrics, this run).  Returns the launch count."""
+    import rtw_tpu_torch as rtt
+    from rtw_tpu_torch.ops import mega_kernel as MK
+
+    nx, ny, spp = SPLIT_WORKLOADS[QMEGA_SCENE]
+    cfg = rtt.RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=BENCH_DEPTH,
+                           scene_id=QMEGA_SCENE, scheduler="qmega")
+    scene = rtt.build_scene(QMEGA_SCENE, nx, ny)
+    rtt.render(scene, cfg)                      # warm-up
+    m = {}
+    MK.hybrid_launches = 0
+    img = rtt.render(scene, cfg, metrics=m)
+    launches = MK.hybrid_launches
+    if launches <= 0:
+        raise AssertionError("the qmega path launched no hybrid kernel")
+    if tuple(img.shape) != (ny, nx, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"qmega: bad image {tuple(img.shape)}")
+    mean = img.reshape(-1, 3).mean(0).cpu().numpy()
+    print(f"[14 qmega path] scene {QMEGA_SCENE} {nx}x{ny} spp {spp} depth "
+          f"{cfg.max_depth}: {m['wall_seconds']:.3f} s, {m['rays']} rays, "
+          f"{m['mrays_per_sec']:.2f} Mrays/s, {launches} hybrid launches, "
+          f"mean {_fmt(mean)}; the queue with B (phase 8): "
+          f"{queue['wall_seconds']:.3f} s, {queue['rays']} rays, "
+          f"{queue['mrays_per_sec']:.2f} Mrays/s on {card_line()}",
+          flush=True)
+    return launches
+
+
+def phase_profile(sid):
+    """torch.profiler over one full-width render of split-tier scene `sid`:
+    device time of kernels B and C, of the torch glue (every other kernel),
+    and the idle remainder, as shares of the wall."""
     import rtw_tpu_torch as rtt
     from torch.profiler import ProfilerActivity, profile
 
-    nx, ny, spp = SPLIT_WORKLOADS[2]
+    nx, ny, spp = SPLIT_WORKLOADS[sid]
     cfg = rtt.RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=BENCH_DEPTH,
-                           scene_id=2)
-    scene = rtt.build_scene(2, nx, ny)
+                           scene_id=sid)
+    scene = rtt.build_scene(sid, nx, ny)
     rtt.render(scene, cfg)
     m = {}
     with profile(activities=[ProfilerActivity.CPU,
@@ -675,7 +873,7 @@ def phase_profile():
     busy = sum(us.values())
     shares = ", ".join(f"{k} {v / 1e3:.2f} ms ({100 * v / wall_us:.1f}%)"
                        for k, v in us.items())
-    print(f"[10 profile] scene 2 {nx}x{ny} spp {spp}: wall "
+    print(f"[10 profile] scene {sid} {nx}x{ny} spp {spp}: wall "
           f"{wall_us / 1e3:.2f} ms, {m['mrays_per_sec']:.2f} Mrays/s under "
           f"the profiler; {shares}; glue kernels {n_glue}; idle "
           f"{(wall_us - busy) / 1e3:.2f} ms "
@@ -687,7 +885,7 @@ def main(argv=None) -> int:
     ap.add_argument("--spp", type=int, default=64,
                     help="main-path samples per pixel (1000 = bench.py)")
     ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler breakdown of a scene-2 render")
+                    help="add torch.profiler breakdowns of a scene-2 and a scene-4 render")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -713,16 +911,27 @@ def main(argv=None) -> int:
     timed(phase_small_render)
     mega = timed(phase_main, args.spp)
     mega["max_abs_err"] = max(small_err, mega["max_abs_err"])
+    scene3 = timed(phase_scene3)
+    scene3["max_abs_err"] = max(small_err, scene3["max_abs_err"])
     split_err = timed(phase_split_kernels)
     timed(phase_split_small_render)
     counts = timed(phase_split_main)
     steps = timed(phase_split_step_times)
+    hybrid = timed(phase_hybrid_step)
+    timed(phase_qmega_small)
+    hybrid["launches"] = timed(phase_qmega_main, counts[QMEGA_SCENE][2])
     if args.profile:
-        timed(phase_profile)
+        for sid in (2, 4):
+            timed(phase_profile, sid)
 
     # one entry per kernel and path: `launches` is that path's own count
-    rows = [("mega_step", "cornell", "rtw_tpu_torch/csrc/mega_kernel.cu",
-             "rtw_tpu/ops/mega_kernel.py:387", mega)]
+    mega_src = "rtw_tpu_torch/csrc/mega_kernel.cu"
+    rows = [("mega_step", "cornell", mega_src,
+             "rtw_tpu/ops/mega_kernel.py:387", mega),
+            ("mega_step", "scene3", mega_src,
+             "rtw_tpu/ops/mega_kernel.py:387", scene3),
+            ("mega_step_hybrid", f"scene{QMEGA_SCENE}", mega_src,
+             "rtw_tpu/ops/mega_kernel.py:437", hybrid)]
     for (name, sid), v in steps.items():
         v["launches"] = counts[sid][0 if name == "trace" else 1]
         v["max_abs_err"] = max(split_err[name], v["max_abs_err"])

@@ -1,6 +1,8 @@
 // Device geometry shared by the CUDA kernels of this package: float3-style
-// vectors, the 3x4 affine transforms of the props table and the primitive
-// t-tests of rtw_tpu/ops/intersect.py.  Every expression follows the plain
+// vectors, the 3x4 affine transforms of the props table, the primitive
+// t-tests of rtw_tpu/ops/intersect.py for all six prim types (`prim_t`, and
+// `sweep_rows` over a plan group's rows) and the winner's payload
+// (`hit_payload`).  Every expression follows the plain
 // torch version's order of operations term by term, and the kernels are
 // built with -fmad=false, so kernel and plain version round alike; the
 // fused multiply-adds are explicit (fmaf), where the plain version fuses
@@ -16,6 +18,15 @@ constexpr float BIG = 1e30f;
 constexpr float PI_F = 3.1415927410125732f;        // float32(pi)
 constexpr float TWO_PI_F = 6.2831854820251465f;    // float32(2 pi)
 constexpr float HALF_PI_F = 1.5707963705062866f;   // float32(pi / 2)
+
+// prim types (rtw_tpu_torch/models/scene.py)
+constexpr int PRIM_SPHERE = 0, PRIM_RECT = 1, PRIM_MOVING_SPHERE = 2,
+              PRIM_VOLUME_SPHERE = 3, PRIM_VOLUME_BOX = 4, PRIM_BOX = 5;
+// props columns (rtw_tpu_torch/ops/trace_kernel.py)
+constexpr int C_MAT = 9, C_FUZZ = 10, C_ETA = 11, C_TEXT = 12, C_SCALE = 13,
+              C_IMG = 14, C_RGB = 15, C_ODD = 18, C_EVEN = 21, C_MID = 24,
+              C_W2O = 25, C_O2W = 37;
+constexpr int PLAN_COLS = 7;   // start, count, size, ptype, axis, xform, block
 
 struct V3 {
   float x, y, z;
@@ -95,21 +106,38 @@ __device__ __forceinline__ V3 ray_point(V3 o, V3 d, float t) {
   return {fmaf(d.x, t, o.x), fmaf(d.y, t, o.y), fmaf(d.z, t, o.z)};
 }
 
-// intersect._sphere_roots, fused as there
-__device__ __forceinline__ float sphere_hit(V3 center, float radius, V3 o,
-                                            V3 d, float tmin, float tmax) {
+// intersect._sphere_roots, fused as there: whether the roots are real and,
+// if they are, both roots (most tests miss: they stop before the root and
+// the division)
+__device__ __forceinline__ bool sphere_roots(V3 center, float radius, V3 o,
+                                             V3 d, float* t1, float* t2) {
   V3 oc = o - center;
   float a = fdot(d, d);
   float b = fdot(oc, d);
   float c = fdot(oc, oc) - radius * radius;
   float disc = fmaf(b, b, -(a * c));
-  if (!(disc >= 0.0f)) return BIG;
+  if (!(disc >= 0.0f)) return false;
   float sq = safe_sqrt(disc);
   float inv_a = 1.0f / a;
-  float t1 = (-b - sq) * inv_a;
-  float t2 = (-b + sq) * inv_a;
+  *t1 = (-b - sq) * inv_a;
+  *t2 = (-b + sq) * inv_a;
+  return true;
+}
+
+__device__ __forceinline__ float sphere_hit(V3 center, float radius, V3 o,
+                                            V3 d, float tmin, float tmax) {
+  float t1, t2;
+  if (!sphere_roots(center, radius, o, d, &t1, &t2)) return BIG;
   return in_window(t1, tmin, tmax) ? t1
                                    : (in_window(t2, tmin, tmax) ? t2 : BIG);
+}
+
+// c0 + (c1 - c0) * frac, fused as intersect._moving_center
+__device__ __forceinline__ V3 moving_center(const float* pr, float time) {
+  float span = pr[8] - pr[7];
+  float frac = span == 0.0f ? 0.0f : (time - pr[7]) / span;
+  return {fmaf(pr[4] - pr[0], frac, pr[0]), fmaf(pr[5] - pr[1], frac, pr[1]),
+          fmaf(pr[6] - pr[2], frac, pr[2])};
 }
 
 __device__ __forceinline__ float sphere_t(const float* pr, V3 o, V3 d,
@@ -152,6 +180,129 @@ __device__ float box_t(const float* pr, V3 o, V3 d, float tmin, float tmax) {
                                      : (in_window(far, tmin, tmax) ? far : BIG);
 }
 
+// intersect._volume_t: a free-flight sample inside the boundary (near, far)
+// from the uniform u, missed when it lands past the far boundary; the
+// density guard keeps pad rows finite.  logf here and torch's CUDA log call
+// the same libm function.
+__device__ __forceinline__ float volume_t(float near, float far,
+                                          float density, float u, float tmin,
+                                          float tmax, float d_len) {
+  float h1 = fmaxf(fmaxf(near, tmin), 0.0f);
+  float h2 = fminf(far, tmax);
+  float dist_inside = (h2 - h1) * d_len;
+  float flight = -(1.0f / fmaxf(density, 1e-20f)) * logf(fmaxf(u, 1e-30f));
+  if (!(h1 < h2 && flight <= dist_inside)) return BIG;
+  return h1 + flight / d_len;
+}
+
+// |d| with d . d fused (intersect._ray_length)
+__device__ __forceinline__ float ray_length(V3 d) {
+  return sqrtf(fmaxf(fdot(d, d), 1e-30f));
+}
+
+__device__ __forceinline__ float volume_sphere_t(const float* pr, V3 o, V3 d,
+                                                 float tmin, float tmax,
+                                                 float u) {
+  float t1, t2;
+  if (!sphere_roots(load3(pr), pr[3], o, d, &t1, &t2)) return BIG;
+  return volume_t(t1, t2, pr[4], u, tmin, tmax, ray_length(d));
+}
+
+__device__ __forceinline__ float volume_box_t(const float* pr, V3 o, V3 d,
+                                              float tmin, float tmax,
+                                              float u) {
+  float near, far;
+  slab(pr, o, d, &near, &far);
+  if (!(near <= far)) return BIG;
+  return volume_t(near, far, pr[6], u, tmin, tmax, ray_length(d));
+}
+
+__device__ __forceinline__ bool is_volume(int ptype) {
+  return ptype == PRIM_VOLUME_SPHERE || ptype == PRIM_VOLUME_BOX;
+}
+
+// The t of props row `pr`, a prim of type kType, in (tmin, tmax), or BIG.
+// `time` is the ray's shutter time (moving spheres); `u` the row's
+// free-flight uniform (volumes).
+template <int kType>
+__device__ __forceinline__ float prim_t(const float* pr, int axis, bool xform,
+                                        V3 o, V3 d, float time, float tmin,
+                                        float tmax, float u) {
+  if (xform) {
+    o = affine_point(pr + C_W2O, o);
+    d = affine_vec(pr + C_W2O, d);
+  }
+  if constexpr (kType == PRIM_SPHERE) {
+    return sphere_t(pr, o, d, tmin, tmax);
+  } else if constexpr (kType == PRIM_MOVING_SPHERE) {
+    return sphere_hit(moving_center(pr, time), pr[3], o, d, tmin, tmax);
+  } else if constexpr (kType == PRIM_RECT) {
+    return rect_t(pr, axis, o, d, tmin, tmax);
+  } else if constexpr (kType == PRIM_VOLUME_SPHERE) {
+    return volume_sphere_t(pr, o, d, tmin, tmax, u);
+  } else if constexpr (kType == PRIM_VOLUME_BOX) {
+    return volume_box_t(pr, o, d, tmin, tmax, u);
+  } else {
+    return box_t(pr, o, d, tmin, tmax);
+  }
+}
+
+template <int kType, class RowU, class Visit>
+__device__ __forceinline__ bool sweep_typed(const float* props, int kdim,
+                                            int r0, int r1, int axis,
+                                            bool xform, V3 o, V3 d,
+                                            float time, float tmin,
+                                            float tmax, RowU row_u,
+                                            Visit visit) {
+  for (int r = r0; r < r1; ++r) {
+    float u = 0.0f;
+    if constexpr (kType == PRIM_VOLUME_SPHERE || kType == PRIM_VOLUME_BOX)
+      u = row_u(r);
+    if (visit(r, prim_t<kType>(props + r * kdim, axis, xform, o, d, time,
+                               tmin, tmax, u)))
+      return true;
+  }
+  return false;
+}
+
+// Rows [r0, r1) of one plan group of type `ptype`, tested in row order:
+// visit(r, t) gets each row's t and returns true to end the sweep (then
+// sweep_rows returns true).  The loop is instantiated per type, as the
+// reference's statically typed chunks are, so a group's rows run one
+// straight-line test; row_u(r), the fetch of a volume row's free-flight
+// uniform, is called for volume rows only.
+template <class RowU, class Visit>
+__device__ __forceinline__ bool sweep_rows(int ptype, const float* props,
+                                           int kdim, int r0, int r1,
+                                           int axis, bool xform, V3 o, V3 d,
+                                           float time, float tmin,
+                                           float tmax, RowU row_u,
+                                           Visit visit) {
+  switch (ptype) {
+    case PRIM_SPHERE:
+      return sweep_typed<PRIM_SPHERE>(props, kdim, r0, r1, axis, xform, o, d,
+                                      time, tmin, tmax, row_u, visit);
+    case PRIM_MOVING_SPHERE:
+      return sweep_typed<PRIM_MOVING_SPHERE>(props, kdim, r0, r1, axis,
+                                             xform, o, d, time, tmin, tmax,
+                                             row_u, visit);
+    case PRIM_RECT:
+      return sweep_typed<PRIM_RECT>(props, kdim, r0, r1, axis, xform, o, d,
+                                    time, tmin, tmax, row_u, visit);
+    case PRIM_VOLUME_SPHERE:
+      return sweep_typed<PRIM_VOLUME_SPHERE>(props, kdim, r0, r1, axis,
+                                             xform, o, d, time, tmin, tmax,
+                                             row_u, visit);
+    case PRIM_VOLUME_BOX:
+      return sweep_typed<PRIM_VOLUME_BOX>(props, kdim, r0, r1, axis, xform,
+                                          o, d, time, tmin, tmax, row_u,
+                                          visit);
+    default:
+      return sweep_typed<PRIM_BOX>(props, kdim, r0, r1, axis, xform, o, d,
+                                   time, tmin, tmax, row_u, visit);
+  }
+}
+
 // The face of box `pr` that a hit at the entry (or, from inside, the exit)
 // crosses, and its outward normal (intersect._box_payload): returns the
 // face axis, or -1 when no axis attains the bound (normal 0).
@@ -182,6 +333,83 @@ __device__ int box_face(const float* pr, V3 o, V3 d, float tmin,
   }
   *normal = {n3[0], n3[1], n3[2]};
   return face;
+}
+
+// Exact spherical uv from the unit normal (intersect._sphere_uv).
+__device__ __forceinline__ void sphere_uv(V3 n, float* u, float* v) {
+  float phi = atan2f(n.z, n.x);
+  float theta = asinf(fminf(fmaxf(n.y, -1.0f), 1.0f));
+  *u = 1.0f - (phi + PI_F) / TWO_PI_F;
+  *v = (theta + HALF_PI_F) / PI_F;
+}
+
+// (type, rect axis, has transform) of the plan group that holds `row`
+__device__ __forceinline__ void group_of(const int* plan, int n_entries,
+                                         int row, int* ptype, int* axis,
+                                         bool* xform) {
+  *ptype = 0;
+  *axis = 0;
+  *xform = false;
+  for (int e = 0; e < n_entries; ++e) {
+    const int* en = plan + e * PLAN_COLS;
+    if (row >= en[0] && row < en[0] + en[2]) {
+      *ptype = en[3];
+      *axis = en[4];
+      *xform = en[5] != 0;
+    }
+  }
+}
+
+// The winner's payload (intersect._winner_payload): world point, unit
+// normal and, with kUV, uv of props row `pr` hit at t.  Volumes: a constant
+// +X normal (transformed as any normal) and zero uv.
+template <bool kUV>
+__device__ void hit_payload(const float* pr, int ptype, int axis, bool xform,
+                            V3 o, V3 d, float t, float time, float tmin,
+                            V3* point_out, V3* normal_out, float* u_out,
+                            float* v_out) {
+  if (xform) {
+    o = affine_point(pr + C_W2O, o);
+    d = affine_vec(pr + C_W2O, d);
+  }
+  V3 point = ray_point(o, d, t);
+  V3 normal = {0.0f, 0.0f, 0.0f};
+  float u = 0.0f, v = 0.0f;
+  if (ptype == PRIM_SPHERE || ptype == PRIM_MOVING_SPHERE) {
+    V3 center = ptype == PRIM_MOVING_SPHERE ? moving_center(pr, time)
+                                            : load3(pr);
+    float r_safe = fabsf(pr[3]) > 1e-20f ? pr[3] : 1.0f;
+    normal = (point - center) * (1.0f / r_safe);
+    if (kUV) sphere_uv(normal, &u, &v);
+  } else if (ptype == PRIM_RECT) {
+    int ia = axis == 0 ? 1 : 0;
+    int ib = axis == 2 ? 1 : 2;
+    float sign = pr[6] > 0.5f ? -1.0f : 1.0f;
+    normal = {axis == 0 ? sign : 0.0f, axis == 1 ? sign : 0.0f,
+              axis == 2 ? sign : 0.0f};
+    if (kUV) {
+      u = (comp(point, ia) - pr[0]) / fmaxf(pr[1] - pr[0], 1e-20f);
+      v = (comp(point, ib) - pr[2]) / fmaxf(pr[3] - pr[2], 1e-20f);
+    }
+  } else if (is_volume(ptype)) {
+    normal = {1.0f, 0.0f, 0.0f};
+  } else {
+    int face = box_face(pr, o, d, tmin, &normal);
+    if (kUV && face >= 0) {   // Z faces map (x, y), Y faces (x, z), X (y, z)
+      int ia = face == 0 ? 1 : 0;
+      int ib = face == 2 ? 1 : 2;
+      u = (comp(point, ia) - pr[ia]) / fmaxf(pr[3 + ia] - pr[ia], 1e-20f);
+      v = (comp(point, ib) - pr[ib]) / fmaxf(pr[3 + ib] - pr[ib], 1e-20f);
+    }
+  }
+  if (xform) {
+    point = affine_point(pr + C_O2W, point);
+    normal = transpose_vec(pr + C_W2O, normal);
+  }
+  *point_out = point;
+  *normal_out = normalized(normal);
+  *u_out = u;
+  *v_out = v;
 }
 
 }  // namespace rtw

@@ -1,19 +1,28 @@
-// Whole-bounce megakernel for Hopper (sm_90a): one regenerating-wavefront
-// iteration per launch, one thread per lane.
+// Whole-bounce megakernel for Hopper (sm_90a): one wavefront iteration per
+// launch, one thread per lane.
 //
 // Replaces rtw_tpu/ops/mega_kernel.py::_mega_body (launched by the
 // pallas_call of _make_mega.run), with the straight-line nearest-hit sweep
 // rtw_tpu/ops/trace_kernel.py::_nearest_hit and any-hit sweep ::_occl_sweep
-// inlined, as there.  Per lane: path hash, thin-lens regeneration of a
-// finished lane, the fast-RNG bounce uniforms, nearest hit, checker albedo,
+// inlined, as there, over all six prim types (csrc/geometry.cuh::prim_t).
+// The template flag kHybrid is the same pallas_call with hybrid=True
+// (mega_kernel.py:437, TPU kernel D, the queue-scheduled mode driven by
+// rtw_tpu_torch/integrator.py::trace_wavefront_qmega): no regeneration, no
+// accumulation, a dead lane's depth frozen; the queue's flush stays outside.
+// Per lane: path hash, thin-lens regeneration of a finished lane, the
+// fast-RNG bounce uniforms, nearest hit, checker albedo,
 // rtw_tpu/ops/bounce.py::bounce_core (lambertian, metal, dielectric,
 // isotropic, diffuse light, normal; single-light NEE + power-heuristic MIS
 // with an early-exit shadow test), Russian roulette, NaN scrub and sample
-// accumulation.  The plain torch twin is
-// rtw_tpu_torch/ops/mega_kernel.py::mega_step_plain; every float operation
-// here follows its order term by term, and the library is built with
-// -fmad=false, so the two round alike apart from libm (cbrtf here, powf
-// there; sinf/cosf/sqrtf as torch's CUDA kernels call them).
+// accumulation.  A volume row's free-flight uniform is drawn in the thread
+// when the sweep meets the row: slot NUM_FIXED_SLOTS + max(vol_slot, 0) of
+// the bounce's stream for the main ray, NUM_FIXED_SLOTS + n_vol + slot for
+// the shadow ray, which is bit for bit the plain twin's uniform row, with
+// no [2 n_vol, N] scratch (the TPU kernel's VMEM rows).  The plain torch
+// twin is rtw_tpu_torch/ops/mega_kernel.py::mega_step_plain; every float
+// operation here follows its order term by term, and the library is built
+// with -fmad=false, so the two round alike apart from libm (cbrtf here,
+// powf there; sinf/cosf/logf/sqrtf as torch's CUDA kernels call them).
 //
 // What bounds it on this card: not memory.  A lane reads 88 B of carry
 // (17 f32 + 5 i32 rows) and writes 88 B plus its share of one ray-count
@@ -22,14 +31,19 @@
 // (8 Cornell prims, twice with the shadow ray) and the shading, executed
 // under register pressure and divergence: the lanes of a warp take
 // different material branches, miss or hit, and regenerate at different
-// iterations, so a warp runs the union of its lanes' branches.
+// iterations, so a warp runs the union of its lanes' branches.  In hybrid
+// mode on scene 1 the sweep dominates: every lane tests all 528 moving
+// spheres (the kernel has no block culls yet, ROADMAP): 0.75 ms at 320k
+// lanes on an H100 80GB HBM3, ~10x the operation bound (PERF.md).
 //
 // What the design does about it: the scene's props table (Cornell: 40 x 49
-// floats, 7.8 KB) and chunk plan sit in shared memory, read as warp-wide
-// broadcasts; the sweep keeps only (best t, best index) live and reads the
-// winner's props row once after the loop (the TPU's masked-accumulate and
-// one-hot-matmul winner fetch exist only because Mosaic has no per-lane
-// gather); the any-hit test returns at its first hit; dead lanes skip the
+// floats, 7.8 KB; scene 1: 640 x 25, 64 KB), chunk plan and volume slots
+// sit in shared memory, read as warp-wide broadcasts; the sweep keeps only
+// (best t, best index) live and reads the winner's props row once after
+// the loop (the TPU's masked-accumulate and one-hot-matmul winner fetch
+// exist only because Mosaic has no per-lane gather); each group's row loop
+// is instantiated for its prim type; the any-hit test returns at its first
+// hit; dead lanes skip the
 // bounce; the material branches are real branches, not the TPU's
 // evaluate-all-and-select.  Carry rows keep the reference's [rows, N]
 // layout, so each row access is coalesced.  Persistent blocks, sorting
@@ -59,17 +73,12 @@ constexpr int PF_CAM_ORG = 0, PF_LL = 3, PF_HOR = 6, PF_VERT = 9, PF_CU = 12,
               PF_LPOS = 22, PF_LU = 25, PF_LV = 28, PF_LEMIT = 31,
               PF_LAREA = 34, PF_LNRM = 35;
 
-// props columns (rtw_tpu_torch/ops/trace_kernel.py)
-constexpr int C_MAT = 9, C_FUZZ = 10, C_ETA = 11, C_TEXT = 12, C_RGB = 15,
-              C_ODD = 18, C_EVEN = 21, C_W2O = 25, C_O2W = 37;
-constexpr int PLAN_COLS = 7;   // start, count, size, ptype, axis, xform, block
-
-constexpr int PRIM_SPHERE = 0, PRIM_RECT = 1, PRIM_BOX = 5;
 constexpr int MAT_LAMBERTIAN = 0, MAT_METAL = 1, MAT_DIELECTRIC = 2,
               MAT_DIFFUSE_LIGHT = 3, MAT_ISOTROPIC = 4, MAT_NORMAL = 5;
 constexpr int TEX_CHECKER = 1;
 constexpr int U_SCATTER_0 = 0, U_SCATTER_1 = 1, U_SCATTER_2 = 2,
-              U_DIELECTRIC = 3, U_LIGHT_A = 5, U_LIGHT_B = 6, U_RR = 7;
+              U_DIELECTRIC = 3, U_LIGHT_A = 5, U_LIGHT_B = 6, U_RR = 7,
+              NUM_FIXED_SLOTS = 8;
 
 constexpr float INV_PI_F = 0.31830987334251404f;   // float32(1/pi)
 constexpr uint32_t GOLDEN = 0x9E3779B9u;
@@ -86,6 +95,7 @@ struct MegaParams {
   int s_end, nx, ny, rr_start, max_depth;
   int n_entries, n_props, kdim;
   int num_lights, mat_present, checker, mis_bsdf_weight;
+  int n_vol;   // max(scene.n_vol, 1): volume uniform rows per ray
 };
 
 namespace {
@@ -128,96 +138,58 @@ __device__ __forceinline__ V3 sphere_surface(float u1, float u2) {
   return {r * cosf(phi), r * sinf(phi), z};
 }
 
-__device__ __forceinline__ float prim_t(const float* pr, int ptype, int axis,
-                                        bool xform, V3 o, V3 d, float tmin,
-                                        float tmax) {
-  if (xform) {
-    o = affine_point(pr + C_W2O, o);
-    d = affine_vec(pr + C_W2O, d);
-  }
-  if (ptype == PRIM_SPHERE) return sphere_t(pr, o, d, tmin, tmax);
-  if (ptype == PRIM_RECT) return rect_t(pr, axis, o, d, tmin, tmax);
-  return box_t(pr, o, d, tmin, tmax);
+// The free-flight uniform of props row r from the bounce stream hb: slot
+// NUM_FIXED_SLOTS + base + max(vol_slot[r], 0), base 0 for the main ray and
+// n_vol for the shadow ray (sweep_rows draws it for volume rows only).
+__device__ __forceinline__ float row_u(const int* vol_slot, int r,
+                                       uint32_t hb, int base) {
+  return slot_u(hb, NUM_FIXED_SLOTS + base + max(vol_slot[r], 0));
 }
 
 // Nearest hit over every real (unpadded) prim: strict < in row order, so
 // the lowest index wins a tie, as the reference's argmin + strict merge.
+// Rows past a group's `count` (pads: density 0 and slot -1 on volumes) are
+// never candidates.
 __device__ int nearest_hit(const float* props, const int* plan,
-                           const MegaParams& p, V3 o, V3 d, float* best_t) {
+                           const int* vol_slot, const MegaParams& p, V3 o,
+                           V3 d, float time, uint32_t hb, float* best_t) {
   float bt = BIG;
   int bi = -1;
   for (int e = 0; e < p.n_entries; ++e) {
     const int* en = plan + e * PLAN_COLS;
     int start = en[0], count = en[1], ptype = en[3], axis = en[4];
     bool xform = en[5] != 0;
-    for (int r = start; r < start + count; ++r) {
-      float t = prim_t(props + r * p.kdim, ptype, axis, xform, o, d, p.tmin,
-                       p.tmax);
-      if (t < bt) {
-        bt = t;
-        bi = r;
-      }
-    }
+    sweep_rows(ptype, props, p.kdim, start, start + count, axis, xform, o,
+               d, time, p.tmin, p.tmax,
+               [&](int r) { return row_u(vol_slot, r, hb, 0); },
+               [&](int r, float t) {
+                 if (t < bt) {
+                   bt = t;
+                   bi = r;
+                 }
+                 return false;
+               });
   }
   *best_t = bt;
   return bi;
 }
 
-// Any hit in (tmin, tmax): returns at the first one.
+// Any hit in (tmin, tmax) of the shadow ray: returns at the first one.
 __device__ bool occluded(const float* props, const int* plan,
-                         const MegaParams& p, V3 o, V3 d, float tmin,
+                         const int* vol_slot, const MegaParams& p, V3 o,
+                         V3 d, float time, uint32_t hb, float tmin,
                          float tmax) {
   for (int e = 0; e < p.n_entries; ++e) {
     const int* en = plan + e * PLAN_COLS;
     int start = en[0], count = en[1], ptype = en[3], axis = en[4];
     bool xform = en[5] != 0;
-    for (int r = start; r < start + count; ++r) {
-      if (prim_t(props + r * p.kdim, ptype, axis, xform, o, d, tmin, tmax) <
-          BIG)
-        return true;
-    }
+    if (sweep_rows(ptype, props, p.kdim, start, start + count, axis, xform,
+                   o, d, time, tmin, tmax,
+                   [&](int r) { return row_u(vol_slot, r, hb, p.n_vol); },
+                   [](int, float t) { return t < BIG; }))
+      return true;
   }
   return false;
-}
-
-// Winner payload (intersect._payload / _box_payload): world point and unit
-// normal of prim `bi` at t.
-__device__ void payload(const float* props, const int* plan,
-                        const MegaParams& p, int bi, float t, V3 o, V3 d,
-                        V3* point_out, V3* normal_out) {
-  const float* pr = props + bi * p.kdim;
-  int ptype = 0, axis = 0;
-  bool xform = false;
-  for (int e = 0; e < p.n_entries; ++e) {
-    const int* en = plan + e * PLAN_COLS;
-    if (bi >= en[0] && bi < en[0] + en[2]) {
-      ptype = en[3];
-      axis = en[4];
-      xform = en[5] != 0;
-    }
-  }
-  if (xform) {
-    o = affine_point(pr + C_W2O, o);
-    d = affine_vec(pr + C_W2O, d);
-  }
-  V3 point = ray_point(o, d, t);
-  V3 normal;
-  if (ptype == PRIM_SPHERE) {
-    float r_safe = fabsf(pr[3]) > 1e-20f ? pr[3] : 1.0f;
-    normal = (point - load3(pr)) * (1.0f / r_safe);
-  } else if (ptype == PRIM_RECT) {
-    float sign = pr[6] > 0.5f ? -1.0f : 1.0f;
-    normal = {axis == 0 ? sign : 0.0f, axis == 1 ? sign : 0.0f,
-              axis == 2 ? sign : 0.0f};
-  } else {
-    box_face(pr, o, d, p.tmin, &normal);
-  }
-  if (xform) {
-    point = affine_point(pr + C_O2W, point);
-    normal = transpose_vec(pr + C_W2O, normal);
-  }
-  *point_out = point;
-  *normal_out = normalized(normal);
 }
 
 __device__ __forceinline__ float scrub(float x) {
@@ -225,10 +197,12 @@ __device__ __forceinline__ float scrub(float x) {
 }
 
 // One wavefront iteration of lane i; returns the rays it traced.
+template <bool kHybrid>
 __device__ unsigned lane_step(int i, int n, const float* __restrict__ sf,
                               const int* __restrict__ si, const float* props,
-                              const int* plan, float* __restrict__ osf,
-                              int* __restrict__ osi, const MegaParams& p) {
+                              const int* plan, const int* vol_slot,
+                              float* __restrict__ osf, int* __restrict__ osi,
+                              const MegaParams& p) {
   const float* f = p.f;
   V3 org = {sf[(F_ORG + 0) * n + i], sf[(F_ORG + 1) * n + i],
             sf[(F_ORG + 2) * n + i]};
@@ -252,7 +226,7 @@ __device__ unsigned lane_step(int i, int n, const float* __restrict__ sf,
   unsigned rays = 0;
 
   // ---- regeneration: thin-lens camera ray for the lane's next sample ----
-  if (!alive && sample < p.s_end) {
+  if (!kHybrid && !alive && sample < p.s_end) {
     uint32_t hc = pcg(pk + CAM_OFF);
     float cu0 = slot_u(hc, 0), cu1 = slot_u(hc, 1), cu2 = slot_u(hc, 2),
           cu3 = slot_u(hc, 3), cu4 = slot_u(hc, 4);
@@ -280,7 +254,8 @@ __device__ unsigned lane_step(int i, int n, const float* __restrict__ sf,
     rays = 1;
     uint32_t hb = pcg(pk + (uint32_t)(depth + 1) * GOLDEN);
     float best_t;
-    int bi = nearest_hit(props, plan, p, org, dir, &best_t);
+    int bi = nearest_hit(props, plan, vol_slot, p, org, dir, time, hb,
+                         &best_t);
     bool hit = bi >= 0;
     V3 du = normalized(dir);
 
@@ -292,9 +267,14 @@ __device__ unsigned lane_step(int i, int n, const float* __restrict__ sf,
                 1.0f * g};
       rad = rad + thr * sky;
     } else {
-      V3 point, nrm;
-      payload(props, plan, p, bi, best_t, org, dir, &point, &nrm);
       const float* pr = props + bi * p.kdim;
+      int ptype, axis;
+      bool xform;
+      group_of(plan, p.n_entries, bi, &ptype, &axis, &xform);
+      V3 point, nrm;
+      float uu, vv;
+      hit_payload<false>(pr, ptype, axis, xform, org, dir, best_t, time,
+                         p.tmin, &point, &nrm, &uu, &vv);
       int mat = (int)pr[C_MAT];
       V3 albedo = load3(pr + C_RGB);
       if (p.checker && (int)pr[C_TEXT] == TEX_CHECKER) {
@@ -398,8 +378,9 @@ __device__ unsigned lane_step(int i, int n, const float* __restrict__ sf,
           float l_pdf = ldist * ldist /
                         ((float)p.num_lights * f[PF_LAREA] * costa);
           V3 shadow_org = offset_point(point, nrm, ldir_u);
-          bool shadowed = occluded(props, plan, p, shadow_org, ldir_u,
-                                   p.shadow_eps, ldist * 0.999f);
+          bool shadowed = occluded(props, plan, vol_slot, p, shadow_org,
+                                   ldir_u, time, hb, p.shadow_eps,
+                                   ldist * 0.999f);
           float w_nee = power_heuristic(l_pdf, bsdf_pdf);
           float nee_s =
               w_nee * fmaxf(dot(ldir_u, nrm), 0.0f) * INV_PI_F / l_pdf;
@@ -424,17 +405,18 @@ __device__ unsigned lane_step(int i, int n, const float* __restrict__ sf,
       prevd = new_alive ? is_lamb : prevd;
     }
 
-    // ---- finish: accumulate the completed sample ------------------------
+    // ---- finish: accumulate the completed sample (hybrid: the queue's
+    // flush outside the kernel banks it) --------------------------------
     depth += 1;
     bool finished = !still || depth >= p.max_depth;
-    if (finished) {
+    if (!kHybrid && finished) {
       acc = acc + V3{scrub(rad.x), scrub(rad.y), scrub(rad.z)};
       sample += 1;
     }
     still = still && !finished;
-  } else {
+  } else if (!kHybrid) {
     depth += 1;   // a dead lane's iteration changes only its depth
-  }
+  }               // (hybrid: a dead lane keeps its path's length)
 
   osf[(F_ORG + 0) * n + i] = org.x;
   osf[(F_ORG + 1) * n + i] = org.y;
@@ -461,49 +443,71 @@ __device__ unsigned lane_step(int i, int n, const float* __restrict__ sf,
   return rays;
 }
 
+template <bool kHybrid>
 __global__ void __launch_bounds__(kBlock)
     mega_kernel(const float* __restrict__ sf, const int* __restrict__ si,
                 const float* __restrict__ props, const int* __restrict__ plan,
-                float* __restrict__ osf, int* __restrict__ osi,
-                unsigned long long* __restrict__ rays, int n, MegaParams p) {
+                const int* __restrict__ vol_slot, float* __restrict__ osf,
+                int* __restrict__ osi, unsigned long long* __restrict__ rays,
+                int n, MegaParams p) {
   extern __shared__ float smem[];
   float* s_props = smem;
   int* s_plan = reinterpret_cast<int*>(smem + p.n_props * p.kdim);
+  int* s_slot = s_plan + p.n_entries * PLAN_COLS;
   for (int k = threadIdx.x; k < p.n_props * p.kdim; k += blockDim.x)
     s_props[k] = props[k];
   for (int k = threadIdx.x; k < p.n_entries * PLAN_COLS; k += blockDim.x)
     s_plan[k] = plan[k];
+  for (int k = threadIdx.x; k < p.n_props; k += blockDim.x)
+    s_slot[k] = vol_slot[k];
   __syncthreads();
 
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned r = 0;
-  if (i < n) r = lane_step(i, n, sf, si, s_props, s_plan, osf, osi, p);
+  if (i < n)
+    r = lane_step<kHybrid>(i, n, sf, si, s_props, s_plan, s_slot, osf, osi,
+                           p);
   // every thread of the (full) block reaches here: warp sum, one atomic
   r = __reduce_add_sync(0xffffffffu, r);
   if ((threadIdx.x & 31) == 0 && r != 0)
     atomicAdd(rays, (unsigned long long)r);
 }
 
-}  // namespace
-
-// One mega_step on `stream`.  Returns cudaGetLastError() after the launch
-// (0 on success); a refused launch never runs and must not pass silently.
-extern "C" int rtw_mega_step(const float* sf, const int* si,
-                             const float* props, const int* plan, float* osf,
-                             int* osi, unsigned long long* rays, int n,
-                             MegaParams p, void* stream) {
-  if (n <= 0) return 0;
+template <bool kHybrid>
+int launch(const float* sf, const int* si, const float* props,
+           const int* plan, const int* vol_slot, float* osf, int* osi,
+           unsigned long long* rays, int n, const MegaParams& p,
+           cudaStream_t stream) {
   size_t smem = sizeof(float) * (size_t)p.n_props * p.kdim +
-                sizeof(int) * (size_t)p.n_entries * PLAN_COLS;
+                sizeof(int) * ((size_t)p.n_entries * PLAN_COLS + p.n_props);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        mega_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        mega_kernel<kHybrid>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   int blocks = (n + kBlock - 1) / kBlock;
-  mega_kernel<<<blocks, kBlock, smem, (cudaStream_t)stream>>>(
-      sf, si, props, plan, osf, osi, rays, n, p);
+  mega_kernel<kHybrid><<<blocks, kBlock, smem, stream>>>(
+      sf, si, props, plan, vol_slot, osf, osi, rays, n, p);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One mega_step on `stream`, in hybrid mode (TPU kernel D) when `hybrid` is
+// nonzero.  Returns cudaGetLastError() after the launch (0 on success); a
+// refused launch never runs and must not pass silently.
+extern "C" int rtw_mega_step(const float* sf, const int* si,
+                             const float* props, const int* plan,
+                             const int* vol_slot, float* osf, int* osi,
+                             unsigned long long* rays, int n, int hybrid,
+                             MegaParams p, void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  return hybrid ? launch<true>(sf, si, props, plan, vol_slot, osf, osi, rays,
+                               n, p, st)
+                : launch<false>(sf, si, props, plan, vol_slot, osf, osi,
+                                rays, n, p, st);
 }
 
 extern "C" const char* rtw_error_string(int code) {

@@ -7,13 +7,15 @@
 // unit normal, uv) and the winner's shading record.  `occluded_kernel`
 // replaces ::_occl_body -> _occl_sweep / _dyn_occl (the pallas_call of
 // _make_occluder.run): an any-hit shadow test in (tmin, tmax) per ray.  Prim
-// types: sphere, moving sphere (centre at the ray's shutter time), axis
-// rect and box, each with or without the 3x4 world->object transform.
-// Volumes are not here (the wrapper refuses a plan that holds them).  The
-// plain versions are rtw_tpu_torch/ops/trace_kernel.py::trace_plain and
-// ::occluded_plain; with -fmad=false and the same explicit fused
-// multiply-adds the two round alike apart from libm (atan2f and asinf here,
-// torch's there).
+// types: all six of csrc/geometry.cuh::prim_t (sphere, moving sphere at the
+// ray's shutter time, axis rect, box, volume sphere and volume box), each
+// with or without the 3x4 world->object transform.  A volume row reads its
+// free-flight uniform from the wrapper's [max(n_vol, 1), N] rows, row
+// max(vol_slot, 0) (the reference's _block_test); the occlusion query gets
+// the shadow ray's own rows.  The plain versions are
+// rtw_tpu_torch/ops/trace_kernel.py::trace_plain and ::occluded_plain; with
+// -fmad=false and the same explicit fused multiply-adds the two round alike
+// apart from libm (atan2f, asinf and logf here, torch's there).
 //
 // Traversal: the scene's blocks in index order, each skipped when its world
 // AABB slab test shows that the ray cannot reach it inside (tmin, tmax), or
@@ -31,8 +33,11 @@
 // (scene 1: 640 rows x 25 floats, 64 KB) stays in L1/L2 and is read as
 // warp-wide broadcasts when the lanes of a warp test the same block.  The
 // cost is the prim tests of the blocks each ray cannot cull, under
-// divergence (lanes of a warp cull different blocks).  A BVH per ray and
-// the props table in shared memory are later work.
+// divergence (lanes of a warp cull different blocks).  A volume's t is
+// never before its boundary's entry, so the cull stays exact for volumes;
+// scene 4's radius-500 fog covers the scene, so its block is never culled
+// and every ray pays one log per fog row.  A BVH per ray and the props
+// table in shared memory are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,16 +49,7 @@ using namespace rtw;
 namespace {
 
 constexpr int kBlock = 128;
-
-// props columns (rtw_tpu_torch/ops/trace_kernel.py)
-constexpr int C_MAT = 9, C_FUZZ = 10, C_ETA = 11, C_TEXT = 12, C_SCALE = 13,
-              C_IMG = 14, C_RGB = 15, C_ODD = 18, C_EVEN = 21, C_MID = 24,
-              C_W2O = 25, C_O2W = 37;
-constexpr int PLAN_COLS = 7;   // start, count, size, ptype, axis, xform, block
 constexpr int AABB_COLS = 8;   // lo xyz, hi xyz, 2 unused
-
-constexpr int PRIM_SPHERE = 0, PRIM_RECT = 1, PRIM_MOVING_SPHERE = 2,
-              PRIM_BOX = 5;
 
 // output rows (rtw_tpu_torch/ops/trace_kernel.py HIT_F32 / HIT_I32)
 constexpr int H_T = 0, H_POINT = 1, H_NORMAL = 4, H_U = 7, H_V = 8,
@@ -72,27 +68,6 @@ struct TraceParams {
 
 namespace {
 
-// c0 + (c1 - c0) * frac, fused as intersect._moving_center
-__device__ __forceinline__ V3 moving_center(const float* pr, float time) {
-  float span = pr[8] - pr[7];
-  float frac = span == 0.0f ? 0.0f : (time - pr[7]) / span;
-  return {fmaf(pr[4] - pr[0], frac, pr[0]), fmaf(pr[5] - pr[1], frac, pr[1]),
-          fmaf(pr[6] - pr[2], frac, pr[2])};
-}
-
-__device__ __forceinline__ float prim_t(const float* pr, int ptype, int axis,
-                                        bool xform, V3 o, V3 d, float time,
-                                        float tmin, float tmax) {
-  if (xform) {
-    o = affine_point(pr + C_W2O, o);
-    d = affine_vec(pr + C_W2O, d);
-  }
-  if (ptype == PRIM_SPHERE) return sphere_t(pr, o, d, tmin, tmax);
-  if (ptype == PRIM_MOVING_SPHERE)
-    return sphere_hit(moving_center(pr, time), pr[3], o, d, tmin, tmax);
-  if (ptype == PRIM_RECT) return rect_t(pr, axis, o, d, tmin, tmax);
-  return box_t(pr, o, d, tmin, tmax);
-}
 
 // _block_active: the block's world AABB can hold a hit in (tmin, tmax)
 // nearer than `best_t`
@@ -128,18 +103,12 @@ __device__ __forceinline__ void stage(const float* aabbs, const int* plan,
   __syncthreads();
 }
 
-// Exact spherical uv from the unit normal (intersect._sphere_uv).
-__device__ __forceinline__ void sphere_uv(V3 n, float* u, float* v) {
-  float phi = atan2f(n.z, n.x);
-  float theta = asinf(fminf(fmaxf(n.y, -1.0f), 1.0f));
-  *u = 1.0f - (phi + PI_F) / TWO_PI_F;
-  *v = (theta + HALF_PI_F) / PI_F;
-}
-
 __global__ void __launch_bounds__(kBlock)
     trace_kernel(const float* __restrict__ rays,
+                 const float* __restrict__ vol_u,
                  const float* __restrict__ props, const int* __restrict__ plan,
-                 const float* __restrict__ aabbs, float* __restrict__ of,
+                 const float* __restrict__ aabbs,
+                 const int* __restrict__ vol_slot, float* __restrict__ of,
                  int* __restrict__ oi, int n, TraceParams p) {
   extern __shared__ float smem[];
   float* s_ab = smem;
@@ -148,6 +117,8 @@ __global__ void __launch_bounds__(kBlock)
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Ray ray = load_ray(rays, i, n);
+  // a volume row's free-flight uniform: row max(vol_slot, 0) of vol_u
+  auto row_u = [&](int r) { return vol_u[max(vol_slot[r], 0) * n + i]; };
 
   // ---- nearest hit: (best t, best row) over the blocks in index order ----
   float bt = BIG;
@@ -162,14 +133,15 @@ __global__ void __launch_bounds__(kBlock)
                         ray.tmax, bt))
         continue;
       int b1 = min(b0 + block, end);   // rows past `count` are padding
-      for (int r = b0; r < b1; ++r) {
-        float t = prim_t(props + r * p.kdim, ptype, axis, xform, ray.o,
-                         ray.d, ray.time, p.tmin, ray.tmax);
-        if (t < bt) {
-          bt = t;
-          bi = r;
-        }
-      }
+      sweep_rows(ptype, props, p.kdim, b0, b1, axis, xform, ray.o, ray.d,
+                 ray.time, p.tmin, ray.tmax, row_u,
+                 [&](int r, float t) {
+                   if (t < bt) {
+                     bt = t;
+                     bi = r;
+                   }
+                   return false;
+                 });
     }
   }
 
@@ -179,50 +151,11 @@ __global__ void __launch_bounds__(kBlock)
   // a miss reads row 0's shading record, as the plain gather does
   const float* pr = props + max(bi, 0) * p.kdim;
   if (bi >= 0) {
-    int ptype = 0, axis = 0;
-    bool xform = false;
-    for (int e = 0; e < p.n_entries; ++e) {
-      const int* en = s_plan + e * PLAN_COLS;
-      if (bi >= en[0] && bi < en[0] + en[2]) {
-        ptype = en[3];
-        axis = en[4];
-        xform = en[5] != 0;
-      }
-    }
-    V3 o = ray.o, d = ray.d;
-    if (xform) {
-      o = affine_point(pr + C_W2O, o);
-      d = affine_vec(pr + C_W2O, d);
-    }
-    point = ray_point(o, d, bt);
-    if (ptype == PRIM_SPHERE || ptype == PRIM_MOVING_SPHERE) {
-      V3 center = ptype == PRIM_MOVING_SPHERE ? moving_center(pr, ray.time)
-                                              : load3(pr);
-      float r_safe = fabsf(pr[3]) > 1e-20f ? pr[3] : 1.0f;
-      normal = (point - center) * (1.0f / r_safe);
-      sphere_uv(normal, &u, &v);
-    } else if (ptype == PRIM_RECT) {
-      int ia = axis == 0 ? 1 : 0;
-      int ib = axis == 2 ? 1 : 2;
-      float sign = pr[6] > 0.5f ? -1.0f : 1.0f;
-      normal = {axis == 0 ? sign : 0.0f, axis == 1 ? sign : 0.0f,
-                axis == 2 ? sign : 0.0f};
-      u = (comp(point, ia) - pr[0]) / fmaxf(pr[1] - pr[0], 1e-20f);
-      v = (comp(point, ib) - pr[2]) / fmaxf(pr[3] - pr[2], 1e-20f);
-    } else {
-      int face = box_face(pr, o, d, p.tmin, &normal);
-      if (face >= 0) {   // Z faces map (x, y), Y faces (x, z), X (y, z)
-        int ia = face == 0 ? 1 : 0;
-        int ib = face == 2 ? 1 : 2;
-        u = (comp(point, ia) - pr[ia]) / fmaxf(pr[3 + ia] - pr[ia], 1e-20f);
-        v = (comp(point, ib) - pr[ib]) / fmaxf(pr[3 + ib] - pr[ib], 1e-20f);
-      }
-    }
-    if (xform) {
-      point = affine_point(pr + C_O2W, point);
-      normal = transpose_vec(pr + C_W2O, normal);
-    }
-    normal = normalized(normal);
+    int ptype, axis;
+    bool xform;
+    group_of(s_plan, p.n_entries, bi, &ptype, &axis, &xform);
+    hit_payload<true>(pr, ptype, axis, xform, ray.o, ray.d, bt, ray.time,
+                      p.tmin, &point, &normal, &u, &v);
   }
 
   of[H_T * n + i] = bt;
@@ -252,9 +185,11 @@ __global__ void __launch_bounds__(kBlock)
 
 __global__ void __launch_bounds__(kBlock)
     occluded_kernel(const float* __restrict__ rays,
+                    const float* __restrict__ vol_u,
                     const float* __restrict__ props,
                     const int* __restrict__ plan,
                     const float* __restrict__ aabbs,
+                    const int* __restrict__ vol_slot,
                     uint8_t* __restrict__ out, int n, TraceParams p) {
   extern __shared__ float smem[];
   float* s_ab = smem;
@@ -263,6 +198,7 @@ __global__ void __launch_bounds__(kBlock)
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Ray ray = load_ray(rays, i, n);
+  auto row_u = [&](int r) { return vol_u[max(vol_slot[r], 0) * n + i]; };
 
   bool occ = false;
   int bid = 0;
@@ -276,13 +212,10 @@ __global__ void __launch_bounds__(kBlock)
                         ray.tmax, BIG))
         continue;
       int b1 = min(b0 + block, end);
-      for (int r = b0; r < b1; ++r) {
-        if (prim_t(props + r * p.kdim, ptype, axis, xform, ray.o, ray.d,
-                   ray.time, p.tmin, ray.tmax) < BIG) {
-          occ = true;   // first hit: the lane leaves
-          break;
-        }
-      }
+      // first hit: the lane leaves
+      occ = sweep_rows(ptype, props, p.kdim, b0, b1, axis, xform, ray.o,
+                       ray.d, ray.time, p.tmin, ray.tmax, row_u,
+                       [](int, float t) { return t < BIG; });
     }
   }
   out[i] = occ ? 1 : 0;
@@ -298,24 +231,26 @@ size_t smem_bytes(const TraceParams& p) {
 // One launch of each kernel on `stream`.  Each returns cudaGetLastError()
 // after the launch (0 on success); a refused launch never runs and must not
 // pass silently.
-extern "C" int rtw_trace(const float* rays, const float* props,
-                         const int* plan, const float* aabbs, float* of,
+extern "C" int rtw_trace(const float* rays, const float* vol_u,
+                         const float* props, const int* plan,
+                         const float* aabbs, const int* vol_slot, float* of,
                          int* oi, int n, TraceParams p, void* stream) {
   if (n <= 0) return 0;
   int blocks = (n + kBlock - 1) / kBlock;
   trace_kernel<<<blocks, kBlock, smem_bytes(p), (cudaStream_t)stream>>>(
-      rays, props, plan, aabbs, of, oi, n, p);
+      rays, vol_u, props, plan, aabbs, vol_slot, of, oi, n, p);
   return (int)cudaGetLastError();
 }
 
-extern "C" int rtw_occluded(const float* rays, const float* props,
-                            const int* plan, const float* aabbs,
+extern "C" int rtw_occluded(const float* rays, const float* vol_u,
+                            const float* props, const int* plan,
+                            const float* aabbs, const int* vol_slot,
                             uint8_t* out, int n, TraceParams p,
                             void* stream) {
   if (n <= 0) return 0;
   int blocks = (n + kBlock - 1) / kBlock;
   occluded_kernel<<<blocks, kBlock, smem_bytes(p), (cudaStream_t)stream>>>(
-      rays, props, plan, aabbs, out, n, p);
+      rays, vol_u, props, plan, aabbs, vol_slot, out, n, p);
   return (int)cudaGetLastError();
 }
 

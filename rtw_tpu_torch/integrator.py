@@ -1,6 +1,6 @@
 """Wavefront path-tracing integrator (port of rtw_tpu/integrator.py).
 
-Three executors of the same estimator, all drawing the reference's fast-RNG
+Four executors of the same estimator, all drawing the reference's fast-RNG
 chain (so all trace the same paths):
 
 - `trace_wavefront_regen`: each lane owns one pixel and regenerates its
@@ -13,6 +13,8 @@ chain (so all trace the same paths):
 - `trace_wavefront_mega`: a loop of `mega_kernel.mega_step` launches, one
   whole wavefront iteration each; on a CUDA scene that is the hand-written
   CUDA megakernel.
+- `trace_wavefront_qmega` (`scheduler="qmega"`, opt-in): the work queue
+  with the whole bounce in one launch of the megakernel's hybrid mode.
 
 `trace_wavefront` dispatches: `scheduler="auto"` on a CUDA scene picks the
 megakernel inside its envelope (fewer than 128 prims) and the queue with
@@ -36,7 +38,7 @@ from rtw_tpu_torch.ops import vec as V
 from rtw_tpu_torch.ops.vec import Vec3
 from rtw_tpu_torch.ops import trace_kernel as TK
 from rtw_tpu_torch.ops.bounce import BounceEnv, bounce_core
-from rtw_tpu_torch.ops.intersect import BIG, check_prim_type, fma
+from rtw_tpu_torch.ops.intersect import BIG, fma
 from rtw_tpu_torch.ops.shading import resolve_albedo
 from rtw_tpu_torch.utils import rng as R
 
@@ -45,7 +47,7 @@ from rtw_tpu_torch.utils import rng as R
 # stops below it.
 SPLIT_TIER_PRIMS = 128
 
-# The card's loops (trace_wavefront_mega, trace_wavefront_queue) read their
+# The card's loops (trace_wavefront_mega, _queue, _qmega) read their
 # termination test once per this many iterations: each read is a host sync,
 # and an iteration past the end is exact (it changes nothing a result
 # reads).
@@ -149,18 +151,18 @@ def _pick_light(scene: S.Scene, u_sel, ua, ub):
 def _occlude(scene: S.Scene, cfg, use_split, tables, time, occ_u,
              shadow_org, ldir_u, occ_tmax, want):
     """BounceEnv.occlude: the shadow query through the configured trace
-    backend.  `want` is implied by occ_tmax (-BIG on lanes that do not
-    want the query), and `occ_u`, the volumes' shadow-ray free-flight
-    uniforms, is unused until volumes are ported (ROADMAP item 6)."""
-    del want, occ_u
+    backend, with `occ_u`, the volumes' shadow-ray free-flight uniforms.
+    `want` is implied by occ_tmax (-BIG on lanes that do not want the
+    query)."""
+    del want
     if use_split:
         return TK.occluded_kernel(scene, shadow_org, ldir_u, cfg.shadow_eps,
-                                  occ_tmax, time, tables)
+                                  occ_tmax, time, occ_u, tables)
     return TK.occluded_plain(scene, shadow_org, ldir_u, cfg.shadow_eps,
-                             occ_tmax, time)
+                             occ_tmax, time, occ_u)
 
 
-def bounce_env(scene: S.Scene, cfg, time, occ_u=None, use_split=False,
+def bounce_env(scene: S.Scene, cfg, time, occ_u, use_split=False,
                tables=None) -> BounceEnv:
     """The BounceEnv of `bounce_step` (and of the megakernel's plain twin):
     `time` and `occ_u` are bound into the occlusion query, which goes
@@ -197,6 +199,7 @@ def bounce_step(scene: S.Scene, cfg, path_keys, state: PathState, bounce,
                 and bool(scene.tex_present[S.TEX_IMAGE]))
     n_slots = R.NUM_FIXED_SLOTS + 2 * nv + (1 if tex_slot else 0)
     U = R.bounce_uniforms(path_keys, bounce + 1, n_slots, cfg.rng)
+    vol_u = U[R.NUM_FIXED_SLOTS: R.NUM_FIXED_SLOTS + nv]
     occ_u = U[R.NUM_FIXED_SLOTS + nv: R.NUM_FIXED_SLOTS + 2 * nv]
     tex_u = U[R.NUM_FIXED_SLOTS + 2 * nv] if tex_slot else None
 
@@ -205,10 +208,10 @@ def bounce_step(scene: S.Scene, cfg, path_keys, state: PathState, bounce,
     tmax_lane = torch.where(state.alive, float(np.float32(cfg.t_max)), -BIG)
     if use_split:
         hit, shade = TK.trace(scene, o, d, cfg.t_min, tmax_lane, state.time,
-                              tables)
+                              vol_u, tables)
     else:
         hit, shade = TK.trace_plain(scene, o, d, cfg.t_min, tmax_lane,
-                                    state.time)
+                                    state.time, vol_u)
     albedo = resolve_albedo(scene, shade, hit.point, hit.u, hit.v,
                             cfg.tex_filter, cfg.tex_tile_gate, tex_u)
 
@@ -230,7 +233,7 @@ def _nan_to_zero(x):
     return torch.where(torch.isfinite(x), x, 0.0)
 
 
-def unported(cfg, scene) -> list[str]:
+def unported(cfg) -> list[str]:
     """What this render needs that the port does not have yet, each with
     its ROADMAP item; empty when every piece of the render is ported."""
     out = []
@@ -242,16 +245,11 @@ def unported(cfg, scene) -> list[str]:
         out.append(f"rng={cfg.rng!r} (ROADMAP item 11)")
     if cfg.estimator != "mis":
         out.append(f"estimator={cfg.estimator!r} (ROADMAP item 11)")
-    for e in scene.chunk_plan:
-        try:
-            check_prim_type(e[3])
-        except NotImplementedError as err:
-            out.append(str(err))
     return out
 
 
-def _raise_unported(cfg, scene) -> None:
-    todo = unported(cfg, scene)
+def _raise_unported(cfg) -> None:
+    todo = unported(cfg)
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
@@ -261,7 +259,7 @@ def _validate_mega(cfg, scene):
     not ported raises NotImplementedError, and a scene the kernel can never
     take (more than one light, unregistered emissives, noise or image
     textures) raises ValueError."""
-    _raise_unported(cfg, scene)
+    _raise_unported(cfg)
     problems = []
     if scene.num_lights > 1:
         problems.append(f"num_lights={scene.num_lights} (kernel NEE is "
@@ -325,16 +323,17 @@ def trace_wavefront(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
         raise ValueError(
             f"backend='mega' requires scheduler 'auto' or 'mega', got "
             f"{cfg.scheduler!r}")
-    if sched == "qmega":
-        raise NotImplementedError(
-            "scheduler='qmega' is not ported yet (ROADMAP queue 2 item D)")
     if sched == "auto":
         if _mega_backend(cfg, scene):
             sched = "mega"
         else:
             sched = "queue" if _split_backend(cfg, scene) else "regen"
-    elif sched not in ("mega", "regen", "queue"):
+    elif sched not in ("mega", "regen", "queue", "qmega"):
         raise ValueError(f"unknown scheduler {cfg.scheduler!r}")
+    if sched == "qmega":
+        _validate_mega(cfg, scene)     # the megakernel's envelope
+        return trace_wavefront_qmega(scene, cfg, pixel_idx, seed, s0,
+                                     n_samples)
     if sched == "mega":
         return trace_wavefront_mega(scene, cfg, pixel_idx, seed, s0,
                                     n_samples)
@@ -378,7 +377,7 @@ def trace_wavefront_regen(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
     image matches the reference's regen scheduler.  The reference's drain
     tail compaction is compiled out on its plain path too, and is not
     ported."""
-    _raise_unported(cfg, scene)
+    _raise_unported(cfg)
     tables = (TK.split_tables(scene) if _split_backend(cfg, scene)
               else None)
     n = pixel_idx.shape[0]
@@ -433,18 +432,17 @@ def trace_wavefront_queue(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
     samples are the regen scheduler's; per-pixel sums are added in claim
     order.
 
-    A flush happens when pending * flush_denom >= N, or when no lane runs
-    and some are pending (flush_denom 0: every iteration).  That decision
-    is made on the device and applied through masks, so the loop makes no
-    host sync per iteration and claims exactly the reference's items in the
-    reference's order; an iteration without a flush leaves every carry
-    value as it was.  The termination test (some lane alive or pending) is
+    The flush (`_queue_flush`) is decided on the device and applied
+    through masks, so the loop makes no host sync per iteration and claims
+    exactly the reference's items in the reference's order; an iteration
+    without a flush leaves every carry value as it was.  The termination
+    test (some lane alive or pending) is
     read once per `_CHECK_EVERY` iterations on the card (every iteration on
     the CPU, where a read costs nothing); the iterations past the end find
     no lane alive or pending, trace no ray and flush nothing.
 
     Returns (accum Vec3 of [N] positional sums, rays int64 [1], ())."""
-    _raise_unported(cfg, scene)
+    _raise_unported(cfg)
     use_split = _split_backend(cfg, scene)
     tables = TK.split_tables(scene) if use_split else None
     n = pixel_idx.shape[0]
@@ -464,7 +462,6 @@ def trace_wavefront_queue(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
                    for _ in range(3)))
     rays = torch.zeros(1, dtype=i64, device=dev)
     cursor = torch.full((1,), n, dtype=i64, device=dev)
-    fd = cfg.flush_denom
     check_every = _CHECK_EVERY if dev.type == "cuda" else 1
 
     while True:
@@ -479,25 +476,11 @@ def trace_wavefront_queue(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
             running = st.alive & ~finished
             path = st._replace(alive=running)
 
-            # ---- flush: decided on the device, applied through masks ----
-            if fd <= 0:
-                pend = pending
-            else:
-                n_pend = pending.sum(dtype=i64)
-                n_run = running.sum(dtype=i64)
-                do_flush = (n_pend * fd >= n) | ((n_run == 0) & (n_pend > 0))
-                pend = pending & do_flush
-            rad = Vec3(*(_nan_to_zero(c) for c in path.radiance))
-            for a, r in zip(accum, rad):
-                a.index_add_(0, item_pos, torch.where(pend, r, 0.0))
-            fin = pend.to(i64)
-            new_item = cursor + torch.cumsum(fin, 0) - 1
-            have = pend & (new_item < n_items)
-            q = new_item // n
-            item_pos = torch.where(have, new_item - q * n, item_pos)
-            sample = torch.where(have, s0 + q, sample)
-            claimed = pixel_idx[torch.clamp_max(item_pos, n - 1)]
-            pixel = torch.where(have, claimed, pixel)
+            pend, have, item_pos, q_sample, q_pixel, cursor = _queue_flush(
+                pending, running, path.radiance, accum, item_pos, cursor,
+                pixel_idx, s0, n_items, cfg.flush_denom)
+            sample = torch.where(have, q_sample, sample)
+            pixel = torch.where(have, q_pixel, pixel)
 
             new_keys = R.make_path_keys(seed, pixel, sample, cfg.rng)
             fresh = generate_camera_rays(scene, cfg, pixel, new_keys)
@@ -515,7 +498,118 @@ def trace_wavefront_queue(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
             path_keys = torch.where(have, new_keys, path_keys)
             depth = torch.where(have, 0, depth)
             pending = pending & ~pend
-            cursor = cursor + fin.sum()
         if not bool((path.alive.any() | pending.any())):
+            break
+    return accum, rays, ()
+
+
+def _queue_flush(pending, running, radiance: Vec3, accum: Vec3, item_pos,
+                 cursor, pixel_idx, s0: int, n_items: int, flush_denom: int):
+    """The work queue's flush, decided on the device and applied through
+    masks (no host sync).  It flushes when pending * flush_denom >= N, or
+    when no lane runs and some are pending (flush_denom 0: every
+    iteration); then every pending lane (`pend`) adds its radiance, NaN and
+    inf scrubbed, into its item's accum column in place, and claims item
+    `cursor + rank` (rank: its place among the pending lanes) while items
+    are left (`have`).  Returns (pend, have, item_pos, claimed sample,
+    claimed pixel, cursor); the claimed planes are meaningful where
+    `have`."""
+    n = pending.shape[0]
+    i64 = torch.int64
+    if flush_denom <= 0:
+        pend = pending
+    else:
+        n_pend = pending.sum(dtype=i64)
+        n_run = running.sum(dtype=i64)
+        do_flush = ((n_pend * flush_denom >= n)
+                    | ((n_run == 0) & (n_pend > 0)))
+        pend = pending & do_flush
+    for a, r in zip(accum, radiance):
+        a.index_add_(0, item_pos, torch.where(pend, _nan_to_zero(r), 0.0))
+    fin = pend.to(i64)
+    new_item = cursor + torch.cumsum(fin, 0) - 1
+    have = pend & (new_item < n_items)
+    q = new_item // n
+    item_pos = torch.where(have, new_item - q * n, item_pos)
+    claimed = pixel_idx[torch.clamp_max(item_pos, n - 1)]
+    return pend, have, item_pos, s0 + q, claimed, cursor + fin.sum()
+
+
+def trace_wavefront_qmega(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
+                          n_samples: int):
+    """The work queue with the whole bounce in one launch: the megakernel's
+    hybrid mode (`mega_kernel.mega_step(..., hybrid=True)`, TPU kernel D)
+    advances every live path (trace, shade, NEE, RR) and leaves a finished
+    one dead with its radiance; claiming, the sample scatter and camera-ray
+    generation stay in torch behind the queue's flush (`_queue_flush`).
+    It draws the samples of `trace_wavefront_queue` and claims them in the
+    same order.  The reference pads the lanes to its kernel's tile and
+    counts the padded lanes in its flush rule; the port does not pad, so
+    the two flush alike where the lane count is a multiple of that tile.
+    The termination test is read as in `trace_wavefront_queue`.
+
+    Returns (accum Vec3 of [N] positional sums, rays int64 [1], ())."""
+    from rtw_tpu_torch.ops import mega_kernel as MK
+
+    dev = scene.device
+    i64 = torch.int64
+    pixel_idx = pixel_idx.to(device=dev, dtype=i64)
+    n = pixel_idx.shape[0]
+    n_items = n * n_samples
+    sample = torch.full((n,), s0, dtype=i64, device=dev)
+    path = generate_camera_rays(
+        scene, cfg, pixel_idx, R.make_path_keys(seed, pixel_idx, sample,
+                                                cfg.rng))
+    zero = torch.zeros(n, dtype=torch.float32, device=dev)
+    sf = torch.stack([*path.origin, *path.direction, *path.throughput,
+                      *path.radiance, zero, zero, zero, path.time,
+                      path.prev_pdf])
+    izero = torch.zeros(n, dtype=torch.int32, device=dev)
+    si = torch.stack([izero + 1, izero, izero, sample.to(torch.int32),
+                      pixel_idx.to(torch.int32)])
+    params = MK.mega_params(scene, seed, cfg, s0 + n_samples)
+    pending = torch.zeros(n, dtype=torch.bool, device=dev)
+    item_pos = torch.arange(n, dtype=i64, device=dev)
+    accum = Vec3(*(torch.zeros(n, dtype=torch.float32, device=dev)
+                   for _ in range(3)))
+    rays = torch.zeros(1, dtype=i64, device=dev)
+    cursor = torch.full((1,), n, dtype=i64, device=dev)
+    check_every = _CHECK_EVERY if dev.type == "cuda" else 1
+
+    while True:
+        for _ in range(check_every):
+            prev_alive = si[MK.I_ALIVE] > 0
+            sf, si = MK.mega_step(scene, cfg, sf, si, params, rays,
+                                  hybrid=True)
+            running = si[MK.I_ALIVE] > 0
+            pending = pending | (prev_alive & ~running)
+            rad = Vec3(*sf[MK.F_RAD:MK.F_RAD + 3])
+            pend, have, item_pos, q_sample, q_pixel, cursor = _queue_flush(
+                pending, running, rad, accum, item_pos, cursor, pixel_idx,
+                s0, n_items, cfg.flush_denom)
+
+            # the step's outputs are fresh tensors: update them in place
+            smp = torch.where(have, q_sample, si[MK.I_SAMPLE].to(i64))
+            pix = torch.where(have, q_pixel, si[MK.I_PIXEL].to(i64))
+            fresh = generate_camera_rays(
+                scene, cfg, pix, R.make_path_keys(seed, pix, smp, cfg.rng))
+            cam = torch.stack([*fresh.origin, *fresh.direction])
+            sf[MK.F_ORG:MK.F_DIR + 3] = torch.where(
+                have, cam, sf[MK.F_ORG:MK.F_DIR + 3])
+            sf[MK.F_THR:MK.F_THR + 3] = torch.where(
+                have, 1.0, sf[MK.F_THR:MK.F_THR + 3])
+            # every flushed lane's radiance resets, claimed or not, so an
+            # unclaimed lane cannot be added twice by a later flush
+            sf[MK.F_RAD:MK.F_RAD + 3] = torch.where(
+                pend, 0.0, sf[MK.F_RAD:MK.F_RAD + 3])
+            sf[MK.F_TIME] = torch.where(have, fresh.time, sf[MK.F_TIME])
+            sf[MK.F_PPDF] = torch.where(have, 1.0, sf[MK.F_PPDF])
+            si[MK.I_ALIVE] = torch.where(have, 1, si[MK.I_ALIVE])
+            si[MK.I_PREVD] = torch.where(have, 0, si[MK.I_PREVD])
+            si[MK.I_DEPTH] = torch.where(have, 0, si[MK.I_DEPTH])
+            si[MK.I_SAMPLE] = smp.to(torch.int32)
+            si[MK.I_PIXEL] = pix.to(torch.int32)
+            pending = pending & ~pend
+        if not bool(((si[MK.I_ALIVE] > 0).any() | pending.any())):
             break
     return accum, rays, ()

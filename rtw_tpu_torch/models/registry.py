@@ -18,7 +18,6 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import torch
 
 from rtw_tpu_torch.models import scene as S
 from rtw_tpu_torch.models.builder import (SceneBuilder, translate, rotate_y,
@@ -324,9 +323,5 @@ def build_scene(scene_id: int, nx: int, ny: int, dof: str = "reference",
     never builds on the CPU in its place."""
     if scene_id not in _BUILDERS:
         raise ValueError(f"ERROR: Scene {scene_id} unknown.")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "build_scene: no CUDA device; pass device='cpu' to build the "
-            "scene on the CPU")
+    device = S.scene_device(device, "build_scene")
     return _BUILDERS[scene_id](float(nx) / float(ny), dof=dof).to(device)

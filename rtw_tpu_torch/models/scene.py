@@ -212,13 +212,28 @@ STATIC_FIELDS = ("n_vol", "chunk_plan", "num_lights", "light_tex",
                  "emissives_unregistered")
 
 
-def scene_from_numpy(arrays: dict, static: dict, device=None) -> Scene:
-    """A port Scene from a reference scene's state.
+def scene_device(device, who: str) -> torch.device:
+    """`device` as a torch.device, refused when it is CUDA and there is no
+    card: an entry point that builds a scene never builds it on the CPU in
+    the card's place."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device; pass device='cpu' to "
+                           "build the scene on the CPU")
+    return device
+
+
+def scene_from_numpy(arrays: dict, static: dict, device="cuda") -> Scene:
+    """A port Scene from a reference scene's state, its tensors on `device`:
+    the card unless the caller asks for the CPU (without a card the default
+    raises).
 
     `arrays`: every tensor leaf as a numpy array keyed by field path
     ("prims.params", "camera.origin", "sky_light", "block_aabbs", ...);
     `static`: the static fields named in STATIC_FIELDS.  Raises KeyError on
     a missing entry, so a partial state cannot build a partial scene."""
+    device = scene_device(device, "scene_from_numpy")
+
     def t(key):
         return torch.tensor(np.asarray(arrays[key]), device=device)
 

@@ -8,9 +8,11 @@ from its group's static type.
 
 This is the plain version that the CPU tests hold against the reference
 and that the CUDA kernels (csrc/mega_kernel.cu, csrc/trace_kernel.cu) are
-held against on the card.  Volumes raise (ROADMAP item 6).  Moving spheres
-read the per-ray shutter `time`; uv is the reference's exact spherical,
-rect and per-face box map.
+held against on the card.  Moving spheres read the per-ray shutter `time`;
+uv is the reference's exact spherical, rect and per-face box map.  Volume
+spheres and boxes read one pre-drawn free-flight uniform per (ray, volume
+slot) from `vol_u` [max(n_vol, 1), N], and reject a sample past the far
+boundary, as the reference does.
 """
 
 from __future__ import annotations
@@ -27,19 +29,13 @@ from rtw_tpu_torch.ops.sampling import safe_sqrt
 
 BIG = float(np.float32(1e30))
 
-UNPORTED_PRIMS = {
-    S.PRIM_VOLUME_SPHERE: "volume spheres (ROADMAP item 6)",
-    S.PRIM_VOLUME_BOX: "volume boxes (ROADMAP item 6)",
-}
+PRIM_TYPES = (S.PRIM_SPHERE, S.PRIM_RECT, S.PRIM_MOVING_SPHERE,
+              S.PRIM_VOLUME_SPHERE, S.PRIM_VOLUME_BOX, S.PRIM_BOX)
+VOLUME_PRIMS = (S.PRIM_VOLUME_SPHERE, S.PRIM_VOLUME_BOX)
 
 
 def check_prim_type(ptype: int) -> None:
-    if ptype in UNPORTED_PRIMS:
-        raise NotImplementedError(
-            f"primitive type {ptype} is not ported yet: "
-            f"{UNPORTED_PRIMS[ptype]}")
-    if ptype not in (S.PRIM_SPHERE, S.PRIM_MOVING_SPHERE, S.PRIM_RECT,
-                     S.PRIM_BOX):
+    if ptype not in PRIM_TYPES:
         raise ValueError(f"unknown prim type {ptype}")
 
 
@@ -165,6 +161,40 @@ def box_t(params, o, d, tmin, tmax):
     return torch.where(near <= far, t, BIG)
 
 
+def _volume_t(near, far, valid, density, u, tmin, tmax, d_len):
+    """Free-flight sample inside the boundary (near, far): the reference's
+    _volume_t, a sample beyond the far boundary misses.  The density guard
+    keeps pad rows (density 0) finite."""
+    h1 = torch.clamp_min(torch.clamp_min(near, tmin), 0.0)
+    h2 = torch.minimum(far, torch.as_tensor(tmax, dtype=far.dtype,
+                                            device=far.device))
+    dist_inside = (h2 - h1) * d_len
+    flight = (-(1.0 / torch.clamp_min(density, 1e-20))
+              * torch.log(torch.clamp_min(u, 1e-30)))
+    ok = valid & (h1 < h2) & (flight <= dist_inside)
+    return torch.where(ok, h1 + flight / d_len, BIG)
+
+
+def _ray_length(d: Vec3):
+    """|d|, with d . d fused as the sphere test fuses it."""
+    return V.sqrt(torch.clamp_min(_fdot(d, d), 1e-30))
+
+
+def volume_sphere_t(params, o, d, tmin, tmax, u):
+    center = Vec3(_col(params, 0), _col(params, 1), _col(params, 2))
+    t1, t2, valid = _sphere_roots(o, d, center, _col(params, 3))
+    return _volume_t(t1, t2, valid, _col(params, 4), u, tmin, tmax,
+                     _ray_length(d))
+
+
+def volume_box_t(params, o, d, tmin, tmax, u):
+    bmin = Vec3(_col(params, 0), _col(params, 1), _col(params, 2))
+    bmax = Vec3(_col(params, 3), _col(params, 4), _col(params, 5))
+    near, far = _box_roots(o, d, bmin, bmax)
+    return _volume_t(near, far, near <= far, _col(params, 6), u, tmin, tmax,
+                     _ray_length(d))
+
+
 def _ray_point(o: Vec3, d: Vec3, t) -> Vec3:
     """o + d * t, fused as the reference's compiled CPU code fuses it."""
     return Vec3(*(fma(dc, t, oc) for oc, dc in zip(o, d)))
@@ -227,6 +257,9 @@ def _payload(ptype: int, axis: int, p9, o: Vec3, d: Vec3, t, time, tmin):
     if ptype == S.PRIM_BOX:
         return _box_payload(p9, o, d, t, tmin)
     point = _ray_point(o, d, t)
+    if ptype in VOLUME_PRIMS:        # a constant +X normal and zero uv
+        zero = torch.zeros_like(t)
+        return point, Vec3(torch.ones_like(t), zero, zero), zero, zero
     if ptype in (S.PRIM_SPHERE, S.PRIM_MOVING_SPHERE):
         center = Vec3(p9[0], p9[1], p9[2])
         if ptype == S.PRIM_MOVING_SPHERE:
@@ -256,9 +289,10 @@ def _xform_rays(w2o, o: Vec3, d: Vec3):
     return V.affine_point(m, o), V.affine_vec(m, d)
 
 
-def _block_t(ptype, axis, has_xform, params, w2o, o, d, tmin, tmax, time,
-             valid):
-    """t-matrix [C, N] for one block of C same-typed primitives."""
+def _block_t(ptype, axis, has_xform, params, w2o, slots, o, d, tmin, tmax,
+             time, vol_u, valid):
+    """t-matrix [C, N] for one block of C same-typed primitives; `slots`
+    [C] are the rows' volume slots (-1 off volumes)."""
     check_prim_type(ptype)
     if has_xform:
         o, d = _xform_rays(w2o, o, d)
@@ -268,12 +302,17 @@ def _block_t(ptype, axis, has_xform, params, w2o, o, d, tmin, tmax, time,
         t = moving_sphere_t(params, o, d, tmin, tmax, time)
     elif ptype == S.PRIM_RECT:
         t = rect_t(params, o, d, tmin, tmax, axis)
-    else:
+    elif ptype == S.PRIM_BOX:
         t = box_t(params, o, d, tmin, tmax)
+    else:
+        u = vol_u[torch.clamp_min(slots, 0).long()]          # [C, N]
+        fn = (volume_sphere_t if ptype == S.PRIM_VOLUME_SPHERE
+              else volume_box_t)
+        t = fn(params, o, d, tmin, tmax, u)
     return torch.where(valid[:, None], t, BIG)
 
 
-def _block_ts(scene, entry, o, d, tmin, tmax, time):
+def _block_ts(scene, entry, o, d, tmin, tmax, time, vol_u):
     """(first row, [C, N] t-matrix) of each block of one group: the
     reference's scan over fixed-size blocks as a Python loop."""
     start, count, size, ptype, axis, has_xform, block = entry
@@ -283,20 +322,23 @@ def _block_ts(scene, entry, o, d, tmin, tmax, time):
         valid = torch.arange(b0 - start, b0 - start + c,
                              device=prims.params.device) < count
         yield b0, _block_t(ptype, axis, has_xform, prims.params[b0:b0 + c],
-                           prims.w2o[b0:b0 + c], o, d, tmin, tmax, time,
-                           valid)
+                           prims.w2o[b0:b0 + c], prims.vol_slot[b0:b0 + c],
+                           o, d, tmin, tmax, time, vol_u, valid)
 
 
-def intersect_scene(scene, o: Vec3, d: Vec3, tmin, tmax, time=0.0) -> Hit:
+def intersect_scene(scene, o: Vec3, d: Vec3, tmin, tmax, time,
+                    vol_u) -> Hit:
     """Nearest hit of each ray against every primitive.  `tmax` is a scalar
     or a per-lane [N] tensor; `time` the per-lane [N] shutter time (only
-    moving spheres read it); t is in units of |d|."""
+    moving spheres read it); `vol_u` the [max(n_vol, 1), N] free-flight
+    uniforms (only volumes read them); t is in units of |d|."""
     n = o.x.shape[0]
     dev = o.x.device
     best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     best_prim = torch.full((n,), -1, dtype=torch.int64, device=dev)
     for entry in scene.chunk_plan:
-        for b0, t_mat in _block_ts(scene, entry, o, d, tmin, tmax, time):
+        for b0, t_mat in _block_ts(scene, entry, o, d, tmin, tmax, time,
+                                   vol_u):
             c_t, c_arg = torch.min(t_mat, dim=0)
             better = c_t < best_t
             best_t = torch.where(better, c_t, best_t)
@@ -354,10 +396,12 @@ def _winner_payload(scene, safe_prim, hit_mask, p9, o: Vec3, d: Vec3, t_pay,
     return point, normal.normalized(), uu, vv
 
 
-def occluded(scene, o: Vec3, d: Vec3, tmin, tmax, time=0.0):
-    """Boolean shadow query: any hit in (tmin, tmax)?"""
+def occluded(scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u):
+    """Boolean shadow query: any hit in (tmin, tmax)?  Volumes take part
+    stochastically through the shadow ray's own uniforms `vol_u`."""
     occ = torch.zeros(o.x.shape[0], dtype=torch.bool, device=o.x.device)
     for entry in scene.chunk_plan:
-        for _, t_mat in _block_ts(scene, entry, o, d, tmin, tmax, time):
+        for _, t_mat in _block_ts(scene, entry, o, d, tmin, tmax, time,
+                                  vol_u):
             occ = occ | (t_mat < BIG).any(dim=0)
     return occ

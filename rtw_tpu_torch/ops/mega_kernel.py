@@ -2,17 +2,22 @@
 (port of rtw_tpu/ops/mega_kernel.py).
 
 `mega_step` runs one iteration on the carry: path hash, camera-ray
-regeneration of finished lanes, the fast-RNG bounce uniforms, nearest hit,
-checker albedo, `bounce_core` with single-light NEE + MIS and the any-hit
-shadow test, Russian roulette, NaN scrub and sample accumulation.  On CUDA
-tensors it launches the hand-written kernel of csrc/mega_kernel.cu (built
-by utils/kernels.py); on CPU tensors it runs `mega_step_plain`, the same
+regeneration of finished lanes, the fast-RNG bounce uniforms (the
+`NUM_FIXED_SLOTS` estimator slots, then a main-ray and a shadow-ray
+free-flight row per volume slot), nearest hit, checker albedo,
+`bounce_core` with single-light NEE + MIS and the any-hit shadow test,
+Russian roulette, NaN scrub and sample accumulation.  `hybrid=True` is the
+reference's queue-scheduled mode (TPU kernel D, driven by
+`integrator.trace_wavefront_qmega`): no regeneration and no accumulation,
+a dead lane's depth frozen, the flush left to the caller.  On CUDA tensors
+it launches the hand-written kernel of csrc/mega_kernel.cu (built by
+utils/kernels.py); on CPU tensors it runs `mega_step_plain`, the same
 function in plain torch on the same carry layout.  There is no fallback: a
 CUDA tensor gets the kernel or an error.
 
 The kernel's envelope is the reference's (`integrator._validate_mega`):
-fast RNG, at most one light, constant/checker textures, spheres, rects and
-boxes, no gradients, estimator "mis"; "auto" takes it below 128 prims.
+fast RNG, at most one light, constant/checker textures, every prim type,
+no gradients, estimator "mis"; "auto" takes it below 128 prims.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ from rtw_tpu_torch.ops.bounce import bounce_core
 from rtw_tpu_torch.ops import vec as V
 from rtw_tpu_torch.ops.intersect import BIG, intersect_scene
 from rtw_tpu_torch.ops.shading import gather_shade, resolve_albedo
-from rtw_tpu_torch.ops.trace_kernel import PLAN_COLS, build_props, plan_table
+from rtw_tpu_torch.ops.trace_kernel import (PLAN_COLS, build_props,
+                                            check_plan, plan_table)
 from rtw_tpu_torch.ops.vec import Vec3
 from rtw_tpu_torch.utils import kernels
 from rtw_tpu_torch.utils import rng as R
@@ -73,10 +79,10 @@ PF_LAREA = 34
 PF_LNRM = 35         # 3
 PF = 40
 
-KERNEL_PRIMS = (S.PRIM_SPHERE, S.PRIM_RECT, S.PRIM_BOX)
-
-# Launches of the CUDA kernel since import (or since a caller reset it).
+# Launches of the CUDA kernel since import (or since a caller reset them):
+# regenerating mode (TPU kernel A) and hybrid mode (TPU kernel D).
 launches = 0
+hybrid_launches = 0
 # The bound kernel library, loaded by `library()` at the first launch.
 _lib: ctypes.CDLL | None = None
 
@@ -105,32 +111,26 @@ class _CParams(ctypes.Structure):
         ("mat_present", ctypes.c_int32),
         ("checker", ctypes.c_int32),
         ("mis_bsdf_weight", ctypes.c_int32),
+        ("n_vol", ctypes.c_int32),
     ]
 
 
 @dataclasses.dataclass
 class MegaParams:
     """Everything one render's launches share: the float row `parf`, the
-    path-hash base `h0` (one uint32), the sample end `s_end`, the props
-    table and the chunk plan (both on the scene's device), and the kernel's
-    parameter struct built from them."""
+    path-hash base `h0` (one uint32), the sample end `s_end`, the volume
+    slot count `n_vol` (max(scene.n_vol, 1)), the props table, the chunk
+    plan and the per-prim volume slots (all on the scene's device), and the
+    kernel's parameter struct built from them."""
 
     parf: np.ndarray          # float32 [PF]
     h0: int
     s_end: int
+    n_vol: int
     props: torch.Tensor       # float32 [P, K]
     plan: torch.Tensor        # int32 [E, PLAN_COLS]
+    vol_slot: torch.Tensor    # int32 [P]; -1 off volumes
     c_params: _CParams
-
-
-def check_plan(scene: S.Scene) -> None:
-    """Every plan entry must be a type the kernel's sweeps implement."""
-    for e in scene.chunk_plan:
-        if e[3] not in KERNEL_PRIMS:
-            raise NotImplementedError(
-                f"chunk plan entry {e}: prim type {e[3]} is outside the "
-                "megakernel (spheres, rects and boxes only; moving spheres "
-                "run on the split tier, volumes are ROADMAP item 6)")
 
 
 def mega_params(scene: S.Scene, seed: int, cfg, s_end: int) -> MegaParams:
@@ -174,8 +174,11 @@ def mega_params(scene: S.Scene, seed: int, cfg, s_end: int) -> MegaParams:
                         if on)
     c.checker = int(bool(scene.tex_present[S.TEX_CHECKER]))
     c.mis_bsdf_weight = int(bool(cfg.mis_bsdf_weight))
-    return MegaParams(parf=parf, h0=h0, s_end=s_end, props=props, plan=plan,
-                      c_params=c)
+    c.n_vol = max(scene.n_vol, 1)
+    return MegaParams(parf=parf, h0=h0, s_end=s_end, n_vol=c.n_vol,
+                      props=props, plan=plan,
+                      vol_slot=scene.prims.vol_slot.to(torch.int32)
+                      .contiguous(), c_params=c)
 
 
 def init_carry(pixel_idx, s0: int):
@@ -197,9 +200,11 @@ def _scrub(x):
     return torch.where(ok, x, 0.0)
 
 
-def mega_step_plain(scene: S.Scene, cfg, sf, si, params: MegaParams, rays):
+def mega_step_plain(scene: S.Scene, cfg, sf, si, params: MegaParams, rays,
+                    hybrid=False):
     """One wavefront iteration in plain torch.  Returns (sf', si') and adds
-    the rays traced (camera + bounce + NEE queries) into `rays` (int64)."""
+    the rays traced (camera + bounce + NEE queries) into `rays` (int64).
+    `hybrid`: the queue-scheduled mode (see the module docstring)."""
     pf = [float(v) for v in params.parf]
 
     def pv(base):
@@ -220,49 +225,56 @@ def mega_step_plain(scene: S.Scene, cfg, sf, si, params: MegaParams, rays):
 
     pk = R.pcg_hash(R.pcg_hash(sample + params.h0) + pixel)
 
-    # ---- regeneration of finished lanes ----------------------------------
-    regen = ~alive & (sample < params.s_end)
-    x_pix = (pixel % cfg.nx).to(torch.float32)
-    y_pix = (pixel // cfg.nx).to(torch.float32)
-    cu = R.camera_uniforms(pk)
-    s_img = (x_pix + cu[0]) * float(np.float32(1.0 / cfg.nx))
-    t_img = (y_pix + cu[1]) * float(np.float32(1.0 / cfg.ny))
-    rdx, rdy = sm.unit_disk(cu[2], cu[3])
-    lens = pf[PF_LENS]
-    forg = pv(PF_CAM_ORG) + pv(PF_CU) * (lens * rdx) + pv(PF_CV) * (lens * rdy)
-    fdir = pv(PF_LL) + pv(PF_HOR) * s_img + pv(PF_VERT) * t_img - forg
-    ftime = pf[PF_T0] + cu[4] * (pf[PF_T1] - pf[PF_T0])
-    n = pixel.shape[0]
-    ones = torch.ones(n, dtype=torch.float32, device=sf.device)
-    zeros = torch.zeros_like(ones)
-    org = V.where(regen, forg, org)
-    dirn = V.where(regen, fdir, dirn)
-    thr = V.where(regen, Vec3(ones, ones, ones), thr)
-    rad = V.where(regen, Vec3(zeros, zeros, zeros), rad)
-    time = torch.where(regen, ftime, time)
-    prev_pdf = torch.where(regen, 1.0, prev_pdf)
-    prev_diffuse = prev_diffuse & ~regen
-    depth = torch.where(regen, 0, depth)
-    alive = alive | regen
+    # ---- regeneration of finished lanes (none in hybrid mode) ------------
+    if not hybrid:
+        regen = ~alive & (sample < params.s_end)
+        x_pix = (pixel % cfg.nx).to(torch.float32)
+        y_pix = (pixel // cfg.nx).to(torch.float32)
+        cu = R.camera_uniforms(pk)
+        s_img = (x_pix + cu[0]) * float(np.float32(1.0 / cfg.nx))
+        t_img = (y_pix + cu[1]) * float(np.float32(1.0 / cfg.ny))
+        rdx, rdy = sm.unit_disk(cu[2], cu[3])
+        lens = pf[PF_LENS]
+        forg = (pv(PF_CAM_ORG) + pv(PF_CU) * (lens * rdx)
+                + pv(PF_CV) * (lens * rdy))
+        fdir = pv(PF_LL) + pv(PF_HOR) * s_img + pv(PF_VERT) * t_img - forg
+        ftime = pf[PF_T0] + cu[4] * (pf[PF_T1] - pf[PF_T0])
+        n = pixel.shape[0]
+        ones = torch.ones(n, dtype=torch.float32, device=sf.device)
+        zeros = torch.zeros_like(ones)
+        org = V.where(regen, forg, org)
+        dirn = V.where(regen, fdir, dirn)
+        thr = V.where(regen, Vec3(ones, ones, ones), thr)
+        rad = V.where(regen, Vec3(zeros, zeros, zeros), rad)
+        time = torch.where(regen, ftime, time)
+        prev_pdf = torch.where(regen, 1.0, prev_pdf)
+        prev_diffuse = prev_diffuse & ~regen
+        depth = torch.where(regen, 0, depth)
+        alive = alive | regen
 
     # ---- bounce uniforms, trace, shade, one bounce -----------------------
-    U = R.bounce_uniforms(pk, depth + 1, R.NUM_FIXED_SLOTS)
+    nv = params.n_vol
+    U = R.bounce_uniforms(pk, depth + 1, R.NUM_FIXED_SLOTS + 2 * nv)
+    vol_u = U[R.NUM_FIXED_SLOTS: R.NUM_FIXED_SLOTS + nv]
+    occ_u = U[R.NUM_FIXED_SLOTS + nv:]
     tmax_lane = torch.where(alive, float(np.float32(cfg.t_max)), -BIG)
-    hit = intersect_scene(scene, org, dirn, cfg.t_min, tmax_lane, time)
+    hit = intersect_scene(scene, org, dirn, cfg.t_min, tmax_lane, time,
+                          vol_u)
     hit_mask = hit.prim_idx >= 0
     shade = gather_shade(scene, hit.prim_idx, hit_mask)
     albedo = resolve_albedo(scene, shade, hit.point, hit.u, hit.v)
-    res = bounce_core(bounce_env(scene, cfg, time), U, depth, alive, org,
-                      dirn, time, thr, rad, prev_pdf, prev_diffuse,
+    res = bounce_core(bounce_env(scene, cfg, time, occ_u), U, depth, alive,
+                      org, dirn, time, thr, rad, prev_pdf, prev_diffuse,
                       ~hit_mask, hit.point, hit.normal, shade.mat_type,
                       shade.fuzz, shade.eta, albedo, hit.prim_idx)
 
-    # ---- finish / accumulate ---------------------------------------------
-    depth = depth + 1
+    # ---- finish / accumulate (hybrid: the flush outside does both) -------
+    depth = torch.where(alive, depth + 1, depth) if hybrid else depth + 1
     finished = alive & (~res.alive | (depth >= cfg.max_depth))
-    rad_s = Vec3(*(_scrub(c) for c in res.radiance))
-    acc = V.where(finished, acc + rad_s, acc)
-    sample = torch.where(finished, sample + 1, sample)
+    if not hybrid:
+        rad_s = Vec3(*(_scrub(c) for c in res.radiance))
+        acc = V.where(finished, acc + rad_s, acc)
+        sample = torch.where(finished, sample + 1, sample)
     alive_out = res.alive & ~finished
     rays += res.rays_lane.sum(dtype=torch.int64)
 
@@ -281,6 +293,8 @@ def _check_tensors(sf, si, params: MegaParams, rays) -> int:
             ("props", params.props, torch.float32, tuple(params.props.shape)),
             ("plan", params.plan, torch.int32,
              (params.c_params.n_entries, PLAN_COLS)),
+            ("vol_slot", params.vol_slot, torch.int32,
+             (params.c_params.n_props,)),
             ("rays", rays, torch.int64, (1,))):
         if t.device != sf.device:
             raise ValueError(f"{name} is on {t.device}, sf on {sf.device}")
@@ -294,15 +308,17 @@ def _check_tensors(sf, si, params: MegaParams, rays) -> int:
     return n
 
 
-def mega_step(scene: S.Scene, cfg, sf, si, params: MegaParams, rays):
+def mega_step(scene: S.Scene, cfg, sf, si, params: MegaParams, rays,
+              hybrid=False):
     """One whole wavefront iteration.  Returns (sf', si') and adds this
-    iteration's ray count into the int64 [1] tensor `rays`.
+    iteration's ray count into the int64 [1] tensor `rays`.  `hybrid`: the
+    queue-scheduled mode (TPU kernel D).
 
     CPU tensors run `mega_step_plain`; CUDA tensors launch the kernel on
     the current stream (no synchronisation) or raise."""
-    global launches
+    global launches, hybrid_launches
     if sf.device.type == "cpu":
-        return mega_step_plain(scene, cfg, sf, si, params, rays)
+        return mega_step_plain(scene, cfg, sf, si, params, rays, hybrid)
     if sf.device.type != "cuda":
         raise ValueError(f"mega_step runs on CPU or CUDA tensors, not "
                          f"{sf.device}")
@@ -314,13 +330,17 @@ def mega_step(scene: S.Scene, cfg, sf, si, params: MegaParams, rays):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rtw_mega_step(sf.data_ptr(), si.data_ptr(),
                                 params.props.data_ptr(),
-                                params.plan.data_ptr(), osf.data_ptr(),
+                                params.plan.data_ptr(),
+                                params.vol_slot.data_ptr(), osf.data_ptr(),
                                 osi.data_ptr(), rays.data_ptr(), n,
-                                params.c_params, stream)
+                                int(bool(hybrid)), params.c_params, stream)
     if err != 0:
         raise RuntimeError(f"mega_step kernel launch failed: "
                            f"{lib.rtw_error_string(err).decode()} ({err})")
-    launches += 1
+    if hybrid:
+        hybrid_launches += 1
+    else:
+        launches += 1
     return osf, osi
 
 
@@ -332,10 +352,8 @@ def library() -> ctypes.CDLL:
         return _lib
     lib = kernels.load("mega_kernel")
     lib.rtw_mega_step.restype = ctypes.c_int
-    lib.rtw_mega_step.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        _CParams, ctypes.c_void_p]
+    lib.rtw_mega_step.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int, ctypes.c_int, _CParams, ctypes.c_void_p]
     lib.rtw_error_string.restype = ctypes.c_char_p
     lib.rtw_error_string.argtypes = [ctypes.c_int]
     _lib = lib

@@ -7,8 +7,9 @@ the any-hit shadow query.  On CUDA tensors each launches its hand-written
 kernel of csrc/trace_kernel.cu (built by utils/kernels.py) on the current
 stream; on CPU tensors each runs its plain version, `trace_plain`
 (intersect_scene + gather_shade) or `occluded_plain`.  There is no
-fallback: a CUDA tensor gets the kernel or an error.  Volume prims are not
-in the kernels yet (ROADMAP item 6) and raise.
+fallback: a CUDA tensor gets the kernel or an error.  Volumes read their
+free-flight uniforms from `vol_u` [max(n_vol, 1), N] (the shadow ray's own
+rows for the occlusion query), row `max(vol_slot, 0)` of each volume prim.
 
 The props layout and `build_props` are the reference's; the megakernel
 (csrc/mega_kernel.cu) reads the same table.
@@ -39,7 +40,6 @@ W2O = KBASE            # +12 when any_xform
 O2W = KBASE + 12
 
 PLAN_COLS = 7          # (start, count, size, ptype, axis, has_xform, block)
-KERNEL_PRIMS = (S.PRIM_SPHERE, S.PRIM_MOVING_SPHERE, S.PRIM_RECT, S.PRIM_BOX)
 # Rows of the trace kernel's outputs: f32 (t, point, normal, u, v, fuzz,
 # eta, scale, rgb, odd, even) and i32 (prim, mat_type, tex_type, image_id,
 # mat_id), the reference's `_write_hit` layout.
@@ -73,12 +73,10 @@ def build_props(scene: S.Scene, any_xform: bool):
 
 
 def check_plan(scene: S.Scene) -> None:
-    """Every plan entry must be a type the split kernels implement."""
+    """Every plan entry must be a prim type the kernels implement (all six;
+    csrc/geometry.cuh::prim_t)."""
     for e in scene.chunk_plan:
-        if e[3] not in KERNEL_PRIMS:
-            I.check_prim_type(e[3])          # volumes: NotImplementedError
-            raise ValueError(f"chunk plan entry {e}: prim type {e[3]} is "
-                             "outside the split-tier kernels")
+        I.check_prim_type(e[3])
 
 
 class _CTraceParams(ctypes.Structure):
@@ -92,12 +90,14 @@ class _CTraceParams(ctypes.Structure):
 @dataclasses.dataclass
 class SplitTables:
     """The scene's tables both kernels read, on the scene's device: the
-    props table, the chunk plan and the block AABBs [B, 8].  A render
-    builds them once (`split_tables`) and passes them to every launch."""
+    props table, the chunk plan, the block AABBs [B, 8] and the per-prim
+    volume slot.  A render builds them once (`split_tables`) and passes
+    them to every launch."""
 
     props: torch.Tensor       # float32 [P, K]
     plan: torch.Tensor        # int32 [E, PLAN_COLS]
     aabbs: torch.Tensor       # float32 [B, 8]
+    vol_slot: torch.Tensor    # int32 [P]; -1 off volumes
 
 
 def plan_table(scene: S.Scene):
@@ -116,18 +116,21 @@ def split_tables(scene: S.Scene) -> SplitTables:
     if aabbs.shape != (n_blocks, 8):
         raise ValueError(f"block_aabbs has shape {tuple(aabbs.shape)}, the "
                          f"plan has {n_blocks} blocks")
-    return SplitTables(props=props, plan=plan, aabbs=aabbs)
+    return SplitTables(props=props, plan=plan, aabbs=aabbs,
+                       vol_slot=scene.prims.vol_slot.to(torch.int32)
+                       .contiguous())
 
 
-def trace_plain(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time):
+def trace_plain(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u):
     """Nearest hit and shading record in plain torch: (Hit, ShadeRec)."""
-    hit = I.intersect_scene(scene, o, d, tmin, tmax, time)
+    hit = I.intersect_scene(scene, o, d, tmin, tmax, time, vol_u)
     return hit, gather_shade(scene, hit.prim_idx, hit.prim_idx >= 0)
 
 
-def occluded_plain(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time):
+def occluded_plain(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time,
+                   vol_u):
     """Any hit in (tmin, tmax), plain torch: bool [N]."""
-    return I.occluded(scene, o, d, tmin, tmax, time)
+    return I.occluded(scene, o, d, tmin, tmax, time, vol_u)
 
 
 def _plane(x, n: int, dev):
@@ -137,9 +140,10 @@ def _plane(x, n: int, dev):
     return torch.full((n,), float(x), dtype=torch.float32, device=dev)
 
 
-def _launch_inputs(scene, o: Vec3, d: Vec3, tmin, tmax, time, tables):
-    """(rays [8, N], tables, params) checked for the kernels: CUDA,
-    float32/int32, contiguous, shapes that agree."""
+def _launch_inputs(scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u,
+                   tables):
+    """(rays [8, N], tables, params) checked for the kernels, with the
+    volume uniforms: CUDA, float32/int32, contiguous, shapes that agree."""
     dev = o.x.device
     if dev.type != "cuda":
         raise ValueError(f"the split-tier kernels run on CUDA tensors, not "
@@ -155,7 +159,10 @@ def _launch_inputs(scene, o: Vec3, d: Vec3, tmin, tmax, time, tables):
             ("plan", tables.plan, torch.int32,
              (len(scene.chunk_plan), PLAN_COLS)),
             ("aabbs", tables.aabbs, torch.float32,
-             tuple(tables.aabbs.shape))):
+             tuple(tables.aabbs.shape)),
+            ("vol_slot", tables.vol_slot, torch.int32,
+             (tables.props.shape[0],)),
+            ("vol_u", vol_u, torch.float32, (max(scene.n_vol, 1), n))):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, the rays on {dev}")
         if t.dtype != dtype:
@@ -183,7 +190,7 @@ def _call(fn, dev, *args):
                            f"{lib.rtw_error_string(err).decode()} ({err})")
 
 
-def trace(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time,
+def trace(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u,
           tables: SplitTables | None = None):
     """Nearest hit of each ray over the whole scene and the winner's
     shading record: (Hit, ShadeRec), the contract of `trace_plain`.  `tmax`
@@ -192,13 +199,15 @@ def trace(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time,
     global trace_launches
     check_plan(scene)
     if o.x.device.type == "cpu":
-        return trace_plain(scene, o, d, tmin, tmax, time)
-    rays, tables, p = _launch_inputs(scene, o, d, tmin, tmax, time, tables)
+        return trace_plain(scene, o, d, tmin, tmax, time, vol_u)
+    rays, tables, p = _launch_inputs(scene, o, d, tmin, tmax, time, vol_u,
+                                     tables)
     n = rays.shape[1]
     of = torch.empty((HIT_F32, n), dtype=torch.float32, device=rays.device)
     oi = torch.empty((HIT_I32, n), dtype=torch.int32, device=rays.device)
-    _call("rtw_trace", rays.device, rays.data_ptr(), tables.props.data_ptr(),
-          tables.plan.data_ptr(), tables.aabbs.data_ptr(), of.data_ptr(),
+    _call("rtw_trace", rays.device, rays.data_ptr(), vol_u.data_ptr(),
+          tables.props.data_ptr(), tables.plan.data_ptr(),
+          tables.aabbs.data_ptr(), tables.vol_slot.data_ptr(), of.data_ptr(),
           oi.data_ptr(), n, p)
     trace_launches += 1
     return _unpack_hit(of, oi)
@@ -218,7 +227,7 @@ def _unpack_hit(of, oi):
 
 
 def occluded_kernel(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time,
-                    tables: SplitTables | None = None):
+                    vol_u, tables: SplitTables | None = None):
     """Any hit in (tmin, tmax) per ray: bool [N], the contract of
     `occluded_plain`.  A lane with tmax <= tmin (a dead lane) is never
     occluded.  CPU tensors run `occluded_plain`; CUDA tensors launch the
@@ -226,13 +235,15 @@ def occluded_kernel(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time,
     global occluded_launches
     check_plan(scene)
     if o.x.device.type == "cpu":
-        return occluded_plain(scene, o, d, tmin, tmax, time)
-    rays, tables, p = _launch_inputs(scene, o, d, tmin, tmax, time, tables)
+        return occluded_plain(scene, o, d, tmin, tmax, time, vol_u)
+    rays, tables, p = _launch_inputs(scene, o, d, tmin, tmax, time, vol_u,
+                                     tables)
     n = rays.shape[1]
     out = torch.empty(n, dtype=torch.bool, device=rays.device)
-    _call("rtw_occluded", rays.device, rays.data_ptr(),
+    _call("rtw_occluded", rays.device, rays.data_ptr(), vol_u.data_ptr(),
           tables.props.data_ptr(), tables.plan.data_ptr(),
-          tables.aabbs.data_ptr(), out.data_ptr(), n, p)
+          tables.aabbs.data_ptr(), tables.vol_slot.data_ptr(),
+          out.data_ptr(), n, p)
     occluded_launches += 1
     return out
 
@@ -244,12 +255,12 @@ def library() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib = kernels.load("trace_kernel")
-    ptrs = [ctypes.c_void_p] * 6
+    ptrs = [ctypes.c_void_p] * 8
     lib.rtw_trace.restype = ctypes.c_int
     lib.rtw_trace.argtypes = ptrs + [ctypes.c_int, _CTraceParams,
                                      ctypes.c_void_p]
     lib.rtw_occluded.restype = ctypes.c_int
-    lib.rtw_occluded.argtypes = ptrs[:5] + [ctypes.c_int, _CTraceParams,
+    lib.rtw_occluded.argtypes = ptrs[:7] + [ctypes.c_int, _CTraceParams,
                                             ctypes.c_void_p]
     lib.rtw_error_string.restype = ctypes.c_char_p
     lib.rtw_error_string.argtypes = [ctypes.c_int]

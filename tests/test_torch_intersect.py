@@ -1,7 +1,15 @@
 """The port's plain scene intersection against rtw_tpu.ops.intersect on the
-same random rays: winners and occlusion equal, t / point / normal within
-rtol 1e-5, atol 1e-4 (the two libraries' float32 sqrt and division may
-differ in the last bit)."""
+same random rays, shutter times and volume uniforms: winners and occlusion
+equal, t / point / normal within rtol 1e-5, atol 1e-4 (the two libraries'
+float32 sqrt and division may differ in the last bit).
+
+Volumes (scenes 3 and 4): XLA's CPU log is an approximation, correctly
+rounded on ~86% of uniforms where torch's is on ~99.9%, so a free-flight
+distance differs from the reference's by an ulp on ~14% of volume tests
+(ROADMAP "Faults found").  Such an ulp can move a winner only where a
+volume sample and a surface tie to the ulp; the scene tests hold winners
+and occlusion equal on >= 99.9% of lanes (measured: 100% of 4096) and t
+within the same rtol."""
 
 import numpy as np
 import jax
@@ -22,18 +30,25 @@ torch.set_num_threads(1)
 
 N = 4096
 # per scene: (origin box lo, hi) inside which rays start
-BOUNDS = {0: (0.0, 555.0), 5: (-2.0, 2.0)}
+BOUNDS = {0: (0.0, 555.0), 5: (-2.0, 2.0), 3: (0.0, 555.0),
+          4: (-100.0, 600.0)}
+# share of lanes whose winner or occlusion must equal the reference's
+EQUAL_SHARE = {0: 1.0, 5: 1.0, 3: 0.999, 4: 0.999}
 
 
-def _rays(sid):
+def _rays(sid, n_vol=1):
+    """(o, d, tmax, time, vol_u) from a seed: non-unit directions, like
+    camera rays, and a quarter of the lanes with a short tmax."""
     rng = np.random.default_rng(100 + sid)
     lo, hi = BOUNDS[sid]
     o = rng.uniform(lo, hi, (3, N)).astype(np.float32)
     d = rng.normal(size=(3, N)).astype(np.float32)
-    d *= rng.uniform(0.5, 2.0, N).astype(np.float32)     # non-unit, like
-    tmax = np.where(rng.uniform(size=N) < 0.25,          # camera rays
+    d *= rng.uniform(0.5, 2.0, N).astype(np.float32)
+    tmax = np.where(rng.uniform(size=N) < 0.25,
                     rng.uniform(1.0, 300.0, N), 1e27).astype(np.float32)
-    return o, d, tmax
+    time = rng.uniform(size=N).astype(np.float32)
+    vol_u = rng.uniform(size=(max(n_vol, 1), N)).astype(np.float32)
+    return o, d, tmax, time, vol_u
 
 
 def _jv(a):
@@ -44,49 +59,88 @@ def _tv(a):
     return TV(*(torch.as_tensor(c) for c in a))
 
 
-@pytest.mark.parametrize("sid", [0, 5])
+@pytest.mark.parametrize("sid", [0, 5, 3, 4])
 def test_intersect_scene_matches_reference(sid):
-    o, d, tmax = _rays(sid)
     js = rt.build_scene(sid, 64, 48)
     ts = rtt.build_scene(sid, 64, 48, device="cpu")
-    zeros = jnp.zeros(N, jnp.float32)
-    want = jax.jit(lambda o_, d_, tm: JI.intersect_scene(
-        js, o_, d_, 1e-6, tm, zeros, zeros[None]))(_jv(o), _jv(d),
-                                                   jnp.asarray(tmax))
-    got = TI.intersect_scene(ts, _tv(o), _tv(d), 1e-6, torch.as_tensor(tmax))
+    o, d, tmax, time, vol_u = _rays(sid, js.n_vol)
+    want = jax.jit(lambda o_, d_, tm, t_, v_: JI.intersect_scene(
+        js, o_, d_, 1e-6, tm, t_, v_))(_jv(o), _jv(d), jnp.asarray(tmax),
+                                       jnp.asarray(time), jnp.asarray(vol_u))
+    got = TI.intersect_scene(ts, _tv(o), _tv(d), 1e-6, torch.as_tensor(tmax),
+                             torch.as_tensor(time), torch.as_tensor(vol_u))
 
     prim = got.prim_idx.numpy()
-    np.testing.assert_array_equal(prim, np.asarray(want.prim_idx))
-    hit = prim >= 0
+    same = prim == np.asarray(want.prim_idx)
+    assert same.mean() >= EQUAL_SHARE[sid]
+    hit = (prim >= 0) & same
     assert 0.2 < hit.mean() <= 1.0
-    np.testing.assert_array_equal(got.mat_id.numpy(), np.asarray(want.mat_id))
+    np.testing.assert_array_equal(got.mat_id.numpy()[same],
+                                  np.asarray(want.mat_id)[same])
     np.testing.assert_allclose(got.t.numpy()[hit], np.asarray(want.t)[hit],
                                rtol=1e-5, atol=1e-4)
     for g, w in ((got.point, want.point), (got.normal, want.normal)):
-        np.testing.assert_allclose(np.stack([c.numpy() for c in g]),
-                                   np.stack([np.asarray(c) for c in w]),
+        np.testing.assert_allclose(np.stack([c.numpy() for c in g])[:, same],
+                                   np.stack([np.asarray(c) for c in w])[:, same],
                                    rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("sid", [0, 5])
+@pytest.mark.parametrize("sid", [0, 5, 3, 4])
 def test_occluded_matches_reference(sid):
-    o, d, tmax = _rays(sid)
-    tmax = np.where(np.arange(N) % 3 == 0, -1e30, tmax).astype(np.float32)
     js = rt.build_scene(sid, 64, 48)
     ts = rtt.build_scene(sid, 64, 48, device="cpu")
-    zeros = jnp.zeros(N, jnp.float32)
-    want = jax.jit(lambda o_, d_, tm: JI.occluded(
-        js, o_, d_, 5e-5, tm, zeros, zeros[None]))(_jv(o), _jv(d),
-                                                   jnp.asarray(tmax))
-    got = TI.occluded(ts, _tv(o), _tv(d), 5e-5, torch.as_tensor(tmax))
+    o, d, tmax, time, vol_u = _rays(sid, js.n_vol)
+    tmax = np.where(np.arange(N) % 3 == 0, -1e30, tmax).astype(np.float32)
+    want = jax.jit(lambda o_, d_, tm, t_, v_: JI.occluded(
+        js, o_, d_, 5e-5, tm, t_, v_))(_jv(o), _jv(d), jnp.asarray(tmax),
+                                       jnp.asarray(time), jnp.asarray(vol_u))
+    got = TI.occluded(ts, _tv(o), _tv(d), 5e-5, torch.as_tensor(tmax),
+                      torch.as_tensor(time), torch.as_tensor(vol_u))
     want = np.asarray(want)
-    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy() == want).mean() >= EQUAL_SHARE[sid]
     assert 0.1 < want.mean() < 0.9
 
 
-@pytest.mark.parametrize("sid,what", [(3, "volume"), (4, "volume")])
-def test_unported_prim_types_raise(sid, what):
-    ts = rtt.build_scene(sid, 16, 16, device="cpu")
-    o = TV(*torch.zeros(3, 4))
-    with pytest.raises(NotImplementedError, match=what):
-        TI.intersect_scene(ts, o, o, 1e-6, 1e27, torch.zeros(4))
+@pytest.mark.parametrize("kind", ["sphere", "box"])
+def test_volume_tests_match_reference(kind):
+    """volume_sphere_t / volume_box_t on a [C, N] block: random boundaries,
+    densities, rays, uniforms and windows, with pad rows of density 0 (the
+    scene builder's padding).  Hit or miss equal on >= 99.9% of entries (XLA's
+    approximate log can move a sample across the far boundary), t within
+    rtol 2e-4 where both hit."""
+    rng = np.random.default_rng(7 if kind == "sphere" else 8)
+    c, n = 8, 2048
+    params = np.zeros((c, 9), np.float32)
+    if kind == "sphere":
+        params[:, :3] = rng.uniform(-3, 3, (c, 3))
+        params[:, 3] = rng.uniform(2.0, 5.0, c)
+        params[:, 4] = rng.uniform(0.05, 1.0, c)
+    else:
+        lo = rng.uniform(-5, 0, (c, 3))
+        params[:, :3] = lo
+        params[:, 3:6] = lo + rng.uniform(3.0, 8.0, (c, 3))
+        params[:, 6] = rng.uniform(0.05, 1.0, c)
+    params[-2:] = 0.0                                   # pad rows
+    if kind == "sphere":
+        params[-2:, 3] = 1.0
+    o = rng.uniform(-6, 6, (3, n)).astype(np.float32)
+    d = (rng.normal(size=(3, n))
+         * rng.uniform(0.5, 2.0, n)).astype(np.float32)
+    u = rng.uniform(size=(c, n)).astype(np.float32)
+    tmax = np.where(rng.uniform(size=n) < 0.3, rng.uniform(0.5, 10.0, n),
+                    1e27).astype(np.float32)
+    jfn = getattr(JI, f"volume_{kind}_t")
+    tfn = getattr(TI, f"volume_{kind}_t")
+    want = np.asarray(jax.jit(lambda p_, o_, d_, u_, tm: jfn(
+        p_, JV(*o_), JV(*d_), 1e-6, tm, u_))(
+            jnp.asarray(params), jnp.asarray(o), jnp.asarray(d),
+            jnp.asarray(u), jnp.asarray(tmax)))
+    got = tfn(torch.as_tensor(params), _tv(o), _tv(d), 1e-6,
+              torch.as_tensor(tmax), torch.as_tensor(u)).numpy()
+    assert got.shape == want.shape == (c, n)
+    w_hit, g_hit = want < 1e29, got < 1e29
+    assert (w_hit == g_hit).mean() >= 0.999
+    assert 0.05 < w_hit[:-2].mean() < 0.95
+    assert not g_hit[-2:].any()                         # pads never hit
+    both = w_hit & g_hit
+    np.testing.assert_allclose(got[both], want[both], rtol=2e-4)

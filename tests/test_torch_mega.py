@@ -2,9 +2,11 @@
 
 `mega_step_plain` is held against the reference's Pallas megakernel run
 in interpret mode (as tests/test_mega.py runs it), step by step from the
-same carry; the port's `trace_wavefront_mega` against the reference's
-`trace_wavefront_regen`.  The CUDA kernel itself is held against the plain
-twin on the card by chip_smoke.py (phases 3 and 4)."""
+same carry, in its regenerating and its hybrid mode; the port's
+`trace_wavefront_mega` against the reference's `trace_wavefront_regen`,
+and its `trace_wavefront_qmega` against the reference's
+`trace_wavefront_queue`.  The CUDA kernel itself is held against the plain
+twin on the card by chip_smoke.py (phases 3, 4, 12 and 13)."""
 
 import dataclasses
 
@@ -16,6 +18,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 import rtw_tpu as rt
+from rtw_tpu.integrator import trace_wavefront_queue as j_queue
 from rtw_tpu.integrator import trace_wavefront_regen as j_regen
 from rtw_tpu.ops import mega_kernel as JMK
 from rtw_tpu.utils import rng as JR
@@ -49,10 +52,11 @@ def _assert_carry_close(got, want, extent, msg):
                                err_msg=msg)
 
 
-def test_mega_step_plain_matches_pallas_kernel():
-    """Scene 0, 1152 lanes padded to 2048 as the reference pads them, four
+@pytest.mark.parametrize("sid", [0, 3])
+def test_mega_step_plain_matches_pallas_kernel(sid):
+    """Scenes 0 and 3 (volumes: the free-flight rows after the fixed
+    slots), 1152 lanes padded to 2048 as the reference pads them, four
     successive steps, each started from the reference's carry."""
-    sid = 0
     cfg = _cfg(sid)
     jcfg = rt.RenderConfig(**dataclasses.asdict(cfg))
     js = rt.build_scene(sid, NX, NY)
@@ -89,7 +93,80 @@ def test_mega_step_plain_matches_pallas_kernel():
     assert TMK.launches == launches   # CPU tensors never reach the kernel
 
 
-@pytest.mark.parametrize("sid", [0, 5])
+def test_mega_step_plain_hybrid_matches_pallas_kernel():
+    """The hybrid mode (TPU kernel D) on scene 0: 2048 lanes of camera rays
+    (every lane real), four successive steps against the reference's
+    `mega_step(..., hybrid=True)` in interpret mode, each from the
+    reference's carry; lanes that finish stay dead with their depth."""
+    from rtw_tpu.integrator import generate_camera_rays as j_camera
+
+    sid = 0
+    cfg = _cfg(sid)
+    jcfg = rt.RenderConfig(**dataclasses.asdict(cfg))
+    js = rt.build_scene(sid, NX, NY)
+    ts = rtt.build_scene(sid, NX, NY, device="cpu")
+    n = 2 * JMK.TILE
+    key = JR.base_key(cfg.seed)
+    pix = jnp.arange(n, dtype=jnp.int32) % cfg.num_pixels
+    smp = jnp.arange(n, dtype=jnp.int32) // cfg.num_pixels
+    path = j_camera(js, jcfg, pix, JR.make_path_keys(key, pix, smp, "fast"))
+    zero = jnp.zeros(n, jnp.float32)
+    sf = jnp.stack([*path.origin, *path.direction, *path.throughput,
+                    *path.radiance, zero, zero, zero, path.time,
+                    path.prev_pdf])
+    si = jnp.stack([jnp.ones(n, jnp.int32), jnp.zeros(n, jnp.int32),
+                    jnp.zeros(n, jnp.int32), smp, pix])
+    parf, pari = JMK.mega_params(js, key, jcfg)
+    params = TMK.mega_params(ts, cfg.seed, cfg, cfg.spp)
+    extent = float(ts.block_aabbs[:, :6].abs().max())
+
+    with pltpu.force_tpu_interpret_mode():
+        step = jax.jit(lambda a, b: JMK.mega_step(js, jcfg, a, b, parf, pari,
+                                                  hybrid=True))
+        for it in range(4):
+            j_sf, j_si, j_rays = step(sf, si)
+            rays = torch.zeros(1, dtype=torch.int64)
+            t_sf, t_si = TMK.mega_step(ts, cfg, torch.tensor(np.asarray(sf)),
+                                       torch.tensor(np.asarray(si)), params,
+                                       rays, hybrid=True)
+            np.testing.assert_array_equal(t_si.numpy(), np.asarray(j_si),
+                                          err_msg=f"step {it}")
+            _assert_carry_close(t_sf.numpy(), np.asarray(j_sf), extent,
+                                f"step {it}")
+            assert int(rays) == int(np.asarray(j_rays).sum())
+            sf, si = j_sf, j_si
+    alive = np.asarray(si)[JMK.I_ALIVE] > 0
+    assert 0.0 < alive.mean() < 1.0     # some paths ended, some run on
+
+
+@pytest.mark.parametrize("sid", [0, 1])
+def test_trace_wavefront_qmega_matches_reference_queue(sid):
+    """The port's qmega scheduler (plain hybrid steps + the queue's flush)
+    against the reference's jnp work queue at 2048 lanes, a multiple of
+    the reference kernel's tile, where the two flush rules agree (the
+    reference's counts its padded lanes): the same samples, so equal ray
+    counts and every value within 1e-4."""
+    nx, ny = 64, 32
+    cfg = rtt.RenderConfig(nx=nx, ny=ny, spp=3, max_depth=6, scene_id=sid,
+                           seed=5)
+    jcfg = rt.RenderConfig(**dataclasses.asdict(cfg))
+    js = rt.build_scene(sid, nx, ny)
+    ts = rtt.build_scene(sid, nx, ny, device="cpu")
+    pix = np.arange(cfg.num_pixels, dtype=np.int32)
+    ref, ref_rays, _ = jax.jit(lambda: j_queue(
+        js, jcfg, jnp.asarray(pix), JR.base_key(cfg.seed), 0, cfg.spp))()
+    launches = TMK.hybrid_launches
+    got, rays, _ = TI.trace_wavefront_qmega(ts, cfg, torch.as_tensor(pix),
+                                            cfg.seed, 0, cfg.spp)
+    assert TMK.hybrid_launches == launches  # the CPU runs the plain twin
+    a = np.stack([np.asarray(c) for c in ref])
+    b = np.stack([c.numpy() for c in got])
+    assert np.isfinite(b).all()
+    assert int(rays) == pytest.approx(float(ref_rays), rel=1e-6)
+    np.testing.assert_allclose(b, a, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("sid", [0, 3, 5])
 def test_trace_wavefront_mega_matches_reference_regen(sid):
     cfg = _cfg(sid)
     jcfg = rt.RenderConfig(**dataclasses.asdict(cfg))
@@ -108,7 +185,6 @@ def test_trace_wavefront_mega_matches_reference_regen(sid):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("scheduler", "qmega", "queue 2 item D"),
     ("rng", "threefry", "ROADMAP item 11"),
     ("rng", "tea", "ROADMAP item 11"),
     ("estimator", "book", "ROADMAP item 11"),
@@ -136,6 +212,10 @@ def test_gate_selection_on_cpu():
     with pytest.raises(ValueError, match="noise/image"):
         TI._mega_backend(dataclasses.replace(cfg, backend="mega"),
                          rtt.build_scene(2, 8, 8, device="cpu"))
+    for sid in (2, 4):        # qmega keeps the megakernel's envelope
+        with pytest.raises(ValueError, match="noise/image"):
+            rtt.render(rtt.build_scene(sid, 8, 8, device="cpu"),
+                       dataclasses.replace(cfg, scheduler="qmega"))
 
 
 def test_mega_step_checks_its_inputs():

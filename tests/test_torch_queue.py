@@ -2,8 +2,8 @@
 
 The lanes' pixel layout (`tile_permutation`, which the queue gathers
 through) equal to the reference's, with and without partial edge tiles.
-Whole queue renders of scenes 1 and 2 (32x24, 4 spp, depth 8) through the
-port's plain path against `rtw_tpu.render` with scheduler="queue",
+Whole queue renders of scenes 1, 2 and 4 (32x24, 4 spp, depth 8) through
+the port's plain path against `rtw_tpu.render` with scheduler="queue",
 backend="jnp", at flush_denom 0 (flush every iteration) and 2 (the default
 deferred flush).  The two draw the same samples and trace the same paths:
 ray counts equal, and every pixel within atol/rtol 1e-4 (measured: max abs
@@ -36,7 +36,7 @@ def test_queue_lane_pixels_match_reference(nx, ny):
     np.testing.assert_array_equal(np.sort(perm), np.arange(nx * ny))
 
 
-@pytest.mark.parametrize("sid", [1, 2])
+@pytest.mark.parametrize("sid", [1, 2, 4])
 @pytest.mark.parametrize("flush_denom", [0, 2])
 def test_queue_render_matches_reference(sid, flush_denom):
     kw = dict(nx=32, ny=24, spp=4, max_depth=8, scene_id=sid,

@@ -23,23 +23,26 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-# Scenes 1 and 2: the share of pixels within the goldens' 1e-4.  The
+# Scenes 1, 2 and 4: the share of pixels within the goldens' 1e-4.  The
 # reference's compiled CPU code computes 1/sqrt with an approximate rsqrt
 # (right to the ulp on ~89% of inputs) in every normalisation of its
 # shading; scenes 1 and 2 (small spheres over an r = 1000 ground sphere)
 # can amplify such an ulp until a path goes elsewhere: measured 99.90%
-# (scene 1, 3 pixels) and 99.97% (scene 2, 1 pixel) within 1e-4
-# (ROADMAP "Faults found").
-GOLDEN_PIXEL_SHARE = {1: 0.999, 2: 0.999}
+# (scene 1, 3 pixels) and 99.97% (scene 2, 1 pixel) within 1e-4.  Scene 4
+# (a cluster of 1000 small spheres, glass, a dense volume and the fog)
+# amplifies more: 99.32% (21 pixels, up to 0.017 off), the same 21 with the
+# reference's approximate log in place of torch's (ROADMAP "Faults
+# found").
+GOLDEN_PIXEL_SHARE = {1: 0.999, 2: 0.999, 4: 0.99}
 
 
-@pytest.mark.parametrize("sid", [0, 1, 2, 5])
+@pytest.mark.parametrize("sid", [0, 1, 2, 3, 4, 5])
 def test_render_matches_goldens(sid):
     """The golden config (64x48, 32 spp, depth 10, seed 0, regen) through
     the port's plain path: every pixel within the goldens' rtol/atol 1e-4
-    on scenes 0 and 5 (measured: max abs diff 6.1e-6); on scenes 1 and 2
-    the pixel share of GOLDEN_PIXEL_SHARE within it, and the channel means
-    within 1e-3 of the golden image's."""
+    on scenes 0, 3 and 5 (measured: max abs diff 6.1e-6, 1.2e-7 on scene
+    3); on scenes 1, 2 and 4 the pixel share of GOLDEN_PIXEL_SHARE within
+    it, and the channel means within 1e-3 of the golden image's."""
     cfg = rtt.RenderConfig(scene_id=sid, **CFG)
     m = {}
     img = rtt.render(rtt.build_scene(sid, cfg.nx, cfg.ny, device="cpu"), cfg,
@@ -61,7 +64,7 @@ def test_render_matches_goldens(sid):
     assert m["rays"] > m["paths"]
 
 
-@pytest.mark.parametrize("sid", [0, 5])
+@pytest.mark.parametrize("sid", [0, 3, 5])
 def test_mega_scheduler_renders_the_same_image(sid):
     """The megakernel's plain twin draws the same samples as the regen path:
     the same ray count and the same image to float rounding."""
@@ -74,14 +77,6 @@ def test_mega_scheduler_renders_the_same_image(sid):
                    metrics=mb)
     assert ma["rays"] == mb["rays"]
     torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
-
-
-@pytest.mark.parametrize("sid,item", [(3, "ROADMAP item 6"),
-                                      (4, "ROADMAP item")])
-def test_unported_scenes_raise(sid, item):
-    cfg = rtt.RenderConfig(nx=8, ny=8, spp=1, scene_id=sid)
-    with pytest.raises(NotImplementedError, match=item):
-        rtt.render(rtt.build_scene(sid, 8, 8, device="cpu"), cfg)
 
 
 def test_build_scene_defaults_to_the_card():

@@ -61,7 +61,7 @@ def test_build_scene_equals_reference(sid):
 @pytest.mark.parametrize("sid", [0, 5])
 def test_scene_from_numpy_matches_port_build(sid):
     arrays, static = _jax_state(rt.build_scene(sid, NX, NY))
-    carried = TS.scene_from_numpy(arrays, static)
+    carried = TS.scene_from_numpy(arrays, static, device="cpu")
     own = rtt.build_scene(sid, NX, NY, device="cpu")
     _assert_same(_leaves(carried, lambda t: t.numpy()),
                  _leaves(own, lambda t: t.numpy()))
@@ -69,7 +69,18 @@ def test_scene_from_numpy_matches_port_build(sid):
         assert getattr(carried, k) == getattr(own, k)
     with pytest.raises(KeyError):
         del arrays["prims.params"]
-        TS.scene_from_numpy(arrays, static)
+        TS.scene_from_numpy(arrays, static, device="cpu")
+
+
+def test_scene_from_numpy_defaults_to_the_card():
+    """No device asked for: the carried scene goes to CUDA, and without a
+    card that raises instead of building on the CPU."""
+    arrays, static = _jax_state(rt.build_scene(5, NX, NY))
+    if torch.cuda.is_available():
+        assert TS.scene_from_numpy(arrays, static).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TS.scene_from_numpy(arrays, static)
 
 
 @pytest.mark.parametrize("sid,any_xform", [(0, True), (0, False),
