@@ -14,9 +14,16 @@ Then it drives the port's paths through `render`:
   8 spp, depth 20) on the work queue with the trace and occlusion kernels;
 - scheduler="qmega": scene 1 at 800x400, 16 spp, depth 20 on the work
   queue with the megakernel's hybrid mode;
+- the scale tier: the stress fields of tools/stress_scale_torch.py (16384,
+  65536 and 262144 spheres, 512x512, 4 spp, depth 8) on the work queue
+  with the trace kernel walking the block hierarchy, the 16384 and 65536
+  fields with the flat block scan beside it, the 65536 field with a light
+  (the occlusion kernel), and the 16384 field with backend="mega" and
+  scheduler="qmega";
 
 and checks that each path launched its kernels.  `--profile` adds a
-torch.profiler breakdown of one scene-2 and one scene-4 render.  Each
+torch.profiler breakdown of one scene-2, one scene-4 and one 65536-sphere
+field render.  Each
 phase prints one line; any failure raises, so the run exits non-zero and
 prints no result.  With no CUDA device it exits 1.
 
@@ -30,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import shutil
 import subprocess
@@ -46,6 +54,16 @@ SCENE3_WORKLOAD = (400, 400, 32)
 SPLIT_WORKLOADS = {1: (800, 400, 16), 2: (800, 400, 16), 4: (800, 400, 8)}
 QMEGA_SCENE = 1
 SPLIT_LANES = 800 * 400
+# the scale tier: tools/stress_scale.py's workload on the stress fields
+FIELDS = (16384, 65536, 262144)
+FIELD_WORKLOAD = (512, 512, 4)
+FIELD_DEPTH = 8
+SMALL_FIELD = 2500        # walked with the threshold lowered to 32 blocks
+LIT_FIELD = 65536
+MEGA_FIELD = 16384
+# rays of the kernel-against-plain phase at each size (the plain sweep
+# makes a [64, N] matrix per block: 4096 blocks at 262144 spheres)
+FIELD_RAYS = {2500: 262144, 16384: 262144, 65536: 131072, 262144: 32768}
 # the card's published peaks (NVIDIA's data sheet, H100 SXM at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -253,32 +271,49 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _turns(kernel, plain):
+def _turns(kernel, plain, plain_reps=5, kernel_reps=50):
     """(kernel ms, plain ms, report): CUDA-event times in turns, plain,
-    kernel, kernel, plain, each the mean of its reps."""
-    plain(), kernel()
-    p1 = _time_ms(plain, 5)
-    k1 = _time_ms(kernel, 50)
-    k2 = _time_ms(kernel, 50)
-    p2 = _time_ms(plain, 5)
+    kernel, kernel, plain, each the mean of its reps.  A plain version that
+    takes seconds (the scale tier's sweeps) gets one rep a turn, after a
+    caller's own first call of it."""
+    kernel()
+    if plain_reps > 1:
+        plain()
+    p1 = _time_ms(plain, plain_reps)
+    k1 = _time_ms(kernel, kernel_reps)
+    k2 = _time_ms(kernel, kernel_reps)
+    p2 = _time_ms(plain, plain_reps)
     return ((k1 + k2) / 2, (p1 + p2) / 2,
             f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
 
 
-def _mega_bound(scene, sf, si):
+def _mega_bound(scene, sf, si, params):
     """Bound of one megakernel step: the carry read and written once (17
     f32 + 5 i32 rows each way), or the f32 work of the alive lanes: the
-    nearest-hit sweep over every prim, the shadow ray's where the scene has
-    a light, and ~300 operations of shading."""
+    nearest-hit sweep, the shadow ray's where the scene has a light, and
+    ~300 operations of shading.  A scene of at most 8 blocks is swept
+    whole; above that the nearest-hit sweep is the walk's own count on the
+    carry's rays (`_split_work`), and a shadow sweep counts nothing (no
+    culled path here has a light; less work keeps the bound a bound)."""
     from rtw_tpu_torch.ops import mega_kernel as MK
+    from rtw_tpu_torch.ops.intersect import BIG
+    from rtw_tpu_torch.ops.vec import Vec3
 
     n = sf.shape[1]
-    n_alive = int((si[MK.I_ALIVE] > 0).sum())
-    sweep = sum(e[1] * PRIM_FLOPS[e[3]] + e[1] * XFORM_FLOPS * e[5]
-                for e in scene.chunk_plan)
-    sweeps = 1 + (scene.num_lights > 0)
-    return _bound(2 * (MK.NF + MK.NI) * 4 * n,
-                  n_alive * (sweeps * sweep + 300))
+    alive = si[MK.I_ALIVE] > 0
+    n_alive = int(alive.sum())
+    n_bytes = 2 * (MK.NF + MK.NI) * 4 * n
+    if not params.c_params.walk:
+        sweep = sum(e[1] * PRIM_FLOPS[e[3]] + e[1] * XFORM_FLOPS * e[5]
+                    for e in scene.chunk_plan)
+        sweeps = 1 + (scene.num_lights > 0)
+        return _bound(n_bytes, n_alive * (sweeps * sweep + 300))
+    walk = _split_work(
+        scene, params.tables, Vec3(*sf[MK.F_ORG:MK.F_ORG + 3]),
+        Vec3(*sf[MK.F_DIR:MK.F_DIR + 3]), params.c_params.tmin,
+        torch.where(alive, params.c_params.tmax, -BIG), sf[MK.F_TIME],
+        torch.zeros((params.n_vol, n), device=sf.device), True)
+    return _bound(n_bytes, walk + 300 * n_alive)
 
 
 def _mega_path(label, sid, nx, ny, spp):
@@ -319,13 +354,14 @@ def _mega_path(label, sid, nx, ny, spp):
     ms, plain_ms, times = _turns(
         lambda: MK.mega_step(scene, cfg, sf, si, params, rays),
         lambda: MK.mega_step_plain(scene, cfg, sf, si, params, rays))
-    bound = _mega_bound(scene, sf, si)
+    bound = _mega_bound(scene, sf, si, params)
     print(f"[{label} step times] {cfg.num_pixels} lanes, carry after 10 "
           f"iterations: {times} per iteration; bound {bound[0]:.4f} ms "
           f"({bound[1]}); wall per launch "
           f"{m['wall_seconds'] * 1e3 / launches:.4f} ms", flush=True)
     return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                mrays_per_sec=m["mrays_per_sec"])
 
 
 def phase_main(spp: int):
@@ -348,59 +384,80 @@ def _bound(n_bytes, n_flops):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
-def _split_work(scene, o, d, tmin, tmax, time, vol_u, nearest):
+def _split_work(scene, tables, o, d, tmin, tmax, time, vol_u, nearest):
     """f32 operations the split kernel needs for these rays, counted by
-    replaying its traversal in plain torch.  Only live lanes (tmax > tmin)
-    count: a dead lane's answer (a miss, not occluded) needs no test.  Each
-    live lane's slab test of each block it reaches, the prim tests of the
-    blocks it cannot cull (the nearest-hit cull tightens with the best t so
-    far; an any-hit lane stops at its first hit), and the payload of each
-    lane that hits."""
+    replaying its walk (csrc/geometry.cuh::walk_blocks) in plain torch.
+    Only live lanes (tmax > tmin) count: a dead lane's answer (a miss, not
+    occluded) needs no test.  Each lane's slab test of each upper node and
+    each block it reaches, the prim tests of the blocks it cannot cull (the
+    nearest-hit cull tightens with the best t so far; an any-hit lane stops
+    at its first hit), and the payload of each lane that hits.  A group
+    under the hierarchy's threshold has no upper nodes: every walking lane
+    tests every block's box, as before the hierarchy."""
     from rtw_tpu_torch.ops import intersect as I
+    from rtw_tpu_torch.ops.vec import Vec3
 
     n = o.x.shape[0]
-    tmax = torch.as_tensor(tmax, dtype=torch.float32,
-                           device=o.x.device).expand(n)
+    dev = o.x.device
+    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(n)
+    time = torch.as_tensor(time, dtype=torch.float32, device=dev).expand(n)
     live = tmax > tmin
-    best = torch.full((n,), I.BIG, device=o.x.device)
-    pending = live.clone()
+    best = torch.full((n,), I.BIG, device=dev)
+    walking = live.clone()            # any-hit: lanes without a hit so far
     inv = [1.0 / torch.where(c == 0.0, 1e-30, c) for c in d]
-    flops = 0
-    bid = 0
-    for entry in scene.chunk_plan:
+    flops = torch.zeros((), dtype=torch.int64, device=dev)
+    prims = scene.prims
+
+    def box_ok(row):
+        ab = tables.aabbs[row]
+        near = torch.full_like(best, -I.BIG)
+        far = torch.full_like(best, I.BIG)
+        for ax in range(3):
+            t0 = (ab[ax] - o[ax]) * inv[ax]
+            t1 = (ab[3 + ax] - o[ax]) * inv[ax]
+            near = torch.maximum(near, torch.minimum(t0, t1))
+            far = torch.minimum(far, torch.maximum(t0, t1))
+        ok = (far >= torch.clamp_min(near, tmin)) & (near < tmax)
+        return ok & (near < best) if nearest else ok
+
+    for entry, hr in zip(scene.chunk_plan, tables.layout):
         start, count, size, ptype, axis, xform, block = entry
+        levels, first, n_blocks = hr[:3]
         per = PRIM_FLOPS[ptype] + XFORM_FLOPS * int(xform)
-        for b0, t_mat in I._block_ts(scene, entry, o, d, tmin, tmax, time,
-                                     vol_u):
-            ab = scene.block_aabbs[bid]
-            near = torch.full_like(best, -I.BIG)
-            far = torch.full_like(best, I.BIG)
-            for ax in range(3):
-                t0 = (ab[ax] - o[ax]) * inv[ax]
-                t1 = (ab[3 + ax] - o[ax]) * inv[ax]
-                near = torch.maximum(near, torch.minimum(t0, t1))
-                far = torch.minimum(far, torch.maximum(t0, t1))
-            active = ((far >= torch.clamp_min(near, tmin)) & (near < tmax)
-                      & live)
+        inside = [None] * (levels + 2)    # lanes inside the node of a level
+        for b in range(n_blocks):
+            inside[levels + 1] = walking
+            for lv in range(levels, 0, -1):
+                if b % (16 ** lv) == 0:   # a node of this level begins here
+                    came = inside[lv + 1] & walking
+                    flops += SLAB_FLOPS * came.sum()
+                    inside[lv] = came & box_ok(hr[2 + lv] + b // 16 ** lv)
+            came = inside[1] & walking
+            flops += SLAB_FLOPS * came.sum()
+            idx = torch.nonzero(came & box_ok(first + b))[:, 0]
+            if idx.numel() == 0:
+                continue
+            b0 = start + b * block
             rows = min(block, start + count - b0)
-            hits = t_mat[:rows] < I.BIG
+            sl = slice(b0, b0 + rows)
+            t_mat = I._block_t(
+                ptype, axis, xform, prims.params[sl], prims.w2o[sl],
+                prims.vol_slot[sl], Vec3(*(c[idx] for c in o)),
+                Vec3(*(c[idx] for c in d)), tmin, tmax[idx], time[idx],
+                vol_u[:, idx],
+                torch.ones(rows, dtype=torch.bool, device=dev))
             if nearest:
-                flops += SLAB_FLOPS * int(live.sum())
-                active &= near < best
-                flops += per * rows * int(active.sum())
-                best = torch.minimum(best, torch.where(
-                    active, t_mat.min(dim=0).values, I.BIG))
+                flops += per * rows * idx.numel()
+                best[idx] = torch.minimum(best[idx], t_mat.min(dim=0).values)
             else:
-                flops += SLAB_FLOPS * int(pending.sum())
-                active &= pending
-                first = torch.where(hits.any(0), hits.int().argmax(0) + 1,
-                                    rows)
-                flops += per * int(first[active].sum())
-                pending &= ~(active & hits.any(0))
-            bid += 1
+                hits = t_mat < I.BIG
+                hit = hits.any(0)
+                flops += per * torch.where(hit, hits.int().argmax(0) + 1,
+                                           rows).sum()
+                walking[idx[hit]] = False
     if nearest:
-        flops += PAYLOAD_FLOPS * int((best < I.BIG).sum())
-    return flops
+        flops += PAYLOAD_FLOPS * (best < I.BIG).sum()
+    return int(flops)
 
 
 def _split_bound(scene, tables, args, nearest):
@@ -410,7 +467,7 @@ def _split_bound(scene, tables, args, nearest):
     n_bytes = (32 + (104 if nearest else 1)) * n + sum(
         t.numel() * t.element_size()
         for t in (tables.props, tables.plan, tables.aabbs))
-    return _bound(n_bytes, _split_work(scene, *args, nearest))
+    return _bound(n_bytes, _split_work(scene, tables, *args, nearest))
 
 
 def _split_rays(sid, scene, n, seed):
@@ -624,14 +681,16 @@ class _Captured(Exception):
     """Ends a render once every wrapped launch has been recorded."""
 
 
-def _capture(cfg, wrappers, call=10):
+def _capture(cfg, wrappers, call=10, scene=None):
     """{name: arguments} of the `call`-th call of each wrapper, one
     (module, attribute) per name, in a full-width render with `cfg` (the
-    queue's wavefront is full then); the render stops there."""
+    queue's wavefront is full then) of `scene` (default: the registered
+    scene cfg.scene_id); the render stops there."""
     import rtw_tpu_torch as rtt
     from rtw_tpu_torch.ops.vec import Vec3
 
-    scene = rtt.build_scene(cfg.scene_id, cfg.nx, cfg.ny)
+    if scene is None:
+        scene = rtt.build_scene(cfg.scene_id, cfg.nx, cfg.ny)
     got = {}
 
     def keep(x):
@@ -685,6 +744,35 @@ def _without_volumes(scene):
                                block_aabbs=scene.block_aabbs[rows])
 
 
+def _split_step(tag, label, name, captured, **check):
+    """One split kernel (`name`: "trace" or "occluded") at captured launch
+    inputs: kernel against plain (`check`: _compare_trace's or
+    _compare_occluded's limits), CUDA-event times in turns, and the bound.
+    Returns the kernel's row of the kernels line, without its launches."""
+    from rtw_tpu_torch.ops import trace_kernel as TK
+
+    nearest = name == "trace"
+    kern, plain = ((TK.trace, TK.trace_plain) if nearest else
+                   (TK.occluded_kernel, TK.occluded_plain))
+    (scene, *args, tables), _ = captured
+    args = tuple(args)
+    cmp = _compare_trace if nearest else _compare_occluded
+    err, rep = cmp(f"{name} {label} at launch 10", scene, tables, args,
+                   **check)
+    print(f"[{tag} step check] {rep}", flush=True)
+    slow = tables.n_blocks > 64           # a plain sweep of seconds
+    ms, plain_ms, times = _turns(
+        lambda: kern(scene, *args, tables), lambda: plain(scene, *args),
+        plain_reps=1 if slow else 5, kernel_reps=20 if slow else 50)
+    bound = _split_bound(scene, tables, args, nearest)
+    n = args[0].x.shape[0]
+    live = int((args[3] > args[2]).sum())
+    print(f"[{tag} step times] {name} {label}: {n} lanes ({live} live), "
+          f"{times}; bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=None)
+
+
 def phase_split_step_times():
     """B and C at each split path's shapes: the inputs of the 10th launch
     of a full-width render of scenes 1 (B), 2 and 4 (B and C), 320k lanes,
@@ -702,46 +790,27 @@ def phase_split_step_times():
         if sid != 1:                      # scene 1 has no light: no NEE
             wrappers["occluded"] = (TK, "occluded_kernel")
         got = _capture(cfg, wrappers)
-        for name, kern, plain, nearest in (
-                ("trace", TK.trace, TK.trace_plain, True),
-                ("occluded", TK.occluded_kernel, TK.occluded_plain, False)):
-            if name not in got:
-                continue
-            (scene, *args, tables), _ = got[name]
-            args = tuple(args)
-            cmp = _compare_trace if nearest else _compare_occluded
-            err, rep = cmp(f"{name} scene {sid} at launch 10", scene, tables,
-                           args)
-            print(f"[9 split step check] {rep}", flush=True)
-            ms, plain_ms, times = _turns(
-                lambda: kern(scene, *args, tables),
-                lambda: plain(scene, *args))
-            bound = _split_bound(scene, tables, args, nearest)
-            n = args[0].x.shape[0]
-            live = int((args[3] > args[2]).sum())
-            print(f"[9 split step times] {name} scene {sid}: {n} lanes "
-                  f"({live} live), {times}; bound {bound[0]:.4f} ms "
-                  f"({bound[1]})", flush=True)
-            if nearest and scene.n_vol:
-                bare = _without_volumes(scene)
-                bare_tables = TK.split_tables(bare)
+        for name in got:
+            out[name, sid] = _split_step("9 split", f"scene {sid}", name,
+                                         got[name])
+        (scene, *args, tables), _ = got["trace"]
+        if scene.n_vol:
+            bare = _without_volumes(scene)
+            bare_tables = TK.split_tables(bare)
 
-                def whole():
-                    kern(scene, *args, tables)
+            def whole():
+                TK.trace(scene, *args, tables)
 
-                def without():
-                    kern(bare, *args, bare_tables)
+            def without():
+                TK.trace(bare, *args, bare_tables)
 
-                w1, b1, b2, w2 = (_time_ms(f, 50) for f in
-                                  (whole, without, without, whole))
-                share = 1.0 - (b1 + b2) / (w1 + w2)
-                print(f"[9 split step times] trace scene {sid}, same rays: "
-                      f"{w1:.4f}/{w2:.4f} ms with its volume groups, "
-                      f"{b1:.4f}/{b2:.4f} ms without; the volume tests' "
-                      f"share of B {share:.3f}", flush=True)
-            out[name, sid] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=bound[0], bound_by=bound[1],
-                                  library_ms=None)
+            w1, b1, b2, w2 = (_time_ms(f, 50) for f in
+                              (whole, without, without, whole))
+            share = 1.0 - (b1 + b2) / (w1 + w2)
+            print(f"[9 split step times] trace scene {sid}, same rays: "
+                  f"{w1:.4f}/{w2:.4f} ms with its volume groups, "
+                  f"{b1:.4f}/{b2:.4f} ms without; the volume tests' "
+                  f"share of B {share:.3f}", flush=True)
     return out
 
 
@@ -771,7 +840,7 @@ def phase_hybrid_step():
         lambda: MK.mega_step(scene, cfg, sf, si, params, rays, hybrid=True),
         lambda: MK.mega_step_plain(scene, cfg, sf, si, params, rays,
                                    hybrid=True))
-    bound = _mega_bound(scene, sf, si)
+    bound = _mega_bound(scene, sf, si, params)
     print(f"[12 hybrid step times] scene {QMEGA_SCENE} {sf.shape[1]} lanes, "
           f"carry of hybrid launch 10: {times}; bound {bound[0]:.4f} ms "
           f"({bound[1]})", flush=True)
@@ -813,7 +882,8 @@ def phase_qmega_main(queue):
     workload (800x400, 16 spp, depth 20): warm-up with the identical
     config, then timed with the hybrid launch count set to 0 just before it
     and read just after, beside the queue's figure for the same workload
-    (`queue`: phase 8's metrics, this run).  Returns the launch count."""
+    (`queue`: phase 8's metrics, this run).  Returns (launch count,
+    metrics)."""
     import rtw_tpu_torch as rtt
     from rtw_tpu_torch.ops import mega_kernel as MK
 
@@ -838,20 +908,356 @@ def phase_qmega_main(queue):
           f"{queue['wall_seconds']:.3f} s, {queue['rays']} rays, "
           f"{queue['mrays_per_sec']:.2f} Mrays/s on {card_line()}",
           flush=True)
-    return launches
+    return launches, m
 
 
-def phase_profile(sid):
-    """torch.profiler over one full-width render of split-tier scene `sid`:
-    device time of kernels B and C, of the torch glue (every other kernel),
-    and the idle remainder, as shares of the wall."""
+@functools.lru_cache(maxsize=None)
+def _field(n, light=False):
+    """(scene, build seconds): the n-sphere stress field on the card, built
+    once a run."""
+    from rtw_tpu_torch.models.registry import build_stress_scene
+
+    t0 = time.perf_counter()
+    scene = build_stress_scene(n, light=light)
+    torch.cuda.synchronize()
+    return scene, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _threshold(blocks):
+    """The hierarchy's threshold (ops/trace_kernel.TWO_LEVEL_MIN) set to
+    `blocks` while the block runs; every render and `split_tables` call in
+    it builds its tables under it.  None leaves it as it is."""
+    from rtw_tpu_torch.ops import trace_kernel as TK
+
+    kept = TK.TWO_LEVEL_MIN
+    if blocks is not None:
+        TK.TWO_LEVEL_MIN = blocks
+    try:
+        yield
+    finally:
+        TK.TWO_LEVEL_MIN = kept
+
+
+def _field_threshold(n):
+    """The 2500-sphere field (40 blocks) is walked with the threshold at 32:
+    two full nodes and a ragged one."""
+    return _threshold(32 if n == SMALL_FIELD else None)
+
+
+def _field_cfg(**kw):
+    import rtw_tpu_torch as rtt
+
+    nx, ny, spp = FIELD_WORKLOAD
+    return rtt.RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=FIELD_DEPTH,
+                            scene_id=0, **kw)
+
+
+def phase_table():
+    """The hierarchy tables of the 2500-, 16384-, 65536- and 262144-sphere
+    fields, built on the card: scene build seconds, table build seconds,
+    blocks and nodes per level."""
+    from rtw_tpu_torch.ops import trace_kernel as TK
+
+    for n in (SMALL_FIELD, *FIELDS):
+        scene, build_s = _field(n)
+        with _field_threshold(n):
+            t0 = time.perf_counter()
+            tables = TK.split_tables(scene)
+            torch.cuda.synchronize()
+            table_s = time.perf_counter() - t0
+            levels = [TK._level_counts(e) for e in scene.chunk_plan]
+        if not any(levels):
+            raise AssertionError(f"{n} spheres: no group is walked")
+        print(f"[15 table] {n} spheres: scene built in {build_s:.2f} s, "
+              f"tables in {table_s:.4f} s; {tables.n_blocks} blocks, nodes "
+              f"per level {levels}, AABB table "
+              f"{tuple(tables.aabbs.shape)}, props "
+              f"{tables.props.numel() * 4 / 2 ** 20:.2f} MiB", flush=True)
+
+
+def phase_scale_kernels():
+    """B and C against their plain versions at scale: random rays (origins
+    within +-250, normal directions), every 8th lane dead, on the four
+    fields; winners and occlusion equal on every lane, fields within 1e-4,
+    and every winner's block reachable by `reachable_blocks`.  Returns the
+    worst max abs diff per kernel."""
+    from rtw_tpu_torch.ops import trace_kernel as TK
+    from rtw_tpu_torch.ops.intersect import BIG
+    from rtw_tpu_torch.ops.vec import Vec3
+
+    worst = {"trace": 0.0, "occluded": 0.0}
+    for n in (SMALL_FIELD, *FIELDS):
+        scene, _ = _field(n)
+        rays = FIELD_RAYS[n]
+        g = torch.Generator(device="cuda").manual_seed(300 + n)
+        o = Vec3(*(500.0 * torch.rand((3, rays), generator=g, device="cuda")
+                   - 250.0))
+        d = Vec3(*torch.randn((3, rays), generator=g, device="cuda"))
+        time_ = torch.zeros(rays, device="cuda")
+        vol_u = torch.full((1, rays), 0.5, device="cuda")
+        dead = torch.arange(rays, device="cuda") % 8 == 7
+        tmax = torch.where(dead, -BIG, 1e27)
+        occ_tmax = torch.where(dead, -BIG, 700.0 * torch.rand(
+            rays, generator=g, device="cuda"))
+        with _field_threshold(n):
+            tables = TK.split_tables(scene)
+        err, rep = _compare_trace(f"B {n} spheres, {rays} rays", scene,
+                                  tables, (o, d, 1e-6, tmax, time_, vol_u),
+                                  min_equal=1.0)
+        worst["trace"] = max(worst["trace"], err)
+        print(f"[16 scale kernels] {rep}", flush=True)
+        err, rep = _compare_occluded(
+            f"C {n} spheres, {rays} rays", scene, tables,
+            (o, d, 5e-5, occ_tmax, time_, vol_u), min_equal=1.0)
+        worst["occluded"] = max(worst["occluded"], err)
+        print(f"[16 scale kernels] {rep}", flush=True)
+        hit, _ = TK.trace(scene, o, d, 1e-6, tmax, time_, vol_u, tables)
+        won = hit.prim_idx >= 0
+        reach = TK.reachable_blocks(tables, o, d, 1e-6, tmax)
+        blocks = TK.prim_blocks(scene)[hit.prim_idx.clamp_min(0)]
+        held = reach[blocks, torch.arange(rays, device="cuda")]
+        if not bool(held[won].all()):
+            raise AssertionError(f"{n} spheres: {int((won & ~held).sum())} "
+                                 "winners lie in blocks the walk cannot "
+                                 "reach")
+        print(f"[16 scale kernels] {n} spheres: every winner's block "
+              f"({int(won.sum())} hits) is reachable; the walk can reach "
+              f"{float(reach.float().mean()):.4f} of the (block, ray) pairs",
+              flush=True)
+    return worst
+
+
+def _mega_step_row(label, scene, cfg, params, sf, si, hybrid):
+    """One megakernel step against its plain twin at a carry (every lane
+    equal), then its times in turns and its bound: the kernel's row of the
+    kernels line, without its launches."""
+    from rtw_tpu_torch.ops import mega_kernel as MK
+
+    err, report = _compare_step(label, scene, cfg, params, sf, si,
+                                min_equal=1.0, hybrid=hybrid)
+    print(f"[17 mega at scale] {report}", flush=True)
+    rays = torch.zeros(1, dtype=torch.int64, device="cuda")
+    ms, plain_ms, times = _turns(
+        lambda: MK.mega_step(scene, cfg, sf, si, params, rays, hybrid),
+        lambda: MK.mega_step_plain(scene, cfg, sf, si, params, rays, hybrid),
+        plain_reps=1, kernel_reps=20)
+    bound = _mega_bound(scene, sf, si, params)
+    print(f"[17 mega at scale] {label}: {times}; bound {bound[0]:.4f} ms "
+          f"({bound[1]}); tables "
+          f"{'shared' if params.c_params.tables_shared else 'global'}",
+          flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=None)
+
+
+def phase_mega_scale():
+    """A and D at scale.  On the 2500-sphere field (threshold 32) one step
+    of each against its plain twin.  On the 16384-sphere field each is a
+    path through `render` (backend="mega"; scheduler="qmega") at 512x512,
+    4 spp, depth 8, warm-up first, launch counts set to 0 just before the
+    timed render; then the step against the twin at the carry after 10
+    iterations (A) or of the 10th hybrid launch (D), times and bound.
+    Returns {"mega_step": row, "mega_step_hybrid": row}."""
+    import rtw_tpu_torch as rtt
+    from rtw_tpu_torch.ops import mega_kernel as MK
+
+    out = {}
+    for n in (SMALL_FIELD, MEGA_FIELD):
+        scene, _ = _field(n)
+        for hybrid in (False, True):
+            name = "mega_step_hybrid" if hybrid else "mega_step"
+            cfg = (_field_cfg(scheduler="qmega") if hybrid else
+                   _field_cfg(backend="mega"))
+            with _field_threshold(n):
+                launches = None
+                if n == MEGA_FIELD:
+                    rtt.render(scene, cfg)                    # warm-up
+                    m = {}
+                    MK.launches = MK.hybrid_launches = 0
+                    img = rtt.render(scene, cfg, metrics=m)
+                    launches = MK.hybrid_launches if hybrid else MK.launches
+                    if launches <= 0 or not bool(torch.isfinite(img).all()):
+                        raise AssertionError(
+                            f"{name} on {n} spheres: {launches} launches, or "
+                            "a non-finite image")
+                    print(f"[17 mega at scale] {name} path, {n} spheres "
+                          f"{cfg.nx}x{cfg.ny} spp {cfg.spp} depth "
+                          f"{cfg.max_depth}: {m['wall_seconds']:.3f} s, "
+                          f"{m['rays']} rays, {m['mrays_per_sec']:.2f} "
+                          f"Mrays/s, {launches} launches, mean "
+                          f"{_fmt(img.reshape(-1, 3).mean(0).cpu().numpy())}"
+                          f" on {card_line()}", flush=True)
+                if hybrid:
+                    (_, _, sf, si, params, _), _ = _capture(
+                        cfg, {"mega_step": (MK, "mega_step")},
+                        scene=scene)["mega_step"]
+                else:
+                    params, sf, si = _carry_after(scene, cfg, 10)
+                if not any(r[0] for r in params.tables.layout):
+                    raise AssertionError(f"{n} spheres: no group is walked")
+                label = (f"{name} {n} spheres, {sf.shape[1]} lanes, carry "
+                         f"{'of hybrid launch' if hybrid else 'after'} 10")
+                if n == MEGA_FIELD:
+                    out[name] = _mega_step_row(label, scene, cfg, params, sf,
+                                               si, hybrid)
+                    out[name]["launches"] = launches
+                else:
+                    _, report = _compare_step(label, scene, cfg, params, sf,
+                                              si, min_equal=1.0,
+                                              hybrid=hybrid)
+                    print(f"[17 mega at scale] {report}", flush=True)
+    return out
+
+
+def _field_render(tag, label, scene, cfg, need_occluded=False):
+    """One path through `render`: warm-up with the identical config, then
+    the timed render with the split kernels' launch counts set to 0 just
+    before it and read just after.  Returns (trace launches, occlusion
+    launches, metrics)."""
+    import rtw_tpu_torch as rtt
+    from rtw_tpu_torch.ops import trace_kernel as TK
+
+    rtt.render(scene, cfg)                     # warm-up
+    m = {}
+    TK.trace_launches = TK.occluded_launches = 0
+    img = rtt.render(scene, cfg, metrics=m)
+    nt, no = TK.trace_launches, TK.occluded_launches
+    if nt <= 0 or (need_occluded and no <= 0):
+        raise AssertionError(f"{label}: launches trace {nt} occluded {no}")
+    if tuple(img.shape) != (cfg.ny, cfg.nx, 3) or not bool(
+            torch.isfinite(img).all()):
+        raise AssertionError(f"{label}: bad image {tuple(img.shape)}")
+    mean = img.reshape(-1, 3).mean(0).cpu().numpy()
+    print(f"[{tag}] {label} {cfg.nx}x{cfg.ny} spp {cfg.spp} depth "
+          f"{cfg.max_depth}: {m['wall_seconds']:.3f} s, {m['rays']} rays, "
+          f"{m['mrays_per_sec']:.2f} Mrays/s, {nt} iterations, launches "
+          f"trace {nt} occluded {no}, mean {_fmt(mean)} on {card_line()}",
+          flush=True)
+    return nt, no, m
+
+
+def _against_plain_queue(tag, label, scene, cfg):
+    """`auto` (the queue with kernels B and C) against the plain queue
+    (backend="jnp") on the card: equal rays, every pixel within 1e-4."""
+    import dataclasses
+
+    import rtw_tpu_torch as rtt
+    from rtw_tpu_torch.ops import trace_kernel as TK
+
+    mk, mp = {}, {}
+    n0 = TK.trace_launches
+    img_k = rtt.render(scene, cfg, metrics=mk)
+    if TK.trace_launches == n0:
+        raise AssertionError(f"{label}: auto launched no trace kernel")
+    img_p = rtt.render(scene, dataclasses.replace(
+        cfg, backend="jnp", scheduler="queue"), metrics=mp)
+    close = ((img_k - img_p).abs() <= 1e-4 + 1e-4 * img_p.abs()).all(-1)
+    report = (f"{label} {cfg.nx}x{cfg.ny} spp {cfg.spp} depth "
+              f"{cfg.max_depth}: rays {mk['rays']} vs {mp['rays']}, pixels "
+              f"within 1e-4: {float(close.float().mean()):.5f} "
+              f"({int((~close).sum())} outside)")
+    if (mk["rays"] != mp["rays"] or not bool(close.all())
+            or not bool(torch.isfinite(img_k).all())):
+        raise AssertionError(f"{report}: needs equal rays and every pixel")
+    print(f"[{tag}] {report}", flush=True)
+
+
+def phase_scale_path():
+    """The scale path: `render` of the 16384-, 65536- and 262144-sphere
+    fields at tools/stress_scale.py's 512x512, 4 spp, depth 8 with
+    scheduler="auto" (the work queue with B walking the hierarchy), and of
+    the 16384 and 65536 fields with the flat block scan (the threshold
+    raised, the tool's --flat) in the same call; one 128x128 render of the
+    16384 field against the plain queue.  Returns {n: (trace launches,
+    occlusion launches, metrics)} of the walked renders."""
+    import rtw_tpu_torch as rtt
+
+    counts = {}
+    for n in FIELDS:
+        scene, _ = _field(n)
+        counts[n] = _field_render("18 scale path", f"{n} spheres, walk",
+                                  scene, _field_cfg())
+        if n <= 65536:
+            with _threshold(10 ** 9):
+                _field_render("18 scale path", f"{n} spheres, flat scan",
+                              scene, _field_cfg())
+    cfg = rtt.RenderConfig(nx=128, ny=128, spp=4, max_depth=FIELD_DEPTH,
+                           scene_id=0)
+    _against_plain_queue("18 scale path", f"{FIELDS[0]} spheres",
+                         _field(FIELDS[0])[0], cfg)
+    return counts
+
+
+def phase_lit_path():
+    """C on a path: the 65536-sphere field with one light above it, through
+    `render` at 512x512, 4 spp, depth 8, and one 128x128 render (2 spp)
+    against the plain queue.  Returns (trace launches, occlusion launches,
+    metrics)."""
+    import rtw_tpu_torch as rtt
+
+    scene, build_s = _field(LIT_FIELD, True)
+    print(f"[19 lit path] {LIT_FIELD} spheres and a light: built in "
+          f"{build_s:.2f} s, plan {scene.chunk_plan}", flush=True)
+    counts = _field_render("19 lit path", f"{LIT_FIELD} spheres, lit", scene,
+                           _field_cfg(), need_occluded=True)
+    cfg = rtt.RenderConfig(nx=128, ny=128, spp=2, max_depth=FIELD_DEPTH,
+                           scene_id=0)
+    _against_plain_queue("19 lit path", f"{LIT_FIELD} spheres, lit", scene,
+                         cfg)
+    return counts
+
+
+def phase_scale_step_times():
+    """B on the three fields and B and C on the lit field at the inputs of
+    the 10th launch of their 512x512 renders: kernel against plain (every
+    lane equal), times in turns (the plain sweep once a turn), bound; B
+    also with the flat block scan (the threshold raised) on the same rays.
+    Returns {(name, path): row}."""
+    from rtw_tpu_torch.ops import trace_kernel as TK
+
+    out = {}
+    for n in FIELDS:
+        got = _capture(_field_cfg(), {"trace": (TK, "trace")},
+                       scene=_field(n)[0])
+        out["trace", f"field{n}"] = _split_step(
+            "20 scale", f"{n} spheres", "trace", got["trace"], min_equal=1.0)
+        (scene, *args, tables), _ = got["trace"]
+        with _threshold(10 ** 9):
+            flat_tables = TK.split_tables(scene)
+        flat = TK.trace(scene, *args, flat_tables)[0]
+        if not bool((flat.prim_idx == TK.trace(scene, *args, tables)[0]
+                     .prim_idx).all()):
+            raise AssertionError(f"{n} spheres: the flat scan and the walk "
+                                 "disagree on a winner")
+
+        def walk():
+            TK.trace(scene, *args, tables)
+
+        def scan():
+            TK.trace(scene, *args, flat_tables)
+
+        w1, f1, f2, w2 = (_time_ms(f, 20) for f in (walk, scan, scan, walk))
+        print(f"[20 scale step times] trace {n} spheres, same rays: "
+              f"{w1:.4f}/{w2:.4f} ms walking the hierarchy, "
+              f"{f1:.4f}/{f2:.4f} ms with the flat block scan", flush=True)
+    got = _capture(_field_cfg(), {"trace": (TK, "trace"),
+                                  "occluded": (TK, "occluded_kernel")},
+                   scene=_field(LIT_FIELD, True)[0])
+    for name in got:
+        out[name, f"field{LIT_FIELD}lit"] = _split_step(
+            "20 scale", f"{LIT_FIELD} spheres, lit", name, got[name],
+            min_equal=1.0)
+    return out
+
+
+def phase_profile(label, scene, cfg):
+    """torch.profiler over one full-width split-tier render: device time of
+    kernels B and C, of the torch glue (every other kernel), and the idle
+    remainder, as shares of the wall."""
     import rtw_tpu_torch as rtt
     from torch.profiler import ProfilerActivity, profile
 
-    nx, ny, spp = SPLIT_WORKLOADS[sid]
-    cfg = rtt.RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=BENCH_DEPTH,
-                           scene_id=sid)
-    scene = rtt.build_scene(sid, nx, ny)
     rtt.render(scene, cfg)
     m = {}
     with profile(activities=[ProfilerActivity.CPU,
@@ -873,11 +1279,37 @@ def phase_profile(sid):
     busy = sum(us.values())
     shares = ", ".join(f"{k} {v / 1e3:.2f} ms ({100 * v / wall_us:.1f}%)"
                        for k, v in us.items())
-    print(f"[10 profile] scene {sid} {nx}x{ny} spp {spp}: wall "
+    print(f"[10 profile] {label} {cfg.nx}x{cfg.ny} spp {cfg.spp}: wall "
           f"{wall_us / 1e3:.2f} ms, {m['mrays_per_sec']:.2f} Mrays/s under "
           f"the profiler; {shares}; glue kernels {n_glue}; idle "
           f"{(wall_us - busy) / 1e3:.2f} ms "
           f"({100 * (wall_us - busy) / wall_us:.1f}%)", flush=True)
+
+
+def phase_profiles():
+    """`--profile`: scenes 2 and 4 at their split workloads and the
+    65536-sphere field at the scale path's."""
+    import rtw_tpu_torch as rtt
+
+    for sid in (2, 4):
+        nx, ny, spp = SPLIT_WORKLOADS[sid]
+        phase_profile(f"scene {sid}", rtt.build_scene(sid, nx, ny),
+                      rtt.RenderConfig(nx=nx, ny=ny, spp=spp,
+                                       max_depth=BENCH_DEPTH, scene_id=sid))
+    phase_profile(f"{FIELDS[1]} spheres", _field(FIELDS[1])[0], _field_cfg())
+
+
+# The same figures as read on an NVIDIA H100 80GB HBM3 at 700.00 W before
+# the block hierarchy (the split kernels scanned every block's box, the
+# megakernel swept every prim), printed beside this run's.
+BEFORE_WALK = {
+    "A cornell ms": "0.1100-0.1117", "A scene3 ms": "0.0244-0.0466",
+    "B scene1 ms": "0.3427-0.3543", "B scene2 ms": "0.2658-0.2717",
+    "B scene4 ms": "0.5544-0.5639", "C scene2 ms": "0.1996-0.2105",
+    "C scene4 ms": "0.3813-0.3904", "D scene1 ms": "0.7454-0.7518",
+    "cornell 64 spp Mrays/s": "4400-4800", "scene3 Mrays/s": "828-2194",
+    "scene1 Mrays/s": "17.8-35.8", "scene2 Mrays/s": "11-16",
+    "scene4 Mrays/s": "9.0-12.3", "scene1 qmega Mrays/s": "49.7-76.4"}
 
 
 def main(argv=None) -> int:
@@ -885,7 +1317,8 @@ def main(argv=None) -> int:
     ap.add_argument("--spp", type=int, default=64,
                     help="main-path samples per pixel (1000 = bench.py)")
     ap.add_argument("--profile", action="store_true",
-                    help="add torch.profiler breakdowns of a scene-2 and a scene-4 render")
+                    help="add torch.profiler breakdowns of a scene-2, a "
+                         "scene-4 and a 65536-sphere field render")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -919,10 +1352,29 @@ def main(argv=None) -> int:
     steps = timed(phase_split_step_times)
     hybrid = timed(phase_hybrid_step)
     timed(phase_qmega_small)
-    hybrid["launches"] = timed(phase_qmega_main, counts[QMEGA_SCENE][2])
+    hybrid["launches"], qmega = timed(phase_qmega_main,
+                                      counts[QMEGA_SCENE][2])
+    timed(phase_table)
+    scale_err = timed(phase_scale_kernels)
+    mega_scale = timed(phase_mega_scale)
+    field_counts = timed(phase_scale_path)
+    field_counts[f"{LIT_FIELD}lit"] = timed(phase_lit_path)
+    scale_steps = timed(phase_scale_step_times)
     if args.profile:
-        for sid in (2, 4):
-            timed(phase_profile, sid)
+        timed(phase_profiles)
+
+    now = {"A cornell ms": mega["ms"], "A scene3 ms": scene3["ms"],
+           "D scene1 ms": hybrid["ms"],
+           f"cornell {args.spp} spp Mrays/s": mega["mrays_per_sec"],
+           "scene3 Mrays/s": scene3["mrays_per_sec"],
+           "scene1 qmega Mrays/s": qmega["mrays_per_sec"]}
+    for (name, sid), v in steps.items():
+        now[f"{'B' if name == 'trace' else 'C'} scene{sid} ms"] = v["ms"]
+    for sid, (_, _, m) in counts.items():
+        now[f"scene{sid} Mrays/s"] = m["mrays_per_sec"]
+    print("[21 beside the flat scan] " + "; ".join(
+        f"{k} {v:.4f} (before the walk: {BEFORE_WALK.get(k, 'not read')})"
+        for k, v in now.items()) + f" on {card_line()}", flush=True)
 
     # one entry per kernel and path: `launches` is that path's own count
     mega_src = "rtw_tpu_torch/csrc/mega_kernel.cu"
@@ -931,14 +1383,25 @@ def main(argv=None) -> int:
             ("mega_step", "scene3", mega_src,
              "rtw_tpu/ops/mega_kernel.py:387", scene3),
             ("mega_step_hybrid", f"scene{QMEGA_SCENE}", mega_src,
-             "rtw_tpu/ops/mega_kernel.py:437", hybrid)]
-    for (name, sid), v in steps.items():
-        v["launches"] = counts[sid][0 if name == "trace" else 1]
-        v["max_abs_err"] = max(split_err[name], v["max_abs_err"])
+             "rtw_tpu/ops/mega_kernel.py:437", hybrid),
+            ("mega_step", f"field{MEGA_FIELD}", mega_src,
+             "rtw_tpu/ops/mega_kernel.py:387", mega_scale["mega_step"]),
+            ("mega_step_hybrid", f"field{MEGA_FIELD}", mega_src,
+             "rtw_tpu/ops/mega_kernel.py:437",
+             mega_scale["mega_step_hybrid"])]
+    split = [(name, f"scene{sid}", v, counts[sid], split_err[name])
+             for (name, sid), v in steps.items()]
+    split += [(name, path, v, field_counts[path[len("field"):]
+                                           if path.endswith("lit")
+                                           else int(path[len("field"):])],
+               scale_err[name]) for (name, path), v in scale_steps.items()]
+    for name, path, v, count, err in split:
+        v["launches"] = count[0 if name == "trace" else 1]
+        v["max_abs_err"] = max(err, v["max_abs_err"])
         rep = ("rtw_tpu/ops/trace_kernel.py:918" if name == "trace" else
                "rtw_tpu/ops/trace_kernel.py:1114")
-        rows.append((name, f"scene{sid}",
-                     "rtw_tpu_torch/csrc/trace_kernel.cu", rep, v))
+        rows.append((name, path, "rtw_tpu_torch/csrc/trace_kernel.cu", rep,
+                     v))
     print(json.dumps({"kernels": [
         {"name": name, "path": path, "route": "cuda", "source": src,
          "replaces": rep,

@@ -1,7 +1,8 @@
 // Device geometry shared by the CUDA kernels of this package: float3-style
 // vectors, the 3x4 affine transforms of the props table, the primitive
 // t-tests of rtw_tpu/ops/intersect.py for all six prim types (`prim_t`, and
-// `sweep_rows` over a plan group's rows) and the winner's payload
+// `sweep_rows` over a plan group's rows), the per-ray walk over a plan
+// group's block hierarchy (`walk_blocks`) and the winner's payload
 // (`hit_payload`).  Every expression follows the plain
 // torch version's order of operations term by term, and the kernels are
 // built with -fmad=false, so kernel and plain version round alike; the
@@ -27,6 +28,13 @@ constexpr int C_MAT = 9, C_FUZZ = 10, C_ETA = 11, C_TEXT = 12, C_SCALE = 13,
               C_IMG = 14, C_RGB = 15, C_ODD = 18, C_EVEN = 21, C_MID = 24,
               C_W2O = 25, C_O2W = 37;
 constexpr int PLAN_COLS = 7;   // start, count, size, ptype, axis, xform, block
+constexpr int AABB_COLS = 8;   // lo xyz, hi xyz, 2 unused
+// the per-group hierarchy rows (rtw_tpu_torch/ops/trace_kernel.py `hier`):
+// levels, first block row, block count, then the table row of the first node
+// of level L at column H_LEVEL0 + L
+constexpr int WALK_SHIFT = 4;  // 16 children a node
+constexpr int H_LEVELS = 0, H_FIRST = 1, H_BLOCKS = 2, H_LEVEL0 = 2,
+              HIER_COLS = 7;
 
 struct V3 {
   float x, y, z;
@@ -301,6 +309,83 @@ __device__ __forceinline__ bool sweep_rows(int ptype, const float* props,
       return sweep_typed<PRIM_BOX>(props, kdim, r0, r1, axis, xform, o, d,
                                    time, tmin, tmax, row_u, visit);
   }
+}
+
+// 1 / d per axis, with slab's rule for a zero component
+__device__ __forceinline__ V3 inverse_dir(V3 d) {
+  return {1.0f / nonzero(d.x), 1.0f / nonzero(d.y), 1.0f / nonzero(d.z)};
+}
+
+// The reference's _block_active: the world AABB `ab` can hold a hit in
+// (tmin, tmax) nearer than `best_t`; `inv` is inverse_dir(d), so the test is
+// slab's arithmetic without its divisions.  One rule for blocks and for
+// every level above them.
+__device__ __forceinline__ bool box_active(const float* ab, V3 o, V3 inv,
+                                           float tmin, float tmax,
+                                           float best_t) {
+  float near = -BIG, far = BIG;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    float t0 = (ab[ax] - comp(o, ax)) * comp(inv, ax);
+    float t1 = (ab[3 + ax] - comp(o, ax)) * comp(inv, ax);
+    near = fmaxf(near, fminf(t0, t1));
+    far = fminf(far, fmaxf(t0, t1));
+  }
+  return far >= fmaxf(near, tmin) && near < tmax && near < best_t;
+}
+
+// One ray's walk over the blocks of one plan group, depth first over the
+// group's hierarchy in index order (replaces the traversal of
+// rtw_tpu/ops/trace_kernel.py::_walk_group; the table is
+// rtw_tpu_torch/ops/trace_kernel.py::augment_aabbs).  `blocks` holds the
+// block AABBs of the whole scene, `nodes` the upper nodes, whose row 0 is
+// table row `node_base`; `hr` is the group's hier row.  Node j of level L
+// spans blocks [j << 4L, (j + 1) << 4L) of the group; the ragged last node
+// is cut by the group's block count.  A node or block is entered only if
+// box_active passes against bound(), the caller's best t so far (BIG for
+// an any-hit query); visit(b) sweeps block b of the group and returns true
+// to end the walk (then walk_blocks returns true).
+//
+// The walk keeps no stack: at block b it tests the nodes that begin at b,
+// from the highest such level down (their ancestors were entered on the way
+// here), and a node that fails moves b past its span.  Index order with a
+// strict `<` against bound() keeps the plain sweep's winner bit for bit: a
+// later block can only win with a smaller t, and a skipped box holds no hit
+// below the bound.  A parent's box is the float min / max of its children's
+// and the slab arithmetic is monotone, so a parent never fails where a
+// child would pass.  A flat group (levels 0) is the block loop alone.
+template <class Bound, class Visit>
+__device__ __forceinline__ bool walk_blocks(const float* blocks,
+                                            const float* nodes,
+                                            int node_base, const int* hr,
+                                            V3 o, V3 d, float tmin,
+                                            float tmax, Bound bound,
+                                            Visit visit) {
+  const int levels = hr[H_LEVELS], n_blocks = hr[H_BLOCKS];
+  const float* ab = blocks + hr[H_FIRST] * AABB_COLS;
+  const V3 inv = inverse_dir(d);
+  for (int b = 0; b < n_blocks; ++b) {
+    if (levels > 0 && (b & ((1 << WALK_SHIFT) - 1)) == 0) {
+      // nodes begin only at multiples of 16: the highest level first
+      int skip = 0;
+      for (int lv = levels; lv >= 1 && skip == 0; --lv) {
+        int shift = WALK_SHIFT * lv;
+        if (b & ((1 << shift) - 1)) continue;   // no node of lv begins here
+        int row = hr[H_LEVEL0 + lv] - node_base + (b >> shift);
+        if (!box_active(nodes + row * AABB_COLS, o, inv, tmin, tmax,
+                        bound()))
+          skip = 1 << shift;
+      }
+      if (skip) {
+        b += skip - 1;
+        continue;
+      }
+    }
+    if (box_active(ab + b * AABB_COLS, o, inv, tmin, tmax, bound()) &&
+        visit(b))
+      return true;
+  }
+  return false;
 }
 
 // The face of box `pr` that a hit at the entry (or, from inside, the exit)

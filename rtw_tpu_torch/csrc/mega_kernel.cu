@@ -4,7 +4,8 @@
 // Replaces rtw_tpu/ops/mega_kernel.py::_mega_body (launched by the
 // pallas_call of _make_mega.run), with the straight-line nearest-hit sweep
 // rtw_tpu/ops/trace_kernel.py::_nearest_hit and any-hit sweep ::_occl_sweep
-// inlined, as there, over all six prim types (csrc/geometry.cuh::prim_t).
+// inlined, as there, over all six prim types (csrc/geometry.cuh::prim_t),
+// both through the per-ray block walk of csrc/geometry.cuh::walk_blocks.
 // The template flag kHybrid is the same pallas_call with hybrid=True
 // (mega_kernel.py:437, TPU kernel D, the queue-scheduled mode driven by
 // rtw_tpu_torch/integrator.py::trace_wavefront_qmega): no regeneration, no
@@ -32,22 +33,32 @@
 // under register pressure and divergence: the lanes of a warp take
 // different material branches, miss or hit, and regenerate at different
 // iterations, so a warp runs the union of its lanes' branches.  In hybrid
-// mode on scene 1 the sweep dominates: every lane tests all 528 moving
-// spheres (the kernel has no block culls yet, ROADMAP): 0.75 ms at 320k
-// lanes on an H100 80GB HBM3, ~10x the operation bound (PERF.md).
+// mode on a scene of hundreds of prims or more the sweeps dominate.
 //
-// What the design does about it: the scene's props table (Cornell: 40 x 49
-// floats, 7.8 KB; scene 1: 640 x 25, 64 KB), chunk plan and volume slots
-// sit in shared memory, read as warp-wide broadcasts; the sweep keeps only
+// What the design does about it: both sweeps walk each plan group's blocks
+// as the split kernels do (walk_blocks: the reference's _block_active cull
+// per block, and for groups of TWO_LEVEL_MIN blocks or more the hierarchy of
+// ops/trace_kernel.py::augment_aabbs, which the reference's megakernel
+// passes to the same _nearest_hit / _occl_sweep); a scene of at most 8
+// blocks (Cornell, scenes 3 and 5) keeps the straight-line sweep without
+// box tests, the reference's _use_block_culls rule.  The sweep keeps only
 // (best t, best index) live and reads the winner's props row once after
 // the loop (the TPU's masked-accumulate and one-hot-matmul winner fetch
 // exist only because Mosaic has no per-lane gather); each group's row loop
 // is instantiated for its prim type; the any-hit test returns at its first
-// hit; dead lanes skip the
-// bounce; the material branches are real branches, not the TPU's
-// evaluate-all-and-select.  Carry rows keep the reference's [rows, N]
-// layout, so each row access is coalesced.  Persistent blocks, sorting
-// lanes by material and wgmma/TMA are left for later work.
+// hit; dead lanes skip the bounce; the material branches are real
+// branches, not the TPU's evaluate-all-and-select.  Carry rows keep the
+// reference's [rows, N] layout, so each row access is coalesced.
+//
+// Shared memory: the upper nodes, the plan and the hier rows always.  The
+// props table, the volume slots and the block AABBs join them, read as
+// warp-wide broadcasts, while everything together fits TABLES_SHARED_MAX of
+// ops/mega_kernel.py (100 KB: two blocks an SM; Cornell 40 x 49 floats, 7.8
+// KB; scene 1 640 x 25, 64 KB); a larger scene (2560 rows x 25 floats are 256 KB, over the
+// card's 227 KB a block) reads those three from global memory through the
+// L1/L2 instead of failing at launch.  MegaParams::tables_shared carries
+// the wrapper's decision, one byte count.  Persistent blocks, sorting lanes
+// by material and wgmma/TMA are left for later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,6 +107,9 @@ struct MegaParams {
   int n_entries, n_props, kdim;
   int num_lights, mat_present, checker, mis_bsdf_weight;
   int n_vol;   // max(scene.n_vol, 1): volume uniform rows per ray
+  int n_blocks, n_nodes;   // rows of the AABB table: blocks, upper nodes
+  int walk;                // walk the blocks with culls (more than 8 blocks)
+  int tables_shared;       // props, volume slots and block AABBs in smem
 };
 
 namespace {
@@ -146,48 +160,86 @@ __device__ __forceinline__ float row_u(const int* vol_slot, int r,
   return slot_u(hb, NUM_FIXED_SLOTS + base + max(vol_slot[r], 0));
 }
 
-// Nearest hit over every real (unpadded) prim: strict < in row order, so
-// the lowest index wins a tie, as the reference's argmin + strict merge.
-// Rows past a group's `count` (pads: density 0 and slot -1 on volumes) are
-// never candidates.
-__device__ int nearest_hit(const float* props, const int* plan,
-                           const int* vol_slot, const MegaParams& p, V3 o,
-                           V3 d, float time, uint32_t hb, float* best_t) {
+// The scene's tables as a lane reads them: props, volume slots and block
+// AABBs in shared or global memory, the upper nodes, the plan and the hier
+// rows in shared memory.
+struct Tables {
+  const float* props;
+  const int* vol_slot;
+  const float* blocks;
+  const float* nodes;
+  const int* plan;
+  const int* hier;
+};
+
+// Nearest hit over every real (unpadded) prim: the groups in plan order,
+// strict < in row order, so the lowest index wins a tie, as the reference's
+// argmin + strict merge.  With kWalk each group's blocks go through
+// walk_blocks; without it (a scene of at most 8 blocks) each group's rows
+// are swept straight through.  Rows past a group's `count` (pads: density 0
+// and slot -1 on volumes) are never candidates.
+template <bool kWalk>
+__device__ int nearest_hit(const Tables& tb, const MegaParams& p, V3 o, V3 d,
+                           float time, uint32_t hb, float* best_t) {
   float bt = BIG;
   int bi = -1;
   for (int e = 0; e < p.n_entries; ++e) {
-    const int* en = plan + e * PLAN_COLS;
-    int start = en[0], count = en[1], ptype = en[3], axis = en[4];
+    const int* en = tb.plan + e * PLAN_COLS;
+    int start = en[0], end = en[0] + en[1], ptype = en[3], axis = en[4],
+        block = en[6];
     bool xform = en[5] != 0;
-    sweep_rows(ptype, props, p.kdim, start, start + count, axis, xform, o,
-               d, time, p.tmin, p.tmax,
-               [&](int r) { return row_u(vol_slot, r, hb, 0); },
-               [&](int r, float t) {
-                 if (t < bt) {
-                   bt = t;
-                   bi = r;
-                 }
-                 return false;
-               });
+    auto sweep = [&](int r0, int r1) {
+      sweep_rows(ptype, tb.props, p.kdim, r0, r1, axis, xform, o, d, time,
+                 p.tmin, p.tmax,
+                 [&](int r) { return row_u(tb.vol_slot, r, hb, 0); },
+                 [&](int r, float t) {
+                   if (t < bt) {
+                     bt = t;
+                     bi = r;
+                   }
+                   return false;
+                 });
+      return false;
+    };
+    if constexpr (kWalk)
+      walk_blocks(tb.blocks, tb.nodes, p.n_blocks, tb.hier + e * HIER_COLS, o,
+                  d, p.tmin, p.tmax, [&] { return bt; }, [&](int b) {
+                    int b0 = start + b * block;
+                    return sweep(b0, min(b0 + block, end));
+                  });
+    else
+      sweep(start, end);
   }
   *best_t = bt;
   return bi;
 }
 
 // Any hit in (tmin, tmax) of the shadow ray: returns at the first one.
-__device__ bool occluded(const float* props, const int* plan,
-                         const int* vol_slot, const MegaParams& p, V3 o,
-                         V3 d, float time, uint32_t hb, float tmin,
-                         float tmax) {
+template <bool kWalk>
+__device__ bool occluded(const Tables& tb, const MegaParams& p, V3 o, V3 d,
+                         float time, uint32_t hb, float tmin, float tmax) {
   for (int e = 0; e < p.n_entries; ++e) {
-    const int* en = plan + e * PLAN_COLS;
-    int start = en[0], count = en[1], ptype = en[3], axis = en[4];
+    const int* en = tb.plan + e * PLAN_COLS;
+    int start = en[0], end = en[0] + en[1], ptype = en[3], axis = en[4],
+        block = en[6];
     bool xform = en[5] != 0;
-    if (sweep_rows(ptype, props, p.kdim, start, start + count, axis, xform,
-                   o, d, time, tmin, tmax,
-                   [&](int r) { return row_u(vol_slot, r, hb, p.n_vol); },
-                   [](int, float t) { return t < BIG; }))
-      return true;
+    auto sweep = [&](int r0, int r1) {
+      return sweep_rows(
+          ptype, tb.props, p.kdim, r0, r1, axis, xform, o, d, time, tmin,
+          tmax, [&](int r) { return row_u(tb.vol_slot, r, hb, p.n_vol); },
+          [](int, float t) { return t < BIG; });
+    };
+    bool hit;
+    if constexpr (kWalk)
+      hit = walk_blocks(tb.blocks, tb.nodes, p.n_blocks,
+                        tb.hier + e * HIER_COLS, o, d, tmin, tmax,
+                        [] { return BIG; }, [&](int b) {
+                          int b0 = start + b * block;
+                          return sweep(b0, min(b0 + block, end));
+                        });
+    else
+      hit = sweep(start, end);
+    if (hit) return true;
   }
   return false;
 }
@@ -197,10 +249,9 @@ __device__ __forceinline__ float scrub(float x) {
 }
 
 // One wavefront iteration of lane i; returns the rays it traced.
-template <bool kHybrid>
+template <bool kHybrid, bool kWalk>
 __device__ unsigned lane_step(int i, int n, const float* __restrict__ sf,
-                              const int* __restrict__ si, const float* props,
-                              const int* plan, const int* vol_slot,
+                              const int* __restrict__ si, const Tables& tb,
                               float* __restrict__ osf, int* __restrict__ osi,
                               const MegaParams& p) {
   const float* f = p.f;
@@ -254,8 +305,7 @@ __device__ unsigned lane_step(int i, int n, const float* __restrict__ sf,
     rays = 1;
     uint32_t hb = pcg(pk + (uint32_t)(depth + 1) * GOLDEN);
     float best_t;
-    int bi = nearest_hit(props, plan, vol_slot, p, org, dir, time, hb,
-                         &best_t);
+    int bi = nearest_hit<kWalk>(tb, p, org, dir, time, hb, &best_t);
     bool hit = bi >= 0;
     V3 du = normalized(dir);
 
@@ -267,10 +317,10 @@ __device__ unsigned lane_step(int i, int n, const float* __restrict__ sf,
                 1.0f * g};
       rad = rad + thr * sky;
     } else {
-      const float* pr = props + bi * p.kdim;
+      const float* pr = tb.props + bi * p.kdim;
       int ptype, axis;
       bool xform;
-      group_of(plan, p.n_entries, bi, &ptype, &axis, &xform);
+      group_of(tb.plan, p.n_entries, bi, &ptype, &axis, &xform);
       V3 point, nrm;
       float uu, vv;
       hit_payload<false>(pr, ptype, axis, xform, org, dir, best_t, time,
@@ -378,9 +428,8 @@ __device__ unsigned lane_step(int i, int n, const float* __restrict__ sf,
           float l_pdf = ldist * ldist /
                         ((float)p.num_lights * f[PF_LAREA] * costa);
           V3 shadow_org = offset_point(point, nrm, ldir_u);
-          bool shadowed = occluded(props, plan, vol_slot, p, shadow_org,
-                                   ldir_u, time, hb, p.shadow_eps,
-                                   ldist * 0.999f);
+          bool shadowed = occluded<kWalk>(tb, p, shadow_org, ldir_u, time,
+                                          hb, p.shadow_eps, ldist * 0.999f);
           float w_nee = power_heuristic(l_pdf, bsdf_pdf);
           float nee_s =
               w_nee * fmaxf(dot(ldir_u, nrm), 0.0f) * INV_PI_F / l_pdf;
@@ -443,52 +492,93 @@ __device__ unsigned lane_step(int i, int n, const float* __restrict__ sf,
   return rays;
 }
 
-template <bool kHybrid>
+// Stage the tables in dynamic shared memory: [nodes][props and block AABBs,
+// if kShared][plan][hier][volume slots, if kShared].  `aabbs` is the
+// augmented table: n_blocks block rows, then n_nodes upper rows.  Without
+// kWalk no sweep reads the boxes or the hier rows: they are not copied.
+template <bool kShared, bool kWalk>
+__device__ __forceinline__ Tables stage(const float* props, const int* plan,
+                                        const float* aabbs, const int* hier,
+                                        const int* vol_slot,
+                                        const MegaParams& p, float* smem) {
+  const int n_nd = p.n_nodes * AABB_COLS, n_bl = p.n_blocks * AABB_COLS,
+            n_pr = p.n_props * p.kdim;
+  float* s_nodes = smem;
+  float* s_props = s_nodes + n_nd;
+  float* s_blocks = s_props + (kShared ? n_pr : 0);
+  int* s_plan = reinterpret_cast<int*>(s_blocks + (kShared ? n_bl : 0));
+  int* s_hier = s_plan + p.n_entries * PLAN_COLS;
+  int* s_slot = s_hier + p.n_entries * HIER_COLS;
+  for (int k = threadIdx.x; k < p.n_entries * PLAN_COLS; k += blockDim.x)
+    s_plan[k] = plan[k];
+  if (kWalk) {
+    for (int k = threadIdx.x; k < n_nd; k += blockDim.x)
+      s_nodes[k] = aabbs[n_bl + k];
+    for (int k = threadIdx.x; k < p.n_entries * HIER_COLS; k += blockDim.x)
+      s_hier[k] = hier[k];
+  }
+  if (kShared) {
+    for (int k = threadIdx.x; k < n_pr; k += blockDim.x)
+      s_props[k] = props[k];
+    if (kWalk)
+      for (int k = threadIdx.x; k < n_bl; k += blockDim.x)
+        s_blocks[k] = aabbs[k];
+    for (int k = threadIdx.x; k < p.n_props; k += blockDim.x)
+      s_slot[k] = vol_slot[k];
+  }
+  __syncthreads();
+  if (kShared) return {s_props, s_slot, s_blocks, s_nodes, s_plan, s_hier};
+  return {props, vol_slot, aabbs, s_nodes, s_plan, s_hier};
+}
+
+template <bool kHybrid, bool kShared, bool kWalk>
 __global__ void __launch_bounds__(kBlock)
     mega_kernel(const float* __restrict__ sf, const int* __restrict__ si,
                 const float* __restrict__ props, const int* __restrict__ plan,
+                const float* __restrict__ aabbs, const int* __restrict__ hier,
                 const int* __restrict__ vol_slot, float* __restrict__ osf,
                 int* __restrict__ osi, unsigned long long* __restrict__ rays,
                 int n, MegaParams p) {
   extern __shared__ float smem[];
-  float* s_props = smem;
-  int* s_plan = reinterpret_cast<int*>(smem + p.n_props * p.kdim);
-  int* s_slot = s_plan + p.n_entries * PLAN_COLS;
-  for (int k = threadIdx.x; k < p.n_props * p.kdim; k += blockDim.x)
-    s_props[k] = props[k];
-  for (int k = threadIdx.x; k < p.n_entries * PLAN_COLS; k += blockDim.x)
-    s_plan[k] = plan[k];
-  for (int k = threadIdx.x; k < p.n_props; k += blockDim.x)
-    s_slot[k] = vol_slot[k];
-  __syncthreads();
+  Tables tb =
+      stage<kShared, kWalk>(props, plan, aabbs, hier, vol_slot, p, smem);
 
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned r = 0;
-  if (i < n)
-    r = lane_step<kHybrid>(i, n, sf, si, s_props, s_plan, s_slot, osf, osi,
-                           p);
+  if (i < n) r = lane_step<kHybrid, kWalk>(i, n, sf, si, tb, osf, osi, p);
   // every thread of the (full) block reaches here: warp sum, one atomic
   r = __reduce_add_sync(0xffffffffu, r);
   if ((threadIdx.x & 31) == 0 && r != 0)
     atomicAdd(rays, (unsigned long long)r);
 }
 
-template <bool kHybrid>
+// Bytes of the tables: those always in shared memory, and those that join
+// them when p.tables_shared (ops/mega_kernel.py decides by the same sum
+// against TABLES_SHARED_MAX).
+size_t smem_bytes(const MegaParams& p) {
+  size_t words = (size_t)p.n_nodes * AABB_COLS +
+                 (size_t)p.n_entries * (PLAN_COLS + HIER_COLS);
+  if (p.tables_shared)
+    words += (size_t)p.n_props * (p.kdim + 1) + (size_t)p.n_blocks * AABB_COLS;
+  return 4 * words;
+}
+
+template <bool kHybrid, bool kShared, bool kWalk>
 int launch(const float* sf, const int* si, const float* props,
-           const int* plan, const int* vol_slot, float* osf, int* osi,
+           const int* plan, const float* aabbs, const int* hier,
+           const int* vol_slot, float* osf, int* osi,
            unsigned long long* rays, int n, const MegaParams& p,
            cudaStream_t stream) {
-  size_t smem = sizeof(float) * (size_t)p.n_props * p.kdim +
-                sizeof(int) * ((size_t)p.n_entries * PLAN_COLS + p.n_props);
+  size_t smem = smem_bytes(p);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        mega_kernel<kHybrid>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        mega_kernel<kHybrid, kShared, kWalk>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   int blocks = (n + kBlock - 1) / kBlock;
-  mega_kernel<kHybrid><<<blocks, kBlock, smem, stream>>>(
-      sf, si, props, plan, vol_slot, osf, osi, rays, n, p);
+  mega_kernel<kHybrid, kShared, kWalk><<<blocks, kBlock, smem, stream>>>(
+      sf, si, props, plan, aabbs, hier, vol_slot, osf, osi, rays, n, p);
   return (int)cudaGetLastError();
 }
 
@@ -499,15 +589,22 @@ int launch(const float* sf, const int* si, const float* props,
 // refused launch never runs and must not pass silently.
 extern "C" int rtw_mega_step(const float* sf, const int* si,
                              const float* props, const int* plan,
+                             const float* aabbs, const int* hier,
                              const int* vol_slot, float* osf, int* osi,
                              unsigned long long* rays, int n, int hybrid,
                              MegaParams p, void* stream) {
   if (n <= 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  return hybrid ? launch<true>(sf, si, props, plan, vol_slot, osf, osi, rays,
-                               n, p, st)
-                : launch<false>(sf, si, props, plan, vol_slot, osf, osi,
-                                rays, n, p, st);
+  // one instantiation per (hybrid, tables shared, walk)
+  using Launch = decltype(&launch<false, false, false>);
+  const Launch table[8] = {
+      launch<false, false, false>, launch<false, false, true>,
+      launch<false, true, false>,  launch<false, true, true>,
+      launch<true, false, false>,  launch<true, false, true>,
+      launch<true, true, false>,   launch<true, true, true>};
+  auto fn = table[(hybrid ? 4 : 0) + (p.tables_shared ? 2 : 0) +
+                  (p.walk ? 1 : 0)];
+  return fn(sf, si, props, plan, aabbs, hier, vol_slot, osf, osi, rays, n, p,
+            (cudaStream_t)stream);
 }
 
 extern "C" const char* rtw_error_string(int code) {

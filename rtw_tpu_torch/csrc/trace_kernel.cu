@@ -17,27 +17,45 @@
 // -fmad=false and the same explicit fused multiply-adds the two round alike
 // apart from libm (atan2f, asinf and logf here, torch's there).
 //
-// Traversal: the scene's blocks in index order, each skipped when its world
-// AABB slab test shows that the ray cannot reach it inside (tmin, tmax), or
+// Traversal: per ray, each plan group's blocks in index order through
+// csrc/geometry.cuh::walk_blocks.  A block is skipped when its world AABB
+// slab test shows that the ray cannot reach it inside (tmin, tmax), or
 // (nearest hit) not before the best t so far: the reference's _block_active
-// cull.  Inside a block the rows are tested in order with a strict `<`, so
-// the lowest index wins a tie, exactly the plain sweep's winner.  The TPU's
-// front-to-back tile walk (_walk_group) and its two-level supers exist to
-// cull whole 1024-ray tiles; here each ray culls for itself.  The sweep
-// keeps only (best t, best row) and reads the winner's props row once after
-// it (the TPU's one-hot winner fetch exists only because Mosaic has no
-// per-lane gather).  The any-hit thread returns at its first hit.
+// cull.  A group of TWO_LEVEL_MIN blocks or more (ops/trace_kernel.py) has a
+// hierarchy of levels of 16 over its blocks, and a node that fails the same
+// test takes its whole span with it: what the reference's two-level
+// _walk_group and its supers do for a 1024-ray tile, each ray here does for
+// itself, over as many levels as the group needs.  Inside a block the rows
+// are tested in order with a strict `<`, so the lowest index wins a tie,
+// exactly the plain sweep's winner.  The sweep keeps only (best t, best row)
+// and reads the winner's props row once after it (the TPU's one-hot winner
+// fetch exists only because Mosaic has no per-lane gather).  The any-hit
+// thread returns at its first hit.
 //
 // What bounds it on this card: not memory.  A ray reads 32 B (o, d, time,
 // tmax) and writes 104 B (21 f32 + 5 i32 rows) or 1 B; the props table
-// (scene 1: 640 rows x 25 floats, 64 KB) stays in L1/L2 and is read as
-// warp-wide broadcasts when the lanes of a warp test the same block.  The
-// cost is the prim tests of the blocks each ray cannot cull, under
-// divergence (lanes of a warp cull different blocks).  A volume's t is
-// never before its boundary's entry, so the cull stays exact for volumes;
-// scene 4's radius-500 fog covers the scene, so its block is never culled
-// and every ray pays one log per fog row.  A BVH per ray and the props
-// table in shared memory are later work.
+// (scene 1: 640 rows x 25 floats, 64 KB; 262144 spheres: 26 MB, inside the
+// 50 MB L2) is read as warp-wide broadcasts when the lanes of a warp test
+// the same block.  The cost is the slab tests of the walk and the prim
+// tests of the blocks each ray cannot cull, under divergence (lanes of a
+// warp cull different nodes and blocks).  The walk cuts the slab tests from
+// one per block to 16 per node entered; SceneBuilder's Morton order makes
+// consecutive blocks neighbours, so a node's box is tight.  The prim tests
+// dominate: on an NVIDIA H100 80GB HBM3 (700.00 W), 262144 lanes of mostly
+// secondary rays, the walk took 2.19 ms against the flat block scan's 2.47
+// at 65536 spheres, 4.62 against 5.50 at 262144, 2.02 against 1.97 at 16384
+// (chip_smoke.py phase 20; PERF.md).  A volume's t is
+// never before its boundary's entry, so the cull stays exact for volumes
+// (their groups stay flat); scene 4's radius-500 fog covers the scene, so
+// its block is never culled and every ray pays one log per fog row.
+//
+// Shared memory: the upper nodes, the plan and the hier rows always (272
+// nodes, 8.7 KB, at 262144 spheres); the block AABBs too while they fit
+// kBlocksSharedMax (16 KB, 512 blocks), else they are read from global
+// memory through the L1/L2 (4096 blocks are 128 KB: staging them per
+// 128-thread block would cost more than the walk reads).  Above 48 KB the
+// launch opts in to large dynamic shared memory.  A front-to-back child
+// order and the props table in shared memory are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,7 +67,8 @@ using namespace rtw;
 namespace {
 
 constexpr int kBlock = 128;
-constexpr int AABB_COLS = 8;   // lo xyz, hi xyz, 2 unused
+// block AABBs are staged in shared memory up to this many bytes
+constexpr int kBlocksSharedMax = 16 * 1024;
 
 // output rows (rtw_tpu_torch/ops/trace_kernel.py HIT_F32 / HIT_I32)
 constexpr int H_T = 0, H_POINT = 1, H_NORMAL = 4, H_U = 7, H_V = 8,
@@ -63,21 +82,10 @@ constexpr int HI_PRIM = 0, HI_MAT = 1, HI_TEX = 2, HI_IMG = 3, HI_MID = 4;
 // rtw_tpu_torch/ops/trace_kernel.py (all members 4 bytes, no padding).
 struct TraceParams {
   float tmin;
-  int n_entries, n_blocks, kdim;
+  int n_entries, n_blocks, n_nodes, kdim;
 };
 
 namespace {
-
-
-// _block_active: the block's world AABB can hold a hit in (tmin, tmax)
-// nearer than `best_t`
-__device__ __forceinline__ bool block_active(const float* ab, V3 o, V3 d,
-                                             float tmin, float tmax,
-                                             float best_t) {
-  float near, far;
-  slab(ab, o, d, &near, &far);
-  return far >= fmaxf(near, tmin) && near < tmax && near < best_t;
-}
 
 struct Ray {
   V3 o, d;
@@ -92,57 +100,83 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays,
           rays[7 * n + i]};
 }
 
-// The block AABBs and the chunk plan into shared memory.
-__device__ __forceinline__ void stage(const float* aabbs, const int* plan,
-                                      const TraceParams& p, float* s_ab,
-                                      int* s_plan) {
-  for (int k = threadIdx.x; k < p.n_blocks * AABB_COLS; k += blockDim.x)
-    s_ab[k] = aabbs[k];
+// What the walk reads: the block AABBs (shared or global), the upper nodes,
+// the plan and the hier rows (shared).
+struct Tables {
+  const float* blocks;
+  const float* nodes;
+  const int* plan;
+  const int* hier;
+};
+
+// Stage the tables in dynamic shared memory: [nodes][blocks, if
+// kBlocksShared][plan][hier].  `aabbs` is the augmented table: n_blocks
+// block rows, then n_nodes upper rows.
+template <bool kBlocksShared>
+__device__ __forceinline__ Tables stage(const float* aabbs, const int* plan,
+                                        const int* hier,
+                                        const TraceParams& p, float* smem) {
+  const int n_nd = p.n_nodes * AABB_COLS, n_bl = p.n_blocks * AABB_COLS;
+  float* s_nodes = smem;
+  float* s_blocks = smem + n_nd;
+  int* s_plan =
+      reinterpret_cast<int*>(s_blocks + (kBlocksShared ? n_bl : 0));
+  int* s_hier = s_plan + p.n_entries * PLAN_COLS;
+  for (int k = threadIdx.x; k < n_nd; k += blockDim.x)
+    s_nodes[k] = aabbs[n_bl + k];
+  if (kBlocksShared)
+    for (int k = threadIdx.x; k < n_bl; k += blockDim.x)
+      s_blocks[k] = aabbs[k];
   for (int k = threadIdx.x; k < p.n_entries * PLAN_COLS; k += blockDim.x)
     s_plan[k] = plan[k];
+  for (int k = threadIdx.x; k < p.n_entries * HIER_COLS; k += blockDim.x)
+    s_hier[k] = hier[k];
   __syncthreads();
+  return {kBlocksShared ? s_blocks : aabbs, s_nodes, s_plan, s_hier};
 }
 
+template <bool kBlocksShared>
 __global__ void __launch_bounds__(kBlock)
     trace_kernel(const float* __restrict__ rays,
                  const float* __restrict__ vol_u,
                  const float* __restrict__ props, const int* __restrict__ plan,
                  const float* __restrict__ aabbs,
+                 const int* __restrict__ hier,
                  const int* __restrict__ vol_slot, float* __restrict__ of,
                  int* __restrict__ oi, int n, TraceParams p) {
   extern __shared__ float smem[];
-  float* s_ab = smem;
-  int* s_plan = reinterpret_cast<int*>(smem + p.n_blocks * AABB_COLS);
-  stage(aabbs, plan, p, s_ab, s_plan);
+  Tables tb = stage<kBlocksShared>(aabbs, plan, hier, p, smem);
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Ray ray = load_ray(rays, i, n);
   // a volume row's free-flight uniform: row max(vol_slot, 0) of vol_u
   auto row_u = [&](int r) { return vol_u[max(vol_slot[r], 0) * n + i]; };
 
-  // ---- nearest hit: (best t, best row) over the blocks in index order ----
+  // ---- nearest hit: (best t, best row) over the groups in plan order ----
   float bt = BIG;
-  int bi = -1, bid = 0;
+  int bi = -1;
   for (int e = 0; e < p.n_entries; ++e) {
-    const int* en = s_plan + e * PLAN_COLS;
-    int start = en[0], end = en[0] + en[1], size = en[2], ptype = en[3],
-        axis = en[4], block = en[6];
+    const int* en = tb.plan + e * PLAN_COLS;
+    int start = en[0], end = en[0] + en[1], ptype = en[3], axis = en[4],
+        block = en[6];
     bool xform = en[5] != 0;
-    for (int b0 = start; b0 < start + size; b0 += block, ++bid) {
-      if (!block_active(s_ab + bid * AABB_COLS, ray.o, ray.d, p.tmin,
-                        ray.tmax, bt))
-        continue;
-      int b1 = min(b0 + block, end);   // rows past `count` are padding
-      sweep_rows(ptype, props, p.kdim, b0, b1, axis, xform, ray.o, ray.d,
-                 ray.time, p.tmin, ray.tmax, row_u,
-                 [&](int r, float t) {
-                   if (t < bt) {
-                     bt = t;
-                     bi = r;
-                   }
-                   return false;
-                 });
-    }
+    walk_blocks(
+        tb.blocks, tb.nodes, p.n_blocks, tb.hier + e * HIER_COLS, ray.o,
+        ray.d, p.tmin, ray.tmax, [&] { return bt; },
+        [&](int b) {
+          int b0 = start + b * block;
+          int b1 = min(b0 + block, end);   // rows past `count` are padding
+          sweep_rows(ptype, props, p.kdim, b0, b1, axis, xform, ray.o, ray.d,
+                     ray.time, p.tmin, ray.tmax, row_u,
+                     [&](int r, float t) {
+                       if (t < bt) {
+                         bt = t;
+                         bi = r;
+                       }
+                       return false;
+                     });
+          return false;
+        });
   }
 
   // ---- payload of the winner (intersect._winner_payload) ----------------
@@ -153,7 +187,7 @@ __global__ void __launch_bounds__(kBlock)
   if (bi >= 0) {
     int ptype, axis;
     bool xform;
-    group_of(s_plan, p.n_entries, bi, &ptype, &axis, &xform);
+    group_of(tb.plan, p.n_entries, bi, &ptype, &axis, &xform);
     hit_payload<true>(pr, ptype, axis, xform, ray.o, ray.d, bt, ray.time,
                       p.tmin, &point, &normal, &u, &v);
   }
@@ -183,75 +217,95 @@ __global__ void __launch_bounds__(kBlock)
   oi[HI_MID * n + i] = bi >= 0 ? (int)pr[C_MID] : 0;
 }
 
+template <bool kBlocksShared>
 __global__ void __launch_bounds__(kBlock)
     occluded_kernel(const float* __restrict__ rays,
                     const float* __restrict__ vol_u,
                     const float* __restrict__ props,
                     const int* __restrict__ plan,
                     const float* __restrict__ aabbs,
+                    const int* __restrict__ hier,
                     const int* __restrict__ vol_slot,
                     uint8_t* __restrict__ out, int n, TraceParams p) {
   extern __shared__ float smem[];
-  float* s_ab = smem;
-  int* s_plan = reinterpret_cast<int*>(smem + p.n_blocks * AABB_COLS);
-  stage(aabbs, plan, p, s_ab, s_plan);
+  Tables tb = stage<kBlocksShared>(aabbs, plan, hier, p, smem);
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Ray ray = load_ray(rays, i, n);
   auto row_u = [&](int r) { return vol_u[max(vol_slot[r], 0) * n + i]; };
 
   bool occ = false;
-  int bid = 0;
   for (int e = 0; e < p.n_entries && !occ; ++e) {
-    const int* en = s_plan + e * PLAN_COLS;
-    int start = en[0], end = en[0] + en[1], size = en[2], ptype = en[3],
-        axis = en[4], block = en[6];
+    const int* en = tb.plan + e * PLAN_COLS;
+    int start = en[0], end = en[0] + en[1], ptype = en[3], axis = en[4],
+        block = en[6];
     bool xform = en[5] != 0;
-    for (int b0 = start; b0 < start + size && !occ; b0 += block, ++bid) {
-      if (!block_active(s_ab + bid * AABB_COLS, ray.o, ray.d, p.tmin,
-                        ray.tmax, BIG))
-        continue;
-      int b1 = min(b0 + block, end);
-      // first hit: the lane leaves
-      occ = sweep_rows(ptype, props, p.kdim, b0, b1, axis, xform, ray.o,
-                       ray.d, ray.time, p.tmin, ray.tmax, row_u,
-                       [](int, float t) { return t < BIG; });
-    }
+    // first hit: the lane leaves
+    occ = walk_blocks(
+        tb.blocks, tb.nodes, p.n_blocks, tb.hier + e * HIER_COLS, ray.o,
+        ray.d, p.tmin, ray.tmax, [] { return BIG; },
+        [&](int b) {
+          int b0 = start + b * block;
+          return sweep_rows(ptype, props, p.kdim, b0, min(b0 + block, end),
+                            axis, xform, ray.o, ray.d, ray.time, p.tmin,
+                            ray.tmax, row_u,
+                            [](int, float t) { return t < BIG; });
+        });
   }
   out[i] = occ ? 1 : 0;
 }
 
+bool blocks_shared(const TraceParams& p) {
+  return sizeof(float) * (size_t)p.n_blocks * AABB_COLS <= kBlocksSharedMax;
+}
+
 size_t smem_bytes(const TraceParams& p) {
-  return sizeof(float) * (size_t)p.n_blocks * AABB_COLS +
-         sizeof(int) * (size_t)p.n_entries * PLAN_COLS;
+  size_t rows = (size_t)p.n_nodes + (blocks_shared(p) ? p.n_blocks : 0);
+  return sizeof(float) * rows * AABB_COLS +
+         sizeof(int) * (size_t)p.n_entries * (PLAN_COLS + HIER_COLS);
+}
+
+// Launch `kernel` with its dynamic shared memory, opted in above 48 KB.
+// Returns cudaGetLastError() after the launch (0 on success); a refused
+// launch never runs and must not pass silently.
+template <class Kernel, class... Args>
+int launch(Kernel kernel, int n, const TraceParams& p, cudaStream_t stream,
+           Args... args) {
+  size_t smem = smem_bytes(p);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int blocks = (n + kBlock - 1) / kBlock;
+  kernel<<<blocks, kBlock, smem, stream>>>(args..., n, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// One launch of each kernel on `stream`.  Each returns cudaGetLastError()
-// after the launch (0 on success); a refused launch never runs and must not
-// pass silently.
+// One launch of each kernel on `stream`; each returns `launch`'s code.
 extern "C" int rtw_trace(const float* rays, const float* vol_u,
                          const float* props, const int* plan,
-                         const float* aabbs, const int* vol_slot, float* of,
-                         int* oi, int n, TraceParams p, void* stream) {
+                         const float* aabbs, const int* hier,
+                         const int* vol_slot, float* of, int* oi, int n,
+                         TraceParams p, void* stream) {
   if (n <= 0) return 0;
-  int blocks = (n + kBlock - 1) / kBlock;
-  trace_kernel<<<blocks, kBlock, smem_bytes(p), (cudaStream_t)stream>>>(
-      rays, vol_u, props, plan, aabbs, vol_slot, of, oi, n, p);
-  return (int)cudaGetLastError();
+  auto kernel = blocks_shared(p) ? trace_kernel<true> : trace_kernel<false>;
+  return launch(kernel, n, p, (cudaStream_t)stream, rays, vol_u, props, plan,
+                aabbs, hier, vol_slot, of, oi);
 }
 
 extern "C" int rtw_occluded(const float* rays, const float* vol_u,
                             const float* props, const int* plan,
-                            const float* aabbs, const int* vol_slot,
-                            uint8_t* out, int n, TraceParams p,
-                            void* stream) {
+                            const float* aabbs, const int* hier,
+                            const int* vol_slot, uint8_t* out, int n,
+                            TraceParams p, void* stream) {
   if (n <= 0) return 0;
-  int blocks = (n + kBlock - 1) / kBlock;
-  occluded_kernel<<<blocks, kBlock, smem_bytes(p), (cudaStream_t)stream>>>(
-      rays, vol_u, props, plan, aabbs, vol_slot, out, n, p);
-  return (int)cudaGetLastError();
+  auto kernel =
+      blocks_shared(p) ? occluded_kernel<true> : occluded_kernel<false>;
+  return launch(kernel, n, p, (cudaStream_t)stream, rays, vol_u, props, plan,
+                aabbs, hier, vol_slot, out);
 }
 
 extern "C" const char* rtw_error_string(int code) {

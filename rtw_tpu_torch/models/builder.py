@@ -434,11 +434,11 @@ class SceneBuilder:
         """Freeze into a Scene of CPU tensors (`Scene.to` moves it).
 
         `chunk_size`: primitives per block for groups larger than one block.
-        64 (not 256): blocks are the culling granule of the trace kernels'
-        front-to-back traversal (ops/trace_kernel._dyn_nearest) — finer
-        blocks mean tighter AABBs and more skippable work, while the
-        per-block loop overhead (one [B, n] key reduction + argmin) is
-        negligible next to a 64-prim block test."""
+        64 (not 256): blocks are the culling granule of the kernels' per-ray
+        walk (csrc/geometry.cuh::walk_blocks, over the hierarchy of
+        ops/trace_kernel.augment_aabbs): finer blocks mean tighter AABBs
+        and more skippable work, while a block's own slab test is small
+        next to its 64 prim tests."""
         T = torch.as_tensor
 
         if self._camera is None:

@@ -305,6 +305,38 @@ def three_sphere(aspect: float, dof: str = "reference") -> S.Scene:
     return b.build()
 
 
+# ---------------------------------------------------------------------------
+# The scale tier's stress field (tools/stress_scale.py of the reference)
+# ---------------------------------------------------------------------------
+
+def build_stress_scene(n_spheres: int, light: bool = False,
+                       device="cuda", chunk_size: int = 64) -> S.Scene:
+    """`n_spheres` grey lambertian spheres, centres uniform in the 400-unit
+    cube, radii 1-5 (numpy seed 5), seen from (0, 0, -500) at vfov 40 under
+    the sky: the reference's scale-ceiling probe.  `light` adds one emissive
+    rect above the field with its NEE light, so shadow rays cross the field
+    (no counterpart in the reference's tool).  `chunk_size` is
+    `SceneBuilder.build`'s prims per block.  On `device`, as `build_scene`."""
+    device = S.scene_device(device, "build_stress_scene")
+    b = SceneBuilder()
+    rng = np.random.default_rng(5)
+    mat = b.lambertian(b.constant_texture((0.5, 0.5, 0.5)))
+    centers = rng.uniform(-200, 200, (n_spheres, 3))
+    radii = rng.uniform(1.0, 5.0, n_spheres)
+    for c, r in zip(centers, radii):
+        b.sphere(c, float(r), mat)
+    if light:
+        light_tex = b.constant_texture((15.0, 15.0, 15.0))
+        b.rect(-100.0, 100.0, -100.0, 100.0, 260.0, True, S.AXIS_Y,
+               b.diffuse_light(light_tex))
+        b.add_light(position=(-100.0, 260.0, -100.0),
+                    vec_u=(200.0, 0.0, 0.0), vec_v=(0.0, 0.0, 200.0),
+                    emission=(15.0, 15.0, 15.0), tex=light_tex)
+    b.set_camera(lookfrom=(0, 0, -500), lookat=(0, 0, 0), vup=(0, 1, 0),
+                 vfov=40.0, aspect=1.0, aperture=0.0, focus_dist=10.0)
+    return b.build(chunk_size).to(device)
+
+
 _BUILDERS = {
     0: cornell_box,
     1: moving_spheres,

@@ -35,8 +35,7 @@ from rtw_tpu_torch.ops.bounce import bounce_core
 from rtw_tpu_torch.ops import vec as V
 from rtw_tpu_torch.ops.intersect import BIG, intersect_scene
 from rtw_tpu_torch.ops.shading import gather_shade, resolve_albedo
-from rtw_tpu_torch.ops.trace_kernel import (PLAN_COLS, build_props,
-                                            check_plan, plan_table)
+from rtw_tpu_torch.ops import trace_kernel as TK
 from rtw_tpu_torch.ops.vec import Vec3
 from rtw_tpu_torch.utils import kernels
 from rtw_tpu_torch.utils import rng as R
@@ -79,6 +78,16 @@ PF_LAREA = 34
 PF_LNRM = 35         # 3
 PF = 40
 
+# The kernel keeps the props table, the volume slots and the block AABBs in
+# shared memory while they fit this many bytes together with what is always
+# there (the upper nodes, the plan, the hier rows): two thread blocks an SM.
+# A larger scene reads the three from global memory.
+TABLES_SHARED_MAX = 100 * 1024
+# The reference's `_use_block_culls`: a scene of at most this many blocks
+# runs the straight-line sweep, without the blocks' box tests; a larger one
+# walks its blocks (csrc/geometry.cuh::walk_blocks).
+STRAIGHT_MAX_BLOCKS = 8
+
 # Launches of the CUDA kernel since import (or since a caller reset them):
 # regenerating mode (TPU kernel A) and hybrid mode (TPU kernel D).
 launches = 0
@@ -112,6 +121,10 @@ class _CParams(ctypes.Structure):
         ("checker", ctypes.c_int32),
         ("mis_bsdf_weight", ctypes.c_int32),
         ("n_vol", ctypes.c_int32),
+        ("n_blocks", ctypes.c_int32),
+        ("n_nodes", ctypes.c_int32),
+        ("walk", ctypes.c_int32),
+        ("tables_shared", ctypes.c_int32),
     ]
 
 
@@ -119,24 +132,22 @@ class _CParams(ctypes.Structure):
 class MegaParams:
     """Everything one render's launches share: the float row `parf`, the
     path-hash base `h0` (one uint32), the sample end `s_end`, the volume
-    slot count `n_vol` (max(scene.n_vol, 1)), the props table, the chunk
-    plan and the per-prim volume slots (all on the scene's device), and the
+    slot count `n_vol` (max(scene.n_vol, 1)), the scene's tables (the
+    split kernels' `SplitTables`: props, plan, AABB table with its
+    hierarchy, hier rows, volume slots, on the scene's device), and the
     kernel's parameter struct built from them."""
 
     parf: np.ndarray          # float32 [PF]
     h0: int
     s_end: int
     n_vol: int
-    props: torch.Tensor       # float32 [P, K]
-    plan: torch.Tensor        # int32 [E, PLAN_COLS]
-    vol_slot: torch.Tensor    # int32 [P]; -1 off volumes
+    tables: TK.SplitTables
     c_params: _CParams
 
 
 def mega_params(scene: S.Scene, seed: int, cfg, s_end: int) -> MegaParams:
     """Validate the envelope and assemble the launch parameters."""
     _validate_mega(cfg, scene)
-    check_plan(scene)
     cam = scene.camera
     lt = scene.lights
 
@@ -151,9 +162,7 @@ def mega_params(scene: S.Scene, seed: int, cfg, s_end: int) -> MegaParams:
     vals = np.concatenate([flat(p) for p in parts])
     parf[:vals.size] = vals
 
-    any_xform = any(e[5] for e in scene.chunk_plan)
-    props = build_props(scene, any_xform)
-    plan = plan_table(scene)
+    tables = TK.split_tables(scene)
     h0 = R.path_hash_base(seed)
     c = _CParams()
     c.f[:] = parf.tolist()
@@ -168,17 +177,28 @@ def mega_params(scene: S.Scene, seed: int, cfg, s_end: int) -> MegaParams:
     c.rr_start = cfg.rr_start_depth
     c.max_depth = cfg.max_depth
     c.n_entries = len(scene.chunk_plan)
-    c.n_props, c.kdim = props.shape
+    c.n_props, c.kdim = tables.props.shape
     c.num_lights = scene.num_lights
     c.mat_present = sum(1 << m for m, on in enumerate(scene.mat_present)
                         if on)
     c.checker = int(bool(scene.tex_present[S.TEX_CHECKER]))
     c.mis_bsdf_weight = int(bool(cfg.mis_bsdf_weight))
     c.n_vol = max(scene.n_vol, 1)
+    c.n_blocks = tables.n_blocks
+    c.n_nodes = tables.aabbs.shape[0] - tables.n_blocks
+    c.walk = int(tables.n_blocks > STRAIGHT_MAX_BLOCKS)
+    always, joined = table_bytes(c)
+    c.tables_shared = int(always + joined <= TABLES_SHARED_MAX)
     return MegaParams(parf=parf, h0=h0, s_end=s_end, n_vol=c.n_vol,
-                      props=props, plan=plan,
-                      vol_slot=scene.prims.vol_slot.to(torch.int32)
-                      .contiguous(), c_params=c)
+                      tables=tables, c_params=c)
+
+
+def table_bytes(c: _CParams) -> tuple[int, int]:
+    """(bytes the kernel always keeps in shared memory, bytes of the tables
+    that join them when they fit): csrc/mega_kernel.cu::smem_bytes."""
+    always = 4 * (8 * c.n_nodes + c.n_entries * (TK.PLAN_COLS + TK.HIER_COLS))
+    joined = 4 * (c.n_props * (c.kdim + 1) + 8 * c.n_blocks)
+    return always, joined
 
 
 def init_carry(pixel_idx, s0: int):
@@ -287,14 +307,15 @@ def mega_step_plain(scene: S.Scene, cfg, sf, si, params: MegaParams, rays,
 
 def _check_tensors(sf, si, params: MegaParams, rays) -> int:
     n = sf.shape[-1]
+    c, tb = params.c_params, params.tables
     for name, t, dtype, shape in (
             ("sf", sf, torch.float32, (NF, n)),
             ("si", si, torch.int32, (NI, n)),
-            ("props", params.props, torch.float32, tuple(params.props.shape)),
-            ("plan", params.plan, torch.int32,
-             (params.c_params.n_entries, PLAN_COLS)),
-            ("vol_slot", params.vol_slot, torch.int32,
-             (params.c_params.n_props,)),
+            ("props", tb.props, torch.float32, (c.n_props, c.kdim)),
+            ("plan", tb.plan, torch.int32, (c.n_entries, TK.PLAN_COLS)),
+            ("aabbs", tb.aabbs, torch.float32, (c.n_blocks + c.n_nodes, 8)),
+            ("hier", tb.hier, torch.int32, (c.n_entries, TK.HIER_COLS)),
+            ("vol_slot", tb.vol_slot, torch.int32, (c.n_props,)),
             ("rays", rays, torch.int64, (1,))):
         if t.device != sf.device:
             raise ValueError(f"{name} is on {t.device}, sf on {sf.device}")
@@ -305,6 +326,11 @@ def _check_tensors(sf, si, params: MegaParams, rays) -> int:
                              f"{shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    always, joined = table_bytes(c)
+    need = always + (joined if c.tables_shared else 0)
+    if need > TK.SMEM_MAX:
+        raise ValueError(f"the kernel's tables take {need} bytes of shared "
+                         f"memory, a block has {TK.SMEM_MAX}")
     return n
 
 
@@ -326,12 +352,13 @@ def mega_step(scene: S.Scene, cfg, sf, si, params: MegaParams, rays,
     osf = torch.empty_like(sf)
     osi = torch.empty_like(si)
     lib = library()
+    tb = params.tables
     with torch.cuda.device(sf.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rtw_mega_step(sf.data_ptr(), si.data_ptr(),
-                                params.props.data_ptr(),
-                                params.plan.data_ptr(),
-                                params.vol_slot.data_ptr(), osf.data_ptr(),
+                                tb.props.data_ptr(), tb.plan.data_ptr(),
+                                tb.aabbs.data_ptr(), tb.hier.data_ptr(),
+                                tb.vol_slot.data_ptr(), osf.data_ptr(),
                                 osi.data_ptr(), rays.data_ptr(), n,
                                 int(bool(hybrid)), params.c_params, stream)
     if err != 0:
@@ -352,7 +379,7 @@ def library() -> ctypes.CDLL:
         return _lib
     lib = kernels.load("mega_kernel")
     lib.rtw_mega_step.restype = ctypes.c_int
-    lib.rtw_mega_step.argtypes = [ctypes.c_void_p] * 8 + [
+    lib.rtw_mega_step.argtypes = [ctypes.c_void_p] * 10 + [
         ctypes.c_int, ctypes.c_int, _CParams, ctypes.c_void_p]
     lib.rtw_error_string.restype = ctypes.c_char_p
     lib.rtw_error_string.argtypes = [ctypes.c_int]

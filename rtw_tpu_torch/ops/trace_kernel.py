@@ -13,6 +13,12 @@ rows for the occlusion query), row `max(vol_slot, 0)` of each volume prim.
 
 The props layout and `build_props` are the reference's; the megakernel
 (csrc/mega_kernel.cu) reads the same table.
+
+Plan groups of `TWO_LEVEL_MIN` blocks or more get a hierarchy over their
+block AABBs (`augment_aabbs`: levels of 16, appended to the AABB table),
+which the kernels walk per ray (csrc/geometry.cuh::walk_blocks).  The plain
+versions stay the full sweep; `reachable_blocks` is the table's plain
+reading, for the tests.
 """
 
 from __future__ import annotations
@@ -40,6 +46,24 @@ W2O = KBASE            # +12 when any_xform
 O2W = KBASE + 12
 
 PLAN_COLS = 7          # (start, count, size, ptype, axis, has_xform, block)
+# The hierarchy over a plan group's blocks (the reference's two-level
+# supers, `_GROUP` and `_TWO_LEVEL_MIN`, generalised to levels of 16): a
+# group of at least TWO_LEVEL_MIN blocks gets one node per WALK_FAN
+# consecutive nodes of the level below (level 0: its blocks), level on level
+# until at most WALK_FAN nodes are left.  Tests lower the threshold on small
+# scenes; it is read when the tables are built.
+WALK_SHIFT = 4
+WALK_FAN = 1 << WALK_SHIFT
+TWO_LEVEL_MIN = 128
+MAX_LEVELS = 4
+# Columns of the per-group `hier` table: the number of levels (0: a flat
+# group), the group's first row and its row count in the block AABBs, and
+# the table row of the first node of each level 1..MAX_LEVELS.
+H_LEVELS, H_FIRST, H_BLOCKS, H_LEVEL0 = 0, 1, 2, 2
+HIER_COLS = 3 + MAX_LEVELS
+# The kernels keep the upper nodes, the plan and `hier` in shared memory
+# (csrc/trace_kernel.cu: at most the card's 227 KB a block).
+SMEM_MAX = 232448
 # Rows of the trace kernel's outputs: f32 (t, point, normal, u, v, fuzz,
 # eta, scale, rgb, odd, even) and i32 (prim, mat_type, tex_type, image_id,
 # mat_id), the reference's `_write_hit` layout.
@@ -84,20 +108,26 @@ class _CTraceParams(ctypes.Structure):
     csrc/trace_kernel.cu; every member is 4 bytes, so no padding)."""
 
     _fields_ = [("tmin", ctypes.c_float), ("n_entries", ctypes.c_int32),
-                ("n_blocks", ctypes.c_int32), ("kdim", ctypes.c_int32)]
+                ("n_blocks", ctypes.c_int32), ("n_nodes", ctypes.c_int32),
+                ("kdim", ctypes.c_int32)]
 
 
 @dataclasses.dataclass
 class SplitTables:
     """The scene's tables both kernels read, on the scene's device: the
-    props table, the chunk plan, the block AABBs [B, 8] and the per-prim
-    volume slot.  A render builds them once (`split_tables`) and passes
-    them to every launch."""
+    props table, the chunk plan, the AABB table (the `n_blocks` block rows,
+    then the hierarchy's upper nodes: `augment_aabbs`), the per-group `hier`
+    rows that index it (`layout`: the same rows as Python ints, for the
+    launch checks), and the per-prim volume slot.  A render builds them
+    once (`split_tables`) and passes them to every launch."""
 
     props: torch.Tensor       # float32 [P, K]
     plan: torch.Tensor        # int32 [E, PLAN_COLS]
-    aabbs: torch.Tensor       # float32 [B, 8]
+    aabbs: torch.Tensor       # float32 [n_blocks + n_nodes, 8]
+    hier: torch.Tensor        # int32 [E, HIER_COLS]
     vol_slot: torch.Tensor    # int32 [P]; -1 off volumes
+    n_blocks: int
+    layout: list[list[int]]   # hier on the host
 
 
 def plan_table(scene: S.Scene):
@@ -107,18 +137,170 @@ def plan_table(scene: S.Scene):
                         dtype=torch.int32, device=scene.device)
 
 
+def _walked(entry) -> bool:
+    """Whether a plan group gets a hierarchy: TWO_LEVEL_MIN blocks or more
+    of a type other than a volume (the reference's `_two_level`; a volume
+    group is a handful of prims)."""
+    return (entry[3] not in I.VOLUME_PRIMS
+            and entry[2] // entry[6] >= TWO_LEVEL_MIN)
+
+
+def _level_counts(entry, levels: int | None = None) -> list[int]:
+    """The node counts of a plan group's levels 1, 2, ...: as many levels
+    as `levels` says, or (None) as the threshold gives the group: none for
+    a flat group, else levels until at most WALK_FAN nodes are left."""
+    out, n = [], entry[2] // entry[6]
+    while (len(out) < levels if levels is not None else
+           _walked(entry) and (not out or n > WALK_FAN)):
+        n = -(-n // WALK_FAN)
+        out.append(n)
+    return out
+
+
+def hier_layout(chunk_plan, levels=None) -> list[list[int]]:
+    """The `hier` rows of a chunk plan, as Python ints, with each group's
+    level count from `levels` or (None) from the threshold.  The upper
+    nodes follow the block rows level by level: level 1 of every walked
+    group in plan order (the reference's super rows, `_super_offsets`),
+    then level 2 of every group that has one, and so on."""
+    counts = [_level_counts(e, None if levels is None else levels[g])
+              for g, e in enumerate(chunk_plan)]
+    if any(len(c) > MAX_LEVELS for c in counts):
+        raise ValueError(f"a plan group needs more than {MAX_LEVELS} levels "
+                         f"of {WALK_FAN} over its blocks")
+    rows, first = [], 0
+    for e, c in zip(chunk_plan, counts):
+        rows.append([len(c), first, e[2] // e[6]] + [0] * MAX_LEVELS)
+        first += e[2] // e[6]
+    row = first
+    for level in range(MAX_LEVELS):
+        for r, c in zip(rows, counts):
+            if len(c) > level:
+                r[H_LEVEL0 + level + 1] = row
+                row += c[level]
+    return rows
+
+
+def _level_up(nodes):
+    """One node per WALK_FAN consecutive rows of `nodes` [n, 8]: the union
+    of their boxes (float min / max, so a node's box holds each child's
+    exactly); the ragged last node takes the rows there are."""
+    n, cols = nodes.shape
+    pad = -n % WALK_FAN
+    if pad:
+        inv = nodes.new_zeros((pad, cols))
+        inv[:, 0:3] = I.BIG
+        inv[:, 3:6] = -I.BIG
+        nodes = torch.cat([nodes, inv])
+    g = nodes.reshape(-1, WALK_FAN, cols)
+    up = nodes.new_zeros((g.shape[0], cols))
+    up[:, 0:3] = g[:, :, 0:3].amin(dim=1)
+    up[:, 3:6] = g[:, :, 3:6].amax(dim=1)
+    return up
+
+
+def augment_aabbs(scene: S.Scene):
+    """(AABB table, hier rows): the scene's block AABBs [n_blocks, 8] with
+    the upper nodes of every walked group appended in `hier_layout`'s order
+    (float32, on the scene's device), and the `hier` rows as Python ints.
+    Level 1 is bit-equal to the reference's super rows; there is no guard
+    tail: the walk masks a ragged last node by its child count."""
+    ab = scene.block_aabbs.to(torch.float32)
+    layout = hier_layout(scene.chunk_plan)
+    below = [ab[r[H_FIRST]:r[H_FIRST] + r[H_BLOCKS]] for r in layout]
+    parts = [ab]
+    for level in range(1, MAX_LEVELS + 1):
+        for g, r in enumerate(layout):
+            if r[H_LEVELS] >= level:
+                below[g] = _level_up(below[g])
+                parts.append(below[g])
+    return torch.cat(parts).contiguous(), layout
+
+
+def check_tables(scene: S.Scene, tables: SplitTables) -> None:
+    """The tables' shapes and the hier rows against the plan: what the
+    kernels index without a bounds check.  Host-side only (no device
+    read).  Raises ValueError on a table that does not fit."""
+    plan = scene.chunk_plan
+    n_rows = tables.props.shape[0]
+    if n_rows < max(e[0] + e[2] for e in plan):
+        raise ValueError(f"props has {n_rows} rows, the plan reads "
+                         f"{max(e[0] + e[2] for e in plan)}")
+    n_blocks = sum(e[2] // e[6] for e in plan)
+    if tables.n_blocks != n_blocks:
+        raise ValueError(f"n_blocks is {tables.n_blocks}, the plan has "
+                         f"{n_blocks} blocks")
+    if (len(tables.layout) != len(plan) or tables.layout != hier_layout(
+            plan, [r[H_LEVELS] for r in tables.layout])):
+        raise ValueError(f"the hier rows {tables.layout} do not lay the "
+                         "plan's blocks out")
+    n_nodes = sum(sum(_level_counts(e, r[H_LEVELS]))
+                  for e, r in zip(plan, tables.layout))
+    for name, t, shape in (
+            ("plan", tables.plan, (len(plan), PLAN_COLS)),
+            ("aabbs", tables.aabbs, (n_blocks + n_nodes, 8)),
+            ("hier", tables.hier, (len(plan), HIER_COLS)),
+            ("vol_slot", tables.vol_slot, (n_rows,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, the plan "
+                             f"needs {shape}")
+    smem = 4 * (8 * n_nodes + len(plan) * (PLAN_COLS + HIER_COLS))
+    if smem > SMEM_MAX:
+        raise ValueError(f"the upper nodes and the plan take {smem} bytes "
+                         f"of shared memory, the kernels have {SMEM_MAX}")
+
+
 def split_tables(scene: S.Scene) -> SplitTables:
     check_plan(scene)
     props = build_props(scene, any(e[5] for e in scene.chunk_plan))
-    plan = plan_table(scene)
-    aabbs = scene.block_aabbs.to(torch.float32).contiguous()
-    n_blocks = sum(e[2] // e[6] for e in scene.chunk_plan)
-    if aabbs.shape != (n_blocks, 8):
-        raise ValueError(f"block_aabbs has shape {tuple(aabbs.shape)}, the "
-                         f"plan has {n_blocks} blocks")
-    return SplitTables(props=props, plan=plan, aabbs=aabbs,
-                       vol_slot=scene.prims.vol_slot.to(torch.int32)
-                       .contiguous())
+    aabbs, layout = augment_aabbs(scene)
+    tables = SplitTables(props=props, plan=plan_table(scene), aabbs=aabbs,
+                         hier=torch.tensor(layout, dtype=torch.int32,
+                                           device=scene.device),
+                         n_blocks=sum(r[H_BLOCKS] for r in layout),
+                         layout=layout,
+                         vol_slot=scene.prims.vol_slot.to(torch.int32)
+                         .contiguous())
+    check_tables(scene, tables)
+    return tables
+
+
+def _slab_pass(boxes, o: Vec3, d: Vec3, tmin, tmax):
+    """[R, N] bool: the kernels' slab test of each box [R, 8] against each
+    ray, without a best t (csrc/geometry.cuh::box_active)."""
+    near = far = None
+    for ax in range(3):
+        inv = 1.0 / torch.where(d[ax] == 0.0, 1e-30, d[ax])
+        t0 = (boxes[:, ax, None] - o[ax]) * inv
+        t1 = (boxes[:, 3 + ax, None] - o[ax]) * inv
+        lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        near = lo if near is None else torch.maximum(near, lo)
+        far = hi if far is None else torch.minimum(far, hi)
+    return (far >= torch.clamp_min(near, tmin)) & (near < tmax)
+
+
+def reachable_blocks(tables: SplitTables, o: Vec3, d: Vec3, tmin, tmax):
+    """bool [n_blocks, N]: whether the walk can reach each block for each
+    ray: the block's own slab test and every ancestor's pass in (tmin,
+    tmax).  The plain reading of the hierarchy table: the tests hold the
+    table and the cull's conservativeness against it; no render calls it."""
+    ok = _slab_pass(tables.aabbs, o, d, tmin, tmax)
+    reach = ok[:tables.n_blocks].clone()
+    for levels, first, count, *rows in tables.layout:
+        b = torch.arange(count, device=ok.device)
+        for level in range(1, levels + 1):
+            reach[first:first + count] &= ok[
+                rows[level - 1] + (b >> (WALK_SHIFT * level))]
+    return reach
+
+
+def prim_blocks(scene: S.Scene):
+    """int64 [P]: the block AABB row of each props row."""
+    out, first = [], 0
+    for start, count, size, ptype, axis, xform, block in scene.chunk_plan:
+        out.append(first + torch.arange(size) // block)
+        first += size // block
+    return torch.cat(out).to(scene.device)
 
 
 def trace_plain(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u):
@@ -143,7 +325,8 @@ def _plane(x, n: int, dev):
 def _launch_inputs(scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u,
                    tables):
     """(rays [8, N], tables, params) checked for the kernels, with the
-    volume uniforms: CUDA, float32/int32, contiguous, shapes that agree."""
+    volume uniforms: CUDA, float32/int32, contiguous, shapes that agree
+    with each other and with the plan (`check_tables`)."""
     dev = o.x.device
     if dev.type != "cuda":
         raise ValueError(f"the split-tier kernels run on CUDA tensors, not "
@@ -153,21 +336,20 @@ def _launch_inputs(scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u,
         tables = split_tables(scene)
     rays = torch.stack([*(c.to(torch.float32) for c in (*o, *d)),
                         _plane(time, n, dev), _plane(tmax, n, dev)])
+    check_tables(scene, tables)
     for name, t, dtype, shape in (
             ("rays", rays, torch.float32, (8, n)),
-            ("props", tables.props, torch.float32, tuple(tables.props.shape)),
-            ("plan", tables.plan, torch.int32,
-             (len(scene.chunk_plan), PLAN_COLS)),
-            ("aabbs", tables.aabbs, torch.float32,
-             tuple(tables.aabbs.shape)),
-            ("vol_slot", tables.vol_slot, torch.int32,
-             (tables.props.shape[0],)),
+            ("props", tables.props, torch.float32, None),
+            ("plan", tables.plan, torch.int32, None),
+            ("aabbs", tables.aabbs, torch.float32, None),
+            ("hier", tables.hier, torch.int32, None),
+            ("vol_slot", tables.vol_slot, torch.int32, None),
             ("vol_u", vol_u, torch.float32, (max(scene.n_vol, 1), n))):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, the rays on {dev}")
         if t.dtype != dtype:
             raise TypeError(f"{name} has dtype {t.dtype}, needs {dtype}")
-        if tuple(t.shape) != shape:
+        if shape is not None and tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, needs "
                              f"{shape}")
         if not t.is_contiguous():
@@ -175,7 +357,8 @@ def _launch_inputs(scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u,
     p = _CTraceParams()
     p.tmin = float(tmin)
     p.n_entries = len(scene.chunk_plan)
-    p.n_blocks = tables.aabbs.shape[0]
+    p.n_blocks = tables.n_blocks
+    p.n_nodes = tables.aabbs.shape[0] - tables.n_blocks
     p.kdim = tables.props.shape[1]
     return rays, tables, p
 
@@ -207,8 +390,8 @@ def trace(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u,
     oi = torch.empty((HIT_I32, n), dtype=torch.int32, device=rays.device)
     _call("rtw_trace", rays.device, rays.data_ptr(), vol_u.data_ptr(),
           tables.props.data_ptr(), tables.plan.data_ptr(),
-          tables.aabbs.data_ptr(), tables.vol_slot.data_ptr(), of.data_ptr(),
-          oi.data_ptr(), n, p)
+          tables.aabbs.data_ptr(), tables.hier.data_ptr(),
+          tables.vol_slot.data_ptr(), of.data_ptr(), oi.data_ptr(), n, p)
     trace_launches += 1
     return _unpack_hit(of, oi)
 
@@ -242,8 +425,8 @@ def occluded_kernel(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time,
     out = torch.empty(n, dtype=torch.bool, device=rays.device)
     _call("rtw_occluded", rays.device, rays.data_ptr(), vol_u.data_ptr(),
           tables.props.data_ptr(), tables.plan.data_ptr(),
-          tables.aabbs.data_ptr(), tables.vol_slot.data_ptr(),
-          out.data_ptr(), n, p)
+          tables.aabbs.data_ptr(), tables.hier.data_ptr(),
+          tables.vol_slot.data_ptr(), out.data_ptr(), n, p)
     occluded_launches += 1
     return out
 
@@ -255,12 +438,12 @@ def library() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib = kernels.load("trace_kernel")
-    ptrs = [ctypes.c_void_p] * 8
+    ptrs = [ctypes.c_void_p] * 9
     lib.rtw_trace.restype = ctypes.c_int
     lib.rtw_trace.argtypes = ptrs + [ctypes.c_int, _CTraceParams,
                                      ctypes.c_void_p]
     lib.rtw_occluded.restype = ctypes.c_int
-    lib.rtw_occluded.argtypes = ptrs[:7] + [ctypes.c_int, _CTraceParams,
+    lib.rtw_occluded.argtypes = ptrs[:8] + [ctypes.c_int, _CTraceParams,
                                             ctypes.c_void_p]
     lib.rtw_error_string.restype = ctypes.c_char_p
     lib.rtw_error_string.argtypes = [ctypes.c_int]
