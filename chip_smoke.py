@@ -4,12 +4,20 @@
     python3 chip_smoke.py [--spp N] [--profile]
 
 Builds the CUDA kernels from the checkout's sources (one nvcc per source,
-all at once) and holds each against its plain torch version on the card.
-Then it drives the port's paths through `render`:
+all at once; the report names each kernel's registers and spills) and
+holds each against its plain torch version on the card.  Then it drives
+the port's paths through `render`:
 
-- the megakernel path: the Cornell box, 800x800, depth 20, `--spp`
-  samples (default 64; `--spp 1000` is bench.py's workload), and scene 3
-  (volumes) at tools/bench_scenes.py's 400x400, 32 spp, depth 20;
+- the megakernel path, one persistent `mega_trace` launch per render: the
+  Cornell box, 800x800, depth 20, `--spp` samples (default 64; `--spp
+  1000` is bench.py's workload), scene 5 at tools/bench_scenes.py's
+  400x224, 64 spp, and scene 3 (volumes) at its 400x400, 32 spp, depth 20.
+  Each is rendered twice, by the persistent kernel and by the
+  per-iteration kernel loop it replaced (`_loop_trace`, a host loop of
+  `mega_step` launches): images equal bit for bit and rays equal; both
+  timed in turns, the persistent kernel's grid, registers and tail, and
+  its plain twin once at the same inputs; on Cornell also the card time a
+  traced ray beside that of an all-lambertian copy (divergence);
 - the split tier: scenes 1, 2 (800x400, 16 spp, depth 20) and 4 (800x400,
   8 spp, depth 20) on the work queue with the trace and occlusion kernels;
 - scheduler="qmega": scene 1 at 800x400, 16 spp, depth 20 on the work
@@ -18,12 +26,12 @@ Then it drives the port's paths through `render`:
   65536 and 262144 spheres, 512x512, 4 spp, depth 8) on the work queue
   with the trace kernel walking the block hierarchy, the 16384 and 65536
   fields with the flat block scan beside it, the 65536 field with a light
-  (the occlusion kernel), and the 16384 field with backend="mega" and
-  scheduler="qmega";
+  (the occlusion kernel), and the 16384 field with backend="mega" (the
+  persistent kernel, against the loop as above) and scheduler="qmega";
 
 and checks that each path launched its kernels.  `--profile` adds a
-torch.profiler breakdown of one scene-2, one scene-4 and one 65536-sphere
-field render.  Each
+torch.profiler breakdown of one Cornell (at `--spp`), one scene-2, one
+scene-4 and one 65536-sphere field render.  Each
 phase prints one line; any failure raises, so the run exits non-zero and
 prints no result.  With no CUDA device it exits 1.
 
@@ -37,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import json
 import shutil
@@ -51,6 +60,7 @@ BENCH_NX = BENCH_NY = 800
 BENCH_DEPTH = 20
 # tools/bench_scenes.py's workloads: scene -> (nx, ny, spp)
 SCENE3_WORKLOAD = (400, 400, 32)
+SCENE5_WORKLOAD = (400, 224, 64)
 SPLIT_WORKLOADS = {1: (800, 400, 16), 2: (800, 400, 16), 4: (800, 400, 8)}
 QMEGA_SCENE = 1
 SPLIT_LANES = 800 * 400
@@ -191,35 +201,84 @@ def phase_one_step():
     """Kernel step against plain step at 64x48, carry after 3 steps."""
     import rtw_tpu_torch as rtt
 
-    worst = 0.0
     parts = []
     for sid in (0, 5, 3):
         cfg = rtt.RenderConfig(nx=64, ny=48, spp=4, max_depth=10,
                                scene_id=sid)
         scene = rtt.build_scene(sid, cfg.nx, cfg.ny, device="cuda")
         params, sf, si = _carry_after(scene, cfg, 3)
-        err, report = _compare_step(f"scene {sid}", scene, cfg, params, sf,
-                                    si)
-        worst = max(worst, err)
-        parts.append(report)
+        parts.append(_compare_step(f"scene {sid}", scene, cfg, params, sf,
+                                   si)[1])
     print("[3 one step] " + "; ".join(parts), flush=True)
-    return worst
 
 
 @contextlib.contextmanager
 def _plain_mega():
-    """`mega_step` replaced by its plain twin while the block runs: the same
-    scheduler on the same carry, each step in plain torch on the card."""
+    """`mega_trace` and `mega_step` replaced by their plain twins while the
+    block runs: the same schedulers on the same inputs, in plain torch on
+    the card."""
     from rtw_tpu_torch.ops import mega_kernel as MK
 
-    kernel = MK.mega_step
+    kernels = MK.mega_trace, MK.mega_step
+    MK.mega_trace = MK.mega_trace_plain
     MK.mega_step = (lambda scene, cfg, sf, si, params, rays, hybrid=False:
                     MK.mega_step_plain(scene, cfg, sf, si, params, rays,
                                        hybrid))
     try:
         yield
     finally:
-        MK.mega_step = kernel
+        MK.mega_trace, MK.mega_step = kernels
+
+
+def _loop_trace(scene, cfg, pixel_idx, seed, s0, n_samples, probe=None):
+    """The per-iteration design of the megakernel path, as
+    `integrator.trace_wavefront_mega` ran it before the persistent kernel:
+    a host loop of `mega_step` launches (one wavefront iteration each) from
+    `init_carry`, with the termination test read once every 8 launches.
+    Same return as `trace_wavefront_mega`.  `probe` (a dict, untimed runs
+    only) receives the steps run, the lanes each step traced (alive or
+    regenerated) summed over the steps, and the carry after 10 steps (or
+    before the last, in a shorter render) and the rays traced."""
+    from rtw_tpu_torch.ops import mega_kernel as MK
+    from rtw_tpu_torch.ops.vec import Vec3
+
+    s_end = s0 + n_samples
+    sf, si = MK.init_carry(pixel_idx.to(scene.device), s0)
+    params = MK.mega_params(scene, seed, cfg, s_end, s0)
+    rays = torch.zeros(1, dtype=torch.int64, device=scene.device)
+    traced = torch.zeros((), dtype=torch.int64, device=scene.device)
+    active = torch.zeros((), dtype=torch.int64, device=scene.device)
+    steps = 0
+    while True:
+        for _ in range(8):
+            if probe is not None:
+                tracing = (si[MK.I_ALIVE] > 0) | (si[MK.I_SAMPLE] < s_end)
+                traced += tracing.sum()
+                active += tracing.any()
+                if steps <= 10:        # the carry after 10 steps
+                    probe["carry"] = (params, sf.clone(), si.clone())
+            sf, si = MK.mega_step(scene, cfg, sf, si, params, rays)
+            steps += 1
+        busy = (si[MK.I_ALIVE] > 0) | (si[MK.I_SAMPLE] < s_end)
+        if not bool(busy.any()):
+            break
+    if probe is not None:      # steps: those with a lane to trace
+        probe.update(steps=int(active), traced=int(traced), rays=int(rays))
+    return Vec3(sf[MK.F_ACC], sf[MK.F_ACC + 1], sf[MK.F_ACC + 2]), rays, ()
+
+
+@contextlib.contextmanager
+def _per_iteration():
+    """`integrator.trace_wavefront_mega` replaced by `_loop_trace` while the
+    block runs: `render` then drives the per-iteration kernel loop."""
+    from rtw_tpu_torch import integrator as TI
+
+    persistent = TI.trace_wavefront_mega
+    TI.trace_wavefront_mega = _loop_trace
+    try:
+        yield
+    finally:
+        TI.trace_wavefront_mega = persistent
 
 
 def phase_small_render():
@@ -287,14 +346,15 @@ def _turns(kernel, plain, plain_reps=5, kernel_reps=50):
             f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
 
 
-def _mega_bound(scene, sf, si, params):
+def _mega_bound(scene, sf, si, params, walk_only=False):
     """Bound of one megakernel step: the carry read and written once (17
     f32 + 5 i32 rows each way), or the f32 work of the alive lanes: the
     nearest-hit sweep, the shadow ray's where the scene has a light, and
     ~300 operations of shading.  A scene of at most 8 blocks is swept
     whole; above that the nearest-hit sweep is the walk's own count on the
     carry's rays (`_split_work`), and a shadow sweep counts nothing (no
-    culled path here has a light; less work keeps the bound a bound)."""
+    culled path here has a light; less work keeps the bound a bound).
+    `walk_only`: that walk's operations alone, an int."""
     from rtw_tpu_torch.ops import mega_kernel as MK
     from rtw_tpu_torch.ops.intersect import BIG
     from rtw_tpu_torch.ops.vec import Vec3
@@ -313,66 +373,271 @@ def _mega_bound(scene, sf, si, params):
         Vec3(*sf[MK.F_DIR:MK.F_DIR + 3]), params.c_params.tmin,
         torch.where(alive, params.c_params.tmax, -BIG), sf[MK.F_TIME],
         torch.zeros((params.n_vol, n), device=sf.device), True)
+    if walk_only:
+        return walk
     return _bound(n_bytes, walk + 300 * n_alive)
 
 
-def _mega_path(label, sid, nx, ny, spp):
-    """A megakernel path through `render` (warm-up with the identical
-    config, then timed with the launch count set to 0 just before it), then
-    kernel against plain at its width and depth from one mid-render carry
-    (after 10 iterations) and the per-iteration step times from that
-    carry."""
+def _trace_calls(cfg):
+    """`trace_wavefront_mega` calls of one render: spp chunks x pixel
+    batches (render.py)."""
+    chunk = cfg.resolved_spp_chunk(checkpointing=False)
+    return (-(-cfg.spp // chunk)) * (-(-cfg.num_pixels
+                                       // cfg.resolved_ray_batch()))
+
+
+def _render_counted(scene, cfg):
+    """`render` after a warm-up with the identical config, the megakernel's
+    launch counts set to 0 just before it and read just after.  Returns
+    (image, metrics, {counter: launches})."""
     import rtw_tpu_torch as rtt
     from rtw_tpu_torch.ops import mega_kernel as MK
 
-    cfg = rtt.RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=BENCH_DEPTH,
-                           scene_id=sid)
-    scene = rtt.build_scene(sid, nx, ny, device="cuda")
-    rtt.render(scene, cfg)                    # warm-up, identical config
+    rtt.render(scene, cfg)
     m = {}
-    MK.launches = 0
+    MK.launches = MK.hybrid_launches = MK.trace_launches = 0
     img = rtt.render(scene, cfg, metrics=m)
-    launches = MK.launches
-    if launches <= 0:
-        raise AssertionError(f"{label}: no mega_step kernel launched")
+    counts = dict(trace=MK.trace_launches, step=MK.launches,
+                  hybrid=MK.hybrid_launches)
     if tuple(img.shape) != (cfg.ny, cfg.nx, 3):
-        raise AssertionError(f"{label}: image has shape {tuple(img.shape)}")
+        raise AssertionError(f"image has shape {tuple(img.shape)}")
     if not bool(torch.isfinite(img).all()):
-        raise AssertionError(f"{label}: non-finite image")
-    mean = img.reshape(-1, 3).mean(0).cpu().numpy()
-    print(f"[{label}] scene {sid} {nx}x{ny} spp {spp} depth "
-          f"{cfg.max_depth}: {m['wall_seconds']:.3f} s, {m['rays']} rays, "
-          f"{m['mrays_per_sec']:.2f} Mrays/s, {launches} launches, mean "
-          f"{_fmt(mean)} on {card_line()}", flush=True)
+        raise AssertionError("non-finite image")
+    return img, m, counts
 
-    params, sf, si = _carry_after(scene, cfg, 10)
-    err, report = _compare_step(f"scene {sid} {cfg.num_pixels} lanes, carry "
-                                f"after 10 iterations", scene, cfg, params,
-                                sf, si)
+
+def _trace_bound(scene, params, probe, grid, n):
+    """Bound of one persistent launch: bytes, the pixel ids in (4 B a lane),
+    the radiance out (12 B a lane) and the tables once per block (those
+    read from global memory once more); operations, the f32 work of the
+    per-iteration loop's run on the same lanes: one sweep for each ray it
+    traced (camera, bounce and NEE shadow rays alike) and ~300 of shading
+    for each lane a step traced (alive or regenerated).  A walked scene's
+    sweep is the walk's own count (`_split_work`) on the carry after 10
+    steps, times the steps (no walked path here has a light)."""
+    from rtw_tpu_torch.ops import mega_kernel as MK
+
+    c = params.c_params
+    always, joined = MK.table_bytes(c)
+    n_bytes = 16 * n + grid * (always + (joined if c.tables_shared else 0))
+    n_bytes += 0 if c.tables_shared else joined
+    if not c.walk:
+        sweep = sum(e[1] * PRIM_FLOPS[e[3]] + e[1] * XFORM_FLOPS * e[5]
+                    for e in scene.chunk_plan)
+        return _bound(n_bytes, probe["rays"] * sweep + 300 * probe["traced"])
+    _, sf, si = probe["carry"]
+    walk_flops = _mega_bound(scene, sf, si, params, walk_only=True)
+    return _bound(n_bytes, walk_flops * probe["steps"]
+                  + 300 * probe["traced"])
+
+
+def _mega_path(label, scene, cfg, path):
+    """A megakernel path through `render` at its full width, twice: the
+    persistent kernel (one `mega_trace` launch per `trace_wavefront_mega`
+    call, no `mega_step` launch) and the per-iteration loop
+    (`_per_iteration`), each warmed up with the identical config and counted
+    from 0; images equal bit for bit and rays equal.  Then the whole
+    `trace_wavefront_mega` call of each design in turns (loop, persistent,
+    persistent, loop) with CUDA events; the persistent kernel's grid,
+    registers and tail; the plain twin `mega_trace_plain` once on the same
+    inputs (every lane but 0.1% within 1e-4 a sample, channel means within
+    rtol 0.02 / atol 0.003, rays within 0.5%); the bound.  Then one
+    `mega_step` against the plain step at the carry after 10 iterations,
+    and its step times.  Returns {"mega_trace": row, "mega_step": times}:
+    the kernels line's `mega_trace` row, and the step's figures for the
+    phase lines (no render path launches `mega_step` in regenerating
+    mode)."""
+    from rtw_tpu_torch import integrator as TI
+    from rtw_tpu_torch.ops import mega_kernel as MK
+    from rtw_tpu_torch.render import tile_permutation
+
+    head = (f"{path} {cfg.nx}x{cfg.ny} spp {cfg.spp} depth "
+            f"{cfg.max_depth}")
+    img, m, counts = _render_counted(scene, cfg)
+    calls = _trace_calls(cfg)
+    if counts["trace"] != calls or counts["step"] or counts["hybrid"]:
+        raise AssertionError(f"{label} {head}: launches {counts}, expected "
+                             f"{calls} mega_trace and no mega_step")
+    info = {k: MK.last_trace[k] for k in MK.TRACE_INFO}
+    tail = MK.trace_tail(MK.last_trace["scratch"])
+    with _per_iteration():
+        img_l, m_l, counts_l = _render_counted(scene, cfg)
+    if counts_l["step"] <= 0 or counts_l["trace"]:
+        raise AssertionError(f"{label} {head}: the loop's launches "
+                             f"{counts_l}")
+    same = bool(torch.equal(img, img_l))
+    mean = img.reshape(-1, 3).mean(0).cpu().numpy()
+    print(f"[{label}] {head}: persistent {m['wall_seconds']:.4f} s, "
+          f"{m['rays']} rays, {m['mrays_per_sec']:.2f} Mrays/s, "
+          f"{counts['trace']} mega_trace launches; per-iteration loop "
+          f"{m_l['wall_seconds']:.4f} s, {m_l['rays']} rays, "
+          f"{m_l['mrays_per_sec']:.2f} Mrays/s, {counts_l['step']} mega_step "
+          f"launches; images bit-equal {same}; mean {_fmt(mean)} on "
+          f"{card_line()}", flush=True)
+    if not same or m["rays"] != m_l["rays"]:
+        raise AssertionError(f"{label} {head}: the persistent render and the "
+                             "loop differ")
+
+    pix = torch.as_tensor(tile_permutation(cfg.nx, cfg.ny), device="cuda")
+    if calls != 1:
+        raise AssertionError(f"{label}: timed as one call, render makes "
+                             f"{calls}")
+
+    def persistent():
+        TI.trace_wavefront_mega(scene, cfg, pix, cfg.seed, 0, cfg.spp)
+
+    def loop():
+        _loop_trace(scene, cfg, pix, cfg.seed, 0, cfg.spp)
+
+    l1, p1, p2, l2 = (_time_ms(f, 3) for f in (loop, persistent, persistent,
+                                               loop))
+    warps = info["blocks_per_sm"] * info["block"] // 32
+    print(f"[{label} times] {head}, trace_wavefront_mega per call: "
+          f"persistent {p1:.4f}/{p2:.4f} ms, per-iteration loop "
+          f"{l1:.4f}/{l2:.4f} ms; grid {info['grid']} blocks of "
+          f"{info['block']} ({info['blocks_per_sm']} an SM on "
+          f"{info['sms']} SMs: {warps} resident warps an SM), "
+          f"{info['registers']} registers, {info['local_bytes']} B local a "
+          f"thread; tail {tail['tail_ms']:.4f} ms of {tail['kernel_ms']:.4f}"
+          f" ms ({100 * tail['tail_ms'] / tail['kernel_ms']:.1f}%)",
+          flush=True)
+
+    params = MK.mega_params(scene, cfg.seed, cfg, cfg.spp)
+    rk = torch.zeros(1, dtype=torch.int64, device="cuda")
+    rp = torch.zeros_like(rk)
+    acc_k = MK.mega_trace(scene, cfg, pix, params, rk)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    acc_p = MK.mega_trace_plain(scene, cfg, pix, params, rp)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    mk, mp = (a.mean(1).cpu().numpy() / cfg.spp for a in (acc_k, acc_p))
+    diff = (acc_k - acc_p).abs()
+    share = float((diff <= 1e-4 * (cfg.spp + acc_p.abs())).all(0)
+                  .float().mean())
+    err = float(diff.max()) / cfg.spp          # a lane's pixel value
+    report = (f"mega_trace vs mega_trace_plain, {pix.shape[0]} lanes: means "
+              f"{_fmt(mk)} vs {_fmt(mp)}, rays {int(rk)} vs {int(rp)}, lanes "
+              f"within 1e-4 a sample {share:.6f}, max abs diff a lane "
+              f"{err:.3e} a sample; plain {plain_ms:.1f} ms")
+    if share < 0.999:
+        raise AssertionError(f"{report}: fewer than 0.999 of the lanes within "
+                             "1e-4 a sample")
+    np.testing.assert_allclose(mk, mp, rtol=0.02, atol=0.003,
+                               err_msg=report)
+    if abs(int(rk) - int(rp)) > 0.005 * int(rp):
+        raise AssertionError(f"{report}: rays beyond 0.5%")
+
+    probe = {}
+    _loop_trace(scene, cfg, pix, cfg.seed, 0, cfg.spp, probe)
+    bound = _trace_bound(scene, params, probe, info["grid"], pix.shape[0])
+    print(f"[{label} check] {report}; bound {bound[0]:.4f} ms ({bound[1]}; "
+          f"{probe['traced']} lane-steps in {probe['steps']} steps)",
+          flush=True)
+    trace_row = dict(launches=counts["trace"], max_abs_err=err,
+                     ms=(p1 + p2) / 2, plain_ms=plain_ms, bound_ms=bound[0],
+                     bound_by=bound[1], library_ms=None,
+                     loop_ms=(l1 + l2) / 2, loop_launches=counts_l["step"],
+                     mrays_per_sec=m["mrays_per_sec"],
+                     loop_mrays_per_sec=m_l["mrays_per_sec"])
+
+    c_params, sf, si = probe["carry"]
+    err, report = _compare_step(f"{path} {sf.shape[1]} lanes, carry after "
+                                f"10 iterations", scene, cfg, c_params, sf,
+                                si, min_equal=1.0 if c_params.c_params.walk
+                                else 0.999)
     print(f"[{label} step check] {report}", flush=True)
     rays = torch.zeros(1, dtype=torch.int64, device="cuda")
-    ms, plain_ms, times = _turns(
-        lambda: MK.mega_step(scene, cfg, sf, si, params, rays),
-        lambda: MK.mega_step_plain(scene, cfg, sf, si, params, rays))
-    bound = _mega_bound(scene, sf, si, params)
-    print(f"[{label} step times] {cfg.num_pixels} lanes, carry after 10 "
-          f"iterations: {times} per iteration; bound {bound[0]:.4f} ms "
-          f"({bound[1]}); wall per launch "
-          f"{m['wall_seconds'] * 1e3 / launches:.4f} ms", flush=True)
-    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound[0], bound_by=bound[1], library_ms=None,
-                mrays_per_sec=m["mrays_per_sec"])
+    slow = bool(c_params.c_params.walk)        # a plain step of a second
+    ms, step_plain_ms, times = _turns(
+        lambda: MK.mega_step(scene, cfg, sf, si, c_params, rays),
+        lambda: MK.mega_step_plain(scene, cfg, sf, si, c_params, rays),
+        plain_reps=1 if slow else 5, kernel_reps=20 if slow else 50)
+    sbound = _mega_bound(scene, sf, si, c_params)
+    print(f"[{label} step times] {sf.shape[1]} lanes, carry after 10 "
+          f"iterations: {times} per iteration; bound {sbound[0]:.4f} ms "
+          f"({sbound[1]})", flush=True)
+    return {"mega_trace": trace_row, "mega_step": dict(ms=ms)}
+
+
+def _lambertian(scene):
+    """The scene with every prim's material lambertian and every albedo
+    clamped to [0, 1]: the same geometry, light and camera (built here, not
+    registered)."""
+    prims = dataclasses.replace(
+        scene.prims, mat_type_p=torch.zeros_like(scene.prims.mat_type_p))
+    tex = dataclasses.replace(scene.textures,
+                              color=scene.textures.color.clamp(0.0, 1.0))
+    return dataclasses.replace(scene, prims=prims, textures=tex,
+                               mat_present=(True,) + (False,) * 5)
+
+
+def _divergence(label, scene, cfg):
+    """A first measure of what the material branches' divergence costs the
+    persistent kernel: one `trace_wavefront_mega` call on the scene and on
+    its all-lambertian copy (`_lambertian`) in turns (scene, copy, copy,
+    scene; CUDA events around each call), as card time per traced ray.
+    The copy traces more shadow rays a path: not the same work."""
+    from rtw_tpu_torch import integrator as TI
+    from rtw_tpu_torch.render import tile_permutation
+
+    pix = torch.as_tensor(tile_permutation(cfg.nx, cfg.ny), device="cuda")
+    scenes = {"scene": scene, "lambertian": _lambertian(scene)}
+
+    def call(k):
+        return TI.trace_wavefront_mega(scenes[k], cfg, pix, cfg.seed, 0,
+                                       cfg.spp)[1]
+
+    rays = {k: int(call(k)) for k in scenes}
+    ns = {k: [] for k in scenes}
+    for k in ("scene", "lambertian", "lambertian", "scene"):
+        ns[k].append(1e6 * _time_ms(lambda: call(k), 1) / rays[k])
+    less = 1.0 - sum(ns["lambertian"]) / sum(ns["scene"])
+    print(f"[{label} divergence] {cfg.nx}x{cfg.ny} spp {cfg.spp}, card time "
+          f"a traced ray: the scene {ns['scene'][0]:.5f}/{ns['scene'][1]:.5f}"
+          f" ns ({rays['scene']} rays), every material lambertian "
+          f"{ns['lambertian'][0]:.5f}/{ns['lambertian'][1]:.5f} ns "
+          f"({rays['lambertian']} rays): {100 * less:.1f}% less on "
+          f"{card_line()}", flush=True)
 
 
 def phase_main(spp: int):
-    """The main path: the Cornell box at 800x800, depth 20."""
-    return _mega_path("5 main path", 0, BENCH_NX, BENCH_NY, spp)
+    """The main path: the Cornell box at 800x800, depth 20; then its
+    divergence measure."""
+    import rtw_tpu_torch as rtt
+
+    cfg = rtt.RenderConfig(nx=BENCH_NX, ny=BENCH_NY, spp=spp,
+                           max_depth=BENCH_DEPTH, scene_id=0)
+    scene = rtt.build_scene(0, cfg.nx, cfg.ny)
+    out = _mega_path("5 main path", scene, cfg, "scene 0")
+    _divergence("5 main path", scene, cfg)
+    return out
 
 
 def phase_scene3():
     """Scene 3 (a volume sphere and a transformed volume box, sky, no
     light) on the megakernel path at bench_scenes' workload."""
-    return _mega_path("11 scene 3 path", 3, *SCENE3_WORKLOAD)
+    import rtw_tpu_torch as rtt
+
+    nx, ny, spp = SCENE3_WORKLOAD
+    cfg = rtt.RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=BENCH_DEPTH,
+                           scene_id=3)
+    return _mega_path("11 scene 3 path", rtt.build_scene(3, nx, ny), cfg,
+                      "scene 3")
+
+
+def phase_scene5():
+    """Scene 5 (three spheres on a ground sphere: glass, lambertian, metal;
+    sky, no light) on the megakernel path at bench_scenes' workload."""
+    import rtw_tpu_torch as rtt
+
+    nx, ny, spp = SCENE5_WORKLOAD
+    cfg = rtt.RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=BENCH_DEPTH,
+                           scene_id=5)
+    return _mega_path("11 scene 5 path", rtt.build_scene(5, nx, ny), cfg,
+                      "scene 5")
 
 
 def _bound(n_bytes, n_flops):
@@ -1053,60 +1318,56 @@ def _mega_step_row(label, scene, cfg, params, sf, si, hybrid):
 
 def phase_mega_scale():
     """A and D at scale.  On the 2500-sphere field (threshold 32) one step
-    of each against its plain twin.  On the 16384-sphere field each is a
-    path through `render` (backend="mega"; scheduler="qmega") at 512x512,
-    4 spp, depth 8, warm-up first, launch counts set to 0 just before the
-    timed render; then the step against the twin at the carry after 10
-    iterations (A) or of the 10th hybrid launch (D), times and bound.
-    Returns {"mega_step": row, "mega_step_hybrid": row}."""
-    import rtw_tpu_torch as rtt
+    of each against its plain twin.  On the 16384-sphere field A is a
+    megakernel path (`_mega_path`, backend="mega") and D a path through
+    `render` (scheduler="qmega", `_render_counted`), both at 512x512, 4
+    spp, depth 8; then D's step against the twin at the carry of the 10th
+    hybrid launch, times and bound.  Returns {"mega_trace": row,
+    "mega_step": times, "mega_step_hybrid": row}."""
     from rtw_tpu_torch.ops import mega_kernel as MK
 
-    out = {}
-    for n in (SMALL_FIELD, MEGA_FIELD):
-        scene, _ = _field(n)
-        for hybrid in (False, True):
-            name = "mega_step_hybrid" if hybrid else "mega_step"
-            cfg = (_field_cfg(scheduler="qmega") if hybrid else
-                   _field_cfg(backend="mega"))
-            with _field_threshold(n):
-                launches = None
-                if n == MEGA_FIELD:
-                    rtt.render(scene, cfg)                    # warm-up
-                    m = {}
-                    MK.launches = MK.hybrid_launches = 0
-                    img = rtt.render(scene, cfg, metrics=m)
-                    launches = MK.hybrid_launches if hybrid else MK.launches
-                    if launches <= 0 or not bool(torch.isfinite(img).all()):
-                        raise AssertionError(
-                            f"{name} on {n} spheres: {launches} launches, or "
-                            "a non-finite image")
-                    print(f"[17 mega at scale] {name} path, {n} spheres "
-                          f"{cfg.nx}x{cfg.ny} spp {cfg.spp} depth "
-                          f"{cfg.max_depth}: {m['wall_seconds']:.3f} s, "
-                          f"{m['rays']} rays, {m['mrays_per_sec']:.2f} "
-                          f"Mrays/s, {launches} launches, mean "
-                          f"{_fmt(img.reshape(-1, 3).mean(0).cpu().numpy())}"
-                          f" on {card_line()}", flush=True)
-                if hybrid:
-                    (_, _, sf, si, params, _), _ = _capture(
-                        cfg, {"mega_step": (MK, "mega_step")},
-                        scene=scene)["mega_step"]
-                else:
-                    params, sf, si = _carry_after(scene, cfg, 10)
-                if not any(r[0] for r in params.tables.layout):
-                    raise AssertionError(f"{n} spheres: no group is walked")
-                label = (f"{name} {n} spheres, {sf.shape[1]} lanes, carry "
-                         f"{'of hybrid launch' if hybrid else 'after'} 10")
-                if n == MEGA_FIELD:
-                    out[name] = _mega_step_row(label, scene, cfg, params, sf,
-                                               si, hybrid)
-                    out[name]["launches"] = launches
-                else:
-                    _, report = _compare_step(label, scene, cfg, params, sf,
-                                              si, min_equal=1.0,
-                                              hybrid=hybrid)
-                    print(f"[17 mega at scale] {report}", flush=True)
+    scene, _ = _field(SMALL_FIELD)
+    for hybrid in (False, True):
+        name = "mega_step_hybrid" if hybrid else "mega_step"
+        cfg = (_field_cfg(scheduler="qmega") if hybrid else
+               _field_cfg(backend="mega"))
+        with _field_threshold(SMALL_FIELD):
+            if hybrid:
+                (_, _, sf, si, params, _), _ = _capture(
+                    cfg, {"mega_step": (MK, "mega_step")},
+                    scene=scene)["mega_step"]
+            else:
+                params, sf, si = _carry_after(scene, cfg, 10)
+            if not any(r[0] for r in params.tables.layout):
+                raise AssertionError(f"{SMALL_FIELD} spheres: no group is "
+                                     "walked")
+            label = (f"{name} {SMALL_FIELD} spheres, {sf.shape[1]} lanes, "
+                     f"carry {'of hybrid launch' if hybrid else 'after'} 10")
+            _, report = _compare_step(label, scene, cfg, params, sf, si,
+                                      min_equal=1.0, hybrid=hybrid)
+            print(f"[17 mega at scale] {report}", flush=True)
+
+    scene, _ = _field(MEGA_FIELD)
+    out = _mega_path("17 mega at scale", scene, _field_cfg(backend="mega"),
+                     f"{MEGA_FIELD} spheres")
+    cfg = _field_cfg(scheduler="qmega")
+    img, m, counts = _render_counted(scene, cfg)
+    launches = counts["hybrid"]
+    if launches <= 0:
+        raise AssertionError(f"qmega on {MEGA_FIELD} spheres launched no "
+                             "hybrid kernel")
+    print(f"[17 mega at scale] mega_step_hybrid path, {MEGA_FIELD} spheres "
+          f"{cfg.nx}x{cfg.ny} spp {cfg.spp} depth {cfg.max_depth}: "
+          f"{m['wall_seconds']:.3f} s, {m['rays']} rays, "
+          f"{m['mrays_per_sec']:.2f} Mrays/s, {launches} launches, mean "
+          f"{_fmt(img.reshape(-1, 3).mean(0).cpu().numpy())} on "
+          f"{card_line()}", flush=True)
+    (_, _, sf, si, params, _), _ = _capture(
+        cfg, {"mega_step": (MK, "mega_step")}, scene=scene)["mega_step"]
+    out["mega_step_hybrid"] = _mega_step_row(
+        f"mega_step_hybrid {MEGA_FIELD} spheres, {sf.shape[1]} lanes, carry "
+        f"of hybrid launch 10", scene, cfg, params, sf, si, True)
+    out["mega_step_hybrid"]["launches"] = launches
     return out
 
 
@@ -1251,10 +1512,11 @@ def phase_scale_step_times():
     return out
 
 
-def phase_profile(label, scene, cfg):
-    """torch.profiler over one full-width split-tier render: device time of
-    kernels B and C, of the torch glue (every other kernel), and the idle
-    remainder, as shares of the wall."""
+def phase_profile(label, scene, cfg,
+                  kernel_names=("trace_kernel", "occluded_kernel")):
+    """torch.profiler over one full-width render: device time of the
+    named kernels (default B and C), of the torch glue (every other
+    kernel), and the idle remainder, as shares of the wall."""
     import rtw_tpu_torch as rtt
     from torch.profiler import ProfilerActivity, profile
 
@@ -1263,7 +1525,7 @@ def phase_profile(label, scene, cfg):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         rtt.render(scene, cfg, metrics=m)
-    us = {"trace_kernel": 0.0, "occluded_kernel": 0.0, "glue": 0.0}
+    us = dict.fromkeys((*kernel_names, "glue"), 0.0)
     n_glue = 0
     for r in prof.key_averages():
         if not str(r.device_type).endswith("CUDA"):
@@ -1271,8 +1533,7 @@ def phase_profile(label, scene, cfg):
         t = getattr(r, "self_device_time_total", None)
         if t is None:
             t = r.self_cuda_time_total
-        key = next((k for k in ("trace_kernel", "occluded_kernel")
-                    if k in r.key), "glue")
+        key = next((k for k in kernel_names if k in r.key), "glue")
         us[key] += t
         n_glue += r.count if key == "glue" else 0
     wall_us = m["wall_seconds"] * 1e6
@@ -1286,11 +1547,16 @@ def phase_profile(label, scene, cfg):
           f"({100 * (wall_us - busy) / wall_us:.1f}%)", flush=True)
 
 
-def phase_profiles():
-    """`--profile`: scenes 2 and 4 at their split workloads and the
+def phase_profiles(spp):
+    """`--profile`: the Cornell main path at `spp` (the persistent
+    megakernel), scenes 2 and 4 at their split workloads and the
     65536-sphere field at the scale path's."""
     import rtw_tpu_torch as rtt
 
+    phase_profile("scene 0", rtt.build_scene(0, BENCH_NX, BENCH_NY),
+                  rtt.RenderConfig(nx=BENCH_NX, ny=BENCH_NY, spp=spp,
+                                   max_depth=BENCH_DEPTH, scene_id=0),
+                  ("mega_trace_kernel",))
     for sid in (2, 4):
         nx, ny, spp = SPLIT_WORKLOADS[sid]
         phase_profile(f"scene {sid}", rtt.build_scene(sid, nx, ny),
@@ -1317,8 +1583,9 @@ def main(argv=None) -> int:
     ap.add_argument("--spp", type=int, default=64,
                     help="main-path samples per pixel (1000 = bench.py)")
     ap.add_argument("--profile", action="store_true",
-                    help="add torch.profiler breakdowns of a scene-2, a "
-                         "scene-4 and a 65536-sphere field render")
+                    help="add torch.profiler breakdowns of a Cornell, a "
+                         "scene-2, a scene-4 and a 65536-sphere field "
+                         "render")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1340,12 +1607,11 @@ def main(argv=None) -> int:
 
     timed(phase_device)
     timed(phase_build)
-    small_err = timed(phase_one_step)
+    timed(phase_one_step)
     timed(phase_small_render)
     mega = timed(phase_main, args.spp)
-    mega["max_abs_err"] = max(small_err, mega["max_abs_err"])
+    scene5 = timed(phase_scene5)
     scene3 = timed(phase_scene3)
-    scene3["max_abs_err"] = max(small_err, scene3["max_abs_err"])
     split_err = timed(phase_split_kernels)
     timed(phase_split_small_render)
     counts = timed(phase_split_main)
@@ -1361,12 +1627,14 @@ def main(argv=None) -> int:
     field_counts[f"{LIT_FIELD}lit"] = timed(phase_lit_path)
     scale_steps = timed(phase_scale_step_times)
     if args.profile:
-        timed(phase_profiles)
+        timed(phase_profiles, args.spp)
 
-    now = {"A cornell ms": mega["ms"], "A scene3 ms": scene3["ms"],
+    now = {"A cornell ms": mega["mega_step"]["ms"],
+           "A scene3 ms": scene3["mega_step"]["ms"],
            "D scene1 ms": hybrid["ms"],
-           f"cornell {args.spp} spp Mrays/s": mega["mrays_per_sec"],
-           "scene3 Mrays/s": scene3["mrays_per_sec"],
+           f"cornell {args.spp} spp Mrays/s":
+               mega["mega_trace"]["mrays_per_sec"],
+           "scene3 Mrays/s": scene3["mega_trace"]["mrays_per_sec"],
            "scene1 qmega Mrays/s": qmega["mrays_per_sec"]}
     for (name, sid), v in steps.items():
         now[f"{'B' if name == 'trace' else 'C'} scene{sid} ms"] = v["ms"]
@@ -1376,19 +1644,20 @@ def main(argv=None) -> int:
         f"{k} {v:.4f} (before the walk: {BEFORE_WALK.get(k, 'not read')})"
         for k, v in now.items()) + f" on {card_line()}", flush=True)
 
-    # one entry per kernel and path: `launches` is that path's own count
+    # one entry per kernel and path: `launches` is that path's own count; a
+    # mega_trace row also carries the per-iteration loop's call time and
+    # launches from the same run (`loop_ms`, `loop_launches`)
     mega_src = "rtw_tpu_torch/csrc/mega_kernel.cu"
-    rows = [("mega_step", "cornell", mega_src,
-             "rtw_tpu/ops/mega_kernel.py:387", mega),
-            ("mega_step", "scene3", mega_src,
-             "rtw_tpu/ops/mega_kernel.py:387", scene3),
-            ("mega_step_hybrid", f"scene{QMEGA_SCENE}", mega_src,
-             "rtw_tpu/ops/mega_kernel.py:437", hybrid),
-            ("mega_step", f"field{MEGA_FIELD}", mega_src,
-             "rtw_tpu/ops/mega_kernel.py:387", mega_scale["mega_step"]),
-            ("mega_step_hybrid", f"field{MEGA_FIELD}", mega_src,
-             "rtw_tpu/ops/mega_kernel.py:437",
-             mega_scale["mega_step_hybrid"])]
+    rows = [("mega_trace", path, mega_src, "rtw_tpu/ops/mega_kernel.py:387",
+             v["mega_trace"])
+            for path, v in (("cornell", mega), ("scene5", scene5),
+                            ("scene3", scene3),
+                            (f"field{MEGA_FIELD}", mega_scale))]
+    rows += [("mega_step_hybrid", f"scene{QMEGA_SCENE}", mega_src,
+              "rtw_tpu/ops/mega_kernel.py:437", hybrid),
+             ("mega_step_hybrid", f"field{MEGA_FIELD}", mega_src,
+              "rtw_tpu/ops/mega_kernel.py:437",
+              mega_scale["mega_step_hybrid"])]
     split = [(name, f"scene{sid}", v, counts[sid], split_err[name])
              for (name, sid), v in steps.items()]
     split += [(name, path, v, field_counts[path[len("field"):]
@@ -1406,7 +1675,8 @@ def main(argv=None) -> int:
         {"name": name, "path": path, "route": "cuda", "source": src,
          "replaces": rep,
          **{k: v[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
-                              "bound_ms", "bound_by", "library_ms")}}
+                              "bound_ms", "bound_by", "library_ms",
+                              "loop_ms", "loop_launches") if k in v}}
         for name, path, src, rep, v in rows]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,9 @@
-// Whole-bounce megakernel for Hopper (sm_90a): one wavefront iteration per
-// launch, one thread per lane.
+// Whole-bounce megakernel for Hopper (sm_90a), in two launch shapes over
+// one lane-step body: `mega_trace_kernel`, one persistent launch per render
+// (a pixel batch and an spp chunk) whose threads each hold one lane's path
+// in registers, and `mega_kernel`, one wavefront iteration per launch on a
+// carry in global memory (TPU kernel D's hybrid mode, and the step that
+// chip_smoke.py holds against the plain twin).
 //
 // Replaces rtw_tpu/ops/mega_kernel.py::_mega_body (launched by the
 // pallas_call of _make_mega.run), with the straight-line nearest-hit sweep
@@ -20,24 +24,53 @@
 // the bounce's stream for the main ray, NUM_FIXED_SLOTS + n_vol + slot for
 // the shadow ray, which is bit for bit the plain twin's uniform row, with
 // no [2 n_vol, N] scratch (the TPU kernel's VMEM rows).  The plain torch
-// twin is rtw_tpu_torch/ops/mega_kernel.py::mega_step_plain; every float
+// twin is rtw_tpu_torch/ops/mega_kernel.py::mega_step_plain (one iteration)
+// and ::mega_trace_plain (its loop until no lane is busy); every float
 // operation here follows its order term by term, and the library is built
 // with -fmad=false, so the two round alike apart from libm (cbrtf here,
 // powf there; sinf/cosf/logf/sqrtf as torch's CUDA kernels call them).
 //
-// What bounds it on this card: not memory.  A lane reads 88 B of carry
-// (17 f32 + 5 i32 rows) and writes 88 B plus its share of one ray-count
-// atomic per warp, about 180 B per lane per iteration; at 640k lanes that is
-// ~115 MB, ~35 us at 3.35 TB/s.  The cost is the arithmetic of the sweeps
-// (8 Cornell prims, twice with the shadow ray) and the shading, executed
-// under register pressure and divergence: the lanes of a warp take
-// different material branches, miss or hit, and regenerate at different
-// iterations, so a warp runs the union of its lanes' branches.  In hybrid
-// mode on a scene of hundreds of prims or more the sweeps dominate.
+// What bounded the per-iteration design on this card: the carry and the
+// launches.  A launch ran one iteration of every lane: it read 17 f32 + 5
+// i32 rows of carry and wrote them back (~176 B a lane, 113 MB at 640k
+// lanes, 0.034 ms at 3.35 TB/s: 43% of the Cornell kernel's time at 1000
+// spp), every one of its 5000 blocks staged the tables behind a barrier,
+// the grid ran in ~6.3 waves with a ragged last one, and the host loop
+// paid 5920 launches and a termination read every 8 (10.5% of the wall
+// idle, 2.3% in the reads: PERF.md's profile).  Every lane was
+// scheduled until the slowest finished, so late launches ran mostly dead
+// warps.
 //
-// What the design does about it: both sweeps walk each plan group's blocks
-// as the split kernels do (walk_blocks: the reference's _block_active cull
-// per block, and for groups of TWO_LEVEL_MIN blocks or more the hierarchy of
+// What the persistent design does about it: a thread's next iteration is
+// the same code on the same values in the same lane, so the path never
+// leaves the registers.  The grid is what stays resident (the occupancy
+// calculator's blocks per SM, times the SMs); each block stages its tables
+// once; thread g starts on lane g and, when its lane has run all its
+// samples, writes the lane's 3 accumulated floats and pulls the next lane
+// index from a device counter (lanes in index order, so a warp starts on
+// 32 neighbouring pixels of a tile row).  Global memory sees 4 B of pixel
+// id in and 12 B out per lane, one counter atomic per lane and one
+// ray-count atomic per warp.  Every draw is keyed by (pixel, sample,
+// depth) and one thread adds a lane's samples in sample order, so image
+// and ray count equal the per-iteration loop's bit for bit.  The unit of
+// work is a whole lane (splitting a pixel's samples would reorder its sum),
+// so the cost is a tail: once the counter runs dry each thread finishes at
+// most one lane while its SM empties.  The kernel stamps the device clock
+// at its start, when the counter runs dry and at each warp's exit, so the
+// tail is measured (ops/mega_kernel.py::trace_tail).
+//
+// What bounds it now: operations under divergence.  The sweeps (8 Cornell
+// prims, twice with the shadow ray) and the shading run per lane under
+// register pressure; the lanes of a warp take different material branches,
+// miss or hit, and regenerate at different iterations, so a warp runs the
+// union of its lanes' branches; and the tail.  In hybrid mode on a scene of
+// hundreds of prims or more the sweeps dominate.  Tensor cores, wgmma and
+// TMA have no work here: there is no matrix product and the tables are at
+// most ~100 KB, staged once per resident block.
+//
+// The sweeps: both walk each plan group's blocks as the split kernels do
+// (walk_blocks: the reference's _block_active cull per block, and for groups
+// of TWO_LEVEL_MIN blocks or more the hierarchy of
 // ops/trace_kernel.py::augment_aabbs, which the reference's megakernel
 // passes to the same _nearest_hit / _occl_sweep); a scene of at most 8
 // blocks (Cornell, scenes 3 and 5) keeps the straight-line sweep without
@@ -47,18 +80,20 @@
 // exist only because Mosaic has no per-lane gather); each group's row loop
 // is instantiated for its prim type; the any-hit test returns at its first
 // hit; dead lanes skip the bounce; the material branches are real
-// branches, not the TPU's evaluate-all-and-select.  Carry rows keep the
-// reference's [rows, N] layout, so each row access is coalesced.
+// branches, not the TPU's evaluate-all-and-select.  The per-iteration
+// kernel's carry rows keep the reference's [rows, N] layout, so each row
+// access is coalesced.
 //
 // Shared memory: the upper nodes, the plan and the hier rows always.  The
 // props table, the volume slots and the block AABBs join them, read as
 // warp-wide broadcasts, while everything together fits TABLES_SHARED_MAX of
 // ops/mega_kernel.py (100 KB: two blocks an SM; Cornell 40 x 49 floats, 7.8
-// KB; scene 1 640 x 25, 64 KB); a larger scene (2560 rows x 25 floats are 256 KB, over the
-// card's 227 KB a block) reads those three from global memory through the
-// L1/L2 instead of failing at launch.  MegaParams::tables_shared carries
-// the wrapper's decision, one byte count.  Persistent blocks, sorting lanes
-// by material and wgmma/TMA are left for later work.
+// KB; scene 1 640 x 25, 64 KB); a larger scene (2560 rows x 25 floats are
+// 256 KB, over the card's 227 KB a block) reads those three from global
+// memory through the L1/L2 instead of failing at launch.
+// MegaParams::tables_shared carries the wrapper's decision, one byte count.
+// Sorting lanes by material would take the path out of the registers
+// again; it is left for later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,6 +105,18 @@ using namespace rtw;
 namespace {
 
 constexpr int kBlock = 128;
+
+// The persistent kernel's threads a block and its __launch_bounds__ minimum
+// of blocks an SM.  256 threads, at least 4 blocks an SM (64 registers a
+// thread, 32 resident warps an SM) was the fastest of 128/none, 128/8,
+// 256/none and 256/4 on Cornell at 1000 spp (305.0/306.3 ms a render
+// against 310.8/310.6 for 128/none, which holds 72 registers and 28 warps)
+// and faster than 128/none on scene 3 (2.82-3.13 ms against 3.13-3.25) and
+// the 16384-sphere field (42.7-43.2 against 49.7-49.9; 128/none's walk
+// instantiation needs 94 registers, 20 warps), on an NVIDIA H100 80GB HBM3
+// at 700.00 W (PERF.md).
+constexpr int kTraceBlock = 256;
+constexpr int kTraceMinBlocks = 4;
 
 // carry layout (rtw_tpu_torch/ops/mega_kernel.py)
 constexpr int F_ORG = 0, F_DIR = 3, F_THR = 6, F_RAD = 9, F_ACC = 12,
@@ -110,6 +157,7 @@ struct MegaParams {
   int n_blocks, n_nodes;   // rows of the AABB table: blocks, upper nodes
   int walk;                // walk the blocks with culls (more than 8 blocks)
   int tables_shared;       // props, volume slots and block AABBs in smem
+  int s0;                  // first sample of a fresh lane (mega_trace)
 };
 
 namespace {
@@ -248,30 +296,95 @@ __device__ __forceinline__ float scrub(float x) {
   return (x == x && fabsf(x) < 3.0e37f) ? x : 0.0f;
 }
 
-// One wavefront iteration of lane i; returns the rays it traced.
+// One lane's path: the carry's rows, held in registers.
+struct Lane {
+  V3 org, dir, thr, rad, acc;
+  float time, prev_pdf;
+  bool alive, prevd;
+  int depth, sample, pixel;
+};
+
+// Lane i of the carry [rows, n].
+__device__ __forceinline__ Lane load_lane(int i, int n,
+                                          const float* __restrict__ sf,
+                                          const int* __restrict__ si) {
+  Lane l;
+  l.org = {sf[(F_ORG + 0) * n + i], sf[(F_ORG + 1) * n + i],
+           sf[(F_ORG + 2) * n + i]};
+  l.dir = {sf[(F_DIR + 0) * n + i], sf[(F_DIR + 1) * n + i],
+           sf[(F_DIR + 2) * n + i]};
+  l.thr = {sf[(F_THR + 0) * n + i], sf[(F_THR + 1) * n + i],
+           sf[(F_THR + 2) * n + i]};
+  l.rad = {sf[(F_RAD + 0) * n + i], sf[(F_RAD + 1) * n + i],
+           sf[(F_RAD + 2) * n + i]};
+  l.acc = {sf[(F_ACC + 0) * n + i], sf[(F_ACC + 1) * n + i],
+           sf[(F_ACC + 2) * n + i]};
+  l.time = sf[F_TIME * n + i];
+  l.prev_pdf = sf[F_PPDF * n + i];
+  l.alive = si[I_ALIVE * n + i] > 0;
+  l.prevd = si[I_PREVD * n + i] > 0;
+  l.depth = si[I_DEPTH * n + i];
+  l.sample = si[I_SAMPLE * n + i];
+  l.pixel = si[I_PIXEL * n + i];
+  return l;
+}
+
+__device__ __forceinline__ void store_lane(int i, int n, const Lane& l,
+                                           float* __restrict__ osf,
+                                           int* __restrict__ osi) {
+  osf[(F_ORG + 0) * n + i] = l.org.x;
+  osf[(F_ORG + 1) * n + i] = l.org.y;
+  osf[(F_ORG + 2) * n + i] = l.org.z;
+  osf[(F_DIR + 0) * n + i] = l.dir.x;
+  osf[(F_DIR + 1) * n + i] = l.dir.y;
+  osf[(F_DIR + 2) * n + i] = l.dir.z;
+  osf[(F_THR + 0) * n + i] = l.thr.x;
+  osf[(F_THR + 1) * n + i] = l.thr.y;
+  osf[(F_THR + 2) * n + i] = l.thr.z;
+  osf[(F_RAD + 0) * n + i] = l.rad.x;
+  osf[(F_RAD + 1) * n + i] = l.rad.y;
+  osf[(F_RAD + 2) * n + i] = l.rad.z;
+  osf[(F_ACC + 0) * n + i] = l.acc.x;
+  osf[(F_ACC + 1) * n + i] = l.acc.y;
+  osf[(F_ACC + 2) * n + i] = l.acc.z;
+  osf[F_TIME * n + i] = l.time;
+  osf[F_PPDF * n + i] = l.prev_pdf;
+  osi[I_ALIVE * n + i] = l.alive ? 1 : 0;
+  osi[I_PREVD * n + i] = l.prevd ? 1 : 0;
+  osi[I_DEPTH * n + i] = l.depth;
+  osi[I_SAMPLE * n + i] = l.sample;
+  osi[I_PIXEL * n + i] = l.pixel;
+}
+
+// A lane before its first iteration (ops/mega_kernel.py::init_carry): dead,
+// its sample cursor at s0, so the first step regenerates it.
+__device__ __forceinline__ Lane fresh_lane(int pixel, int s0) {
+  Lane l;
+  l.org = l.dir = l.thr = l.rad = l.acc = {0.0f, 0.0f, 0.0f};
+  l.time = 0.0f;
+  l.prev_pdf = 1.0f;
+  l.alive = l.prevd = false;
+  l.depth = 0;
+  l.sample = s0;
+  l.pixel = pixel;
+  return l;
+}
+
+// One wavefront iteration of a lane, on registers only; returns the rays it
+// traced.
 template <bool kHybrid, bool kWalk>
-__device__ unsigned lane_step(int i, int n, const float* __restrict__ sf,
-                              const int* __restrict__ si, const Tables& tb,
-                              float* __restrict__ osf, int* __restrict__ osi,
-                              const MegaParams& p) {
+__device__ __forceinline__ unsigned lane_step(Lane& lane, const Tables& tb,
+                                              const MegaParams& p) {
   const float* f = p.f;
-  V3 org = {sf[(F_ORG + 0) * n + i], sf[(F_ORG + 1) * n + i],
-            sf[(F_ORG + 2) * n + i]};
-  V3 dir = {sf[(F_DIR + 0) * n + i], sf[(F_DIR + 1) * n + i],
-            sf[(F_DIR + 2) * n + i]};
-  V3 thr = {sf[(F_THR + 0) * n + i], sf[(F_THR + 1) * n + i],
-            sf[(F_THR + 2) * n + i]};
-  V3 rad = {sf[(F_RAD + 0) * n + i], sf[(F_RAD + 1) * n + i],
-            sf[(F_RAD + 2) * n + i]};
-  V3 acc = {sf[(F_ACC + 0) * n + i], sf[(F_ACC + 1) * n + i],
-            sf[(F_ACC + 2) * n + i]};
-  float time = sf[F_TIME * n + i];
-  float prev_pdf = sf[F_PPDF * n + i];
-  bool alive = si[I_ALIVE * n + i] > 0;
-  bool prevd = si[I_PREVD * n + i] > 0;
-  int depth = si[I_DEPTH * n + i];
-  int sample = si[I_SAMPLE * n + i];
-  int pixel = si[I_PIXEL * n + i];
+  V3 org = lane.org, dir = lane.dir, thr = lane.thr, rad = lane.rad,
+     acc = lane.acc;
+  float time = lane.time;
+  float prev_pdf = lane.prev_pdf;
+  bool alive = lane.alive;
+  bool prevd = lane.prevd;
+  int depth = lane.depth;
+  int sample = lane.sample;
+  int pixel = lane.pixel;
 
   uint32_t pk = pcg(pcg(p.h0 + (uint32_t)sample) + (uint32_t)pixel);
   unsigned rays = 0;
@@ -467,28 +580,17 @@ __device__ unsigned lane_step(int i, int n, const float* __restrict__ sf,
     depth += 1;   // a dead lane's iteration changes only its depth
   }               // (hybrid: a dead lane keeps its path's length)
 
-  osf[(F_ORG + 0) * n + i] = org.x;
-  osf[(F_ORG + 1) * n + i] = org.y;
-  osf[(F_ORG + 2) * n + i] = org.z;
-  osf[(F_DIR + 0) * n + i] = dir.x;
-  osf[(F_DIR + 1) * n + i] = dir.y;
-  osf[(F_DIR + 2) * n + i] = dir.z;
-  osf[(F_THR + 0) * n + i] = thr.x;
-  osf[(F_THR + 1) * n + i] = thr.y;
-  osf[(F_THR + 2) * n + i] = thr.z;
-  osf[(F_RAD + 0) * n + i] = rad.x;
-  osf[(F_RAD + 1) * n + i] = rad.y;
-  osf[(F_RAD + 2) * n + i] = rad.z;
-  osf[(F_ACC + 0) * n + i] = acc.x;
-  osf[(F_ACC + 1) * n + i] = acc.y;
-  osf[(F_ACC + 2) * n + i] = acc.z;
-  osf[F_TIME * n + i] = time;
-  osf[F_PPDF * n + i] = prev_pdf;
-  osi[I_ALIVE * n + i] = still ? 1 : 0;
-  osi[I_PREVD * n + i] = prevd ? 1 : 0;
-  osi[I_DEPTH * n + i] = depth;
-  osi[I_SAMPLE * n + i] = sample;
-  osi[I_PIXEL * n + i] = pixel;
+  lane.org = org;
+  lane.dir = dir;
+  lane.thr = thr;
+  lane.rad = rad;
+  lane.acc = acc;
+  lane.time = time;
+  lane.prev_pdf = prev_pdf;
+  lane.alive = still;
+  lane.prevd = prevd;
+  lane.depth = depth;
+  lane.sample = sample;
   return rays;
 }
 
@@ -531,6 +633,7 @@ __device__ __forceinline__ Tables stage(const float* props, const int* plan,
   return {props, vol_slot, aabbs, s_nodes, s_plan, s_hier};
 }
 
+// One wavefront iteration per launch: load -> step -> store.
 template <bool kHybrid, bool kShared, bool kWalk>
 __global__ void __launch_bounds__(kBlock)
     mega_kernel(const float* __restrict__ sf, const int* __restrict__ si,
@@ -545,11 +648,76 @@ __global__ void __launch_bounds__(kBlock)
 
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned r = 0;
-  if (i < n) r = lane_step<kHybrid, kWalk>(i, n, sf, si, tb, osf, osi, p);
+  if (i < n) {
+    Lane lane = load_lane(i, n, sf, si);
+    r = lane_step<kHybrid, kWalk>(lane, tb, p);
+    store_lane(i, n, lane, osf, osi);
+  }
   // every thread of the (full) block reaches here: warp sum, one atomic
   r = __reduce_add_sync(0xffffffffu, r);
   if ((threadIdx.x & 31) == 0 && r != 0)
     atomicAdd(rays, (unsigned long long)r);
+}
+
+__device__ __forceinline__ unsigned long long clock_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The persistent kernel's scratch (int64 [4], zeroed by the wrapper): the
+// lane counter, then the device clock (ns) at the first block's start
+// (stored inverted, so one atomicMax over zeroed memory takes the minimum),
+// when the counter ran dry (lane n drawn), and at the last warp's exit.
+constexpr int S_NEXT = 0, S_START_INV = 1, S_DRY = 2, S_END = 3;
+
+// One launch per render: each thread holds one lane's path in registers and
+// steps it while it is alive or has samples left; then it writes the lane's
+// accumulated radiance (acc [3, n]) and pulls the next lane index.  One
+// loop, one step per trip: a thread that changes lanes does so between two
+// steps, so the warp reconverges at every step.
+template <bool kShared, bool kWalk>
+__global__ void __launch_bounds__(kTraceBlock, kTraceMinBlocks)
+    mega_trace_kernel(const int* __restrict__ pixel_idx,
+                      const float* __restrict__ props,
+                      const int* __restrict__ plan,
+                      const float* __restrict__ aabbs,
+                      const int* __restrict__ hier,
+                      const int* __restrict__ vol_slot,
+                      float* __restrict__ acc,
+                      unsigned long long* __restrict__ rays,
+                      unsigned long long* __restrict__ scratch, int n,
+                      MegaParams p) {
+  extern __shared__ float smem[];
+  Tables tb =
+      stage<kShared, kWalk>(props, plan, aabbs, hier, vol_slot, p, smem);
+  if (threadIdx.x == 0) atomicMax(scratch + S_START_INV, ~clock_ns());
+
+  const int stride = gridDim.x * blockDim.x;
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i == n) scratch[S_DRY] = clock_ns();    // fewer lanes than threads
+  unsigned long long r = 0;
+  Lane lane;
+  if (i < n) lane = fresh_lane(pixel_idx[i], p.s0);
+  while (i < n) {
+    if (!lane.alive && lane.sample >= p.s_end) {     // the lane is done
+      acc[i] = lane.acc.x;
+      acc[n + i] = lane.acc.y;
+      acc[2 * n + i] = lane.acc.z;
+      i = stride + (int)atomicAdd(scratch + S_NEXT, 1ull);
+      if (i == n) scratch[S_DRY] = clock_ns();
+      if (i >= n) break;
+      lane = fresh_lane(pixel_idx[i], p.s0);
+    }
+    r += lane_step<false, kWalk>(lane, tb, p);
+  }
+  // every thread of the (full) block reaches here: warp sum, one atomic
+  for (int off = 16; off > 0; off >>= 1)
+    r += __shfl_xor_sync(0xffffffffu, r, off);
+  if ((threadIdx.x & 31) == 0) {
+    if (r != 0) atomicAdd(rays, r);
+    atomicMax(scratch + S_END, clock_ns());
+  }
 }
 
 // Bytes of the tables: those always in shared memory, and those that join
@@ -563,6 +731,14 @@ size_t smem_bytes(const MegaParams& p) {
   return 4 * words;
 }
 
+// Opt a kernel in to more than 48 KB of dynamic shared memory.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 template <bool kHybrid, bool kShared, bool kWalk>
 int launch(const float* sf, const int* si, const float* props,
            const int* plan, const float* aabbs, const int* hier,
@@ -570,15 +746,74 @@ int launch(const float* sf, const int* si, const float* props,
            unsigned long long* rays, int n, const MegaParams& p,
            cudaStream_t stream) {
   size_t smem = smem_bytes(p);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        mega_kernel<kHybrid, kShared, kWalk>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  cudaError_t e = allow_smem(mega_kernel<kHybrid, kShared, kWalk>, smem);
+  if (e != cudaSuccess) return (int)e;
   int blocks = (n + kBlock - 1) / kBlock;
   mega_kernel<kHybrid, kShared, kWalk><<<blocks, kBlock, smem, stream>>>(
       sf, si, props, plan, aabbs, hier, vol_slot, osf, osi, rays, n, p);
+  return (int)cudaGetLastError();
+}
+
+// The resident grid of one persistent instantiation: blocks an SM from the
+// occupancy calculator at this dynamic shared memory, and the SM count,
+// computed once for each (device, shared memory) the instantiation meets.
+struct Residency {
+  int device = -1;
+  size_t smem = 0;
+  int blocks_per_sm = 0, sms = 0, regs = 0, local_bytes = 0;
+};
+
+template <bool kShared, bool kWalk>
+cudaError_t residency(size_t smem, Residency* out) {
+  static Residency cached;
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (cached.device != dev || cached.smem != smem) {
+    auto kernel = mega_trace_kernel<kShared, kWalk>;
+    Residency r;
+    r.device = dev;
+    r.smem = smem;
+    if ((e = allow_smem(kernel, smem)) != cudaSuccess) return e;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &r.blocks_per_sm, kernel, kTraceBlock, smem)) != cudaSuccess)
+      return e;
+    if ((e = cudaDeviceGetAttribute(&r.sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+      return e;
+    cudaFuncAttributes attr;
+    if ((e = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return e;
+    r.regs = attr.numRegs;
+    r.local_bytes = (int)attr.localSizeBytes;
+    if (r.blocks_per_sm < 1) return cudaErrorInvalidConfiguration;
+    cached = r;
+  }
+  *out = cached;
+  return cudaSuccess;
+}
+
+template <bool kShared, bool kWalk>
+int launch_trace(const int* pixel_idx, const float* props, const int* plan,
+                 const float* aabbs, const int* hier, const int* vol_slot,
+                 float* acc, unsigned long long* rays,
+                 unsigned long long* scratch, int n, const MegaParams& p,
+                 cudaStream_t stream, int* info) {
+  size_t smem = smem_bytes(p);
+  Residency r;
+  cudaError_t e = residency<kShared, kWalk>(smem, &r);
+  if (e != cudaSuccess) return (int)e;
+  long long resident = (long long)r.blocks_per_sm * r.sms;
+  long long needed = (n + kTraceBlock - 1) / kTraceBlock;
+  int grid = (int)(resident < needed ? resident : needed);
+  info[0] = r.blocks_per_sm;
+  info[1] = r.sms;
+  info[2] = grid;
+  info[3] = kTraceBlock;
+  info[4] = r.regs;
+  info[5] = r.local_bytes;
+  mega_trace_kernel<kShared, kWalk><<<grid, kTraceBlock, smem, stream>>>(
+      pixel_idx, props, plan, aabbs, hier, vol_slot, acc, rays, scratch, n,
+      p);
   return (int)cudaGetLastError();
 }
 
@@ -605,6 +840,29 @@ extern "C" int rtw_mega_step(const float* sf, const int* si,
                   (p.walk ? 1 : 0)];
   return fn(sf, si, props, plan, aabbs, hier, vol_slot, osf, osi, rays, n, p,
             (cudaStream_t)stream);
+}
+
+// One persistent mega_trace launch on `stream`: every lane of pixel_idx [n]
+// from sample p.s0 to p.s_end, its radiance sum into acc [3, n], its rays
+// into `rays`; `scratch` int64 [4] zeroed.  info[6] receives blocks an SM,
+// SMs, grid, threads a block, registers and local (spill) bytes a thread.
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int rtw_mega_trace(const int* pixel_idx, const float* props,
+                              const int* plan, const float* aabbs,
+                              const int* hier, const int* vol_slot,
+                              float* acc, unsigned long long* rays,
+                              unsigned long long* scratch, int n,
+                              MegaParams p, void* stream, int* info) {
+  if (n <= 0) return 0;
+  // one instantiation per (tables shared, walk)
+  using Launch = decltype(&launch_trace<false, false>);
+  const Launch table[4] = {launch_trace<false, false>,
+                           launch_trace<false, true>,
+                           launch_trace<true, false>,
+                           launch_trace<true, true>};
+  auto fn = table[(p.tables_shared ? 2 : 0) + (p.walk ? 1 : 0)];
+  return fn(pixel_idx, props, plan, aabbs, hier, vol_slot, acc, rays, scratch,
+            n, p, (cudaStream_t)stream, info);
 }
 
 extern "C" const char* rtw_error_string(int code) {

@@ -10,9 +10,9 @@ chain (so all trace the same paths):
   traces through the split kernels (ops/trace_kernel.trace and
   occluded_kernel) when `_split_backend` holds: on a CUDA scene of 128 or
   more prims.
-- `trace_wavefront_mega`: a loop of `mega_kernel.mega_step` launches, one
-  whole wavefront iteration each; on a CUDA scene that is the hand-written
-  CUDA megakernel.
+- `trace_wavefront_mega`: `mega_kernel.mega_trace`, the whole pixel batch
+  and spp chunk in one launch of the hand-written persistent CUDA
+  megakernel on a CUDA scene (its plain twin on a CPU scene).
 - `trace_wavefront_qmega` (`scheduler="qmega"`, opt-in): the work queue
   with the whole bounce in one launch of the megakernel's hybrid mode.
 
@@ -47,7 +47,7 @@ from rtw_tpu_torch.utils import rng as R
 # stops below it.
 SPLIT_TIER_PRIMS = 128
 
-# The card's loops (trace_wavefront_mega, _queue, _qmega) read their
+# The card's loops (trace_wavefront_queue, _qmega) read their
 # termination test once per this many iterations: each read is a host sync,
 # and an iteration past the end is exact (it changes nothing a result
 # reads).
@@ -345,28 +345,19 @@ def trace_wavefront(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
 
 def trace_wavefront_mega(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
                          n_samples: int):
-    """Regenerating wavefront with the whole iteration in one launch
-    (ops/mega_kernel.mega_step), driven by a host loop.
-
-    The termination test (some lane alive, or some sample cursor short of
-    s_end) is read on the host once every `_CHECK_EVERY` launches: one sync
-    per check.  That is exact: a launch after every lane is finished
-    changes nothing but the dead lanes' depth, which regeneration resets.
-    Rays are counted on the device in int64."""
+    """Regenerating wavefront with every lane's whole path in the
+    megakernel: one `mega_kernel.mega_trace` call for the pixel batch and
+    the samples [s0, s0 + n_samples).  On the card that is one launch of
+    the persistent kernel, with no host loop and no termination read; the
+    set-up before it (the tables, the launch parameters) copies between
+    host and device.  Rays are counted on the device in int64."""
     from rtw_tpu_torch.ops import mega_kernel as MK
 
-    s_end = s0 + n_samples
-    sf, si = MK.init_carry(pixel_idx.to(scene.device), s0)
-    params = MK.mega_params(scene, seed, cfg, s_end)
+    params = MK.mega_params(scene, seed, cfg, s0 + n_samples, s0)
+    pixel_idx = pixel_idx.to(device=scene.device, dtype=torch.int32)
     rays = torch.zeros(1, dtype=torch.int64, device=scene.device)
-    while True:
-        for _ in range(_CHECK_EVERY):
-            sf, si = MK.mega_step(scene, cfg, sf, si, params, rays)
-        busy = (si[MK.I_ALIVE] > 0) | (si[MK.I_SAMPLE] < s_end)
-        if not bool(busy.any()):
-            break
-    accum = Vec3(sf[MK.F_ACC], sf[MK.F_ACC + 1], sf[MK.F_ACC + 2])
-    return accum, rays, ()
+    acc = MK.mega_trace(scene, cfg, pixel_idx.contiguous(), params, rays)
+    return Vec3(acc[0], acc[1], acc[2]), rays, ()
 
 
 def trace_wavefront_regen(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,

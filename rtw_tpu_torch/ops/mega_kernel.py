@@ -1,19 +1,42 @@
-"""Whole-bounce megakernel: one regenerating-wavefront iteration per launch
-(port of rtw_tpu/ops/mega_kernel.py).
+"""Whole-bounce megakernel (port of rtw_tpu/ops/mega_kernel.py, TPU kernel A
+at its pallas_call :387, and D, its hybrid mode at :437).
 
-`mega_step` runs one iteration on the carry: path hash, camera-ray
-regeneration of finished lanes, the fast-RNG bounce uniforms (the
+`mega_trace` renders a pixel batch over an spp chunk in one persistent
+launch: each thread of csrc/mega_kernel.cu::mega_trace_kernel holds one
+lane's path in registers and runs the lane step (path hash, camera-ray
+regeneration of a finished path, the fast-RNG bounce uniforms: the
 `NUM_FIXED_SLOTS` estimator slots, then a main-ray and a shadow-ray
-free-flight row per volume slot), nearest hit, checker albedo,
+free-flight row per volume slot; nearest hit, checker albedo,
 `bounce_core` with single-light NEE + MIS and the any-hit shadow test,
-Russian roulette, NaN scrub and sample accumulation.  `hybrid=True` is the
-reference's queue-scheduled mode (TPU kernel D, driven by
+Russian roulette, NaN scrub and sample accumulation) until the lane has
+run all its samples; then it writes the lane's accumulated radiance and
+pulls the next lane index from a device counter.  `mega_trace_plain` is
+the same function in plain torch: `mega_step_plain` until no lane is busy.
+
+`mega_step` runs one iteration of that step on a carry in global memory
+(csrc/mega_kernel.cu::mega_kernel): `hybrid=True` is the reference's
+queue-scheduled mode (TPU kernel D, driven by
 `integrator.trace_wavefront_qmega`): no regeneration and no accumulation,
-a dead lane's depth frozen, the flush left to the caller.  On CUDA tensors
-it launches the hand-written kernel of csrc/mega_kernel.cu (built by
-utils/kernels.py); on CPU tensors it runs `mega_step_plain`, the same
-function in plain torch on the same carry layout.  There is no fallback: a
-CUDA tensor gets the kernel or an error.
+a dead lane's depth frozen, the flush left to the caller.  Its plain twin
+is `mega_step_plain`, on the same carry layout.
+
+What bounded the per-iteration design (one `mega_step` launch per
+wavefront iteration, the render's former main path): the carry's bytes
+and the launches.  Each launch read and wrote 17 f32 + 5 i32 rows of carry
+(~176 B a lane: 0.034 ms at 640k lanes, 43% of the Cornell kernel's time),
+staged the tables in each of its 5000 blocks, and the host loop paid 5920
+launches and a termination read every 8 at 1000 spp.  What the persistent
+design does about it: the path stays in registers, the tables are staged
+once per resident block, and there is one launch and no host loop; the
+image and the ray count equal the loop's bit for bit (every draw is keyed
+by pixel, sample and depth, and one thread adds a lane's samples in sample
+order).  What bounds it now: the operations of the sweeps and the shading
+under divergence, and the tail (`trace_tail`): once the lane counter runs
+dry, each thread finishes at most one lane while its SM empties.
+
+On CUDA tensors the wrappers launch the hand-written kernels (built by
+utils/kernels.py); on CPU tensors they run the plain versions.  There is no
+fallback: a CUDA tensor gets the kernel or an error.
 
 The kernel's envelope is the reference's (`integrator._validate_mega`):
 fast RNG, at most one light, constant/checker textures, every prim type,
@@ -88,10 +111,17 @@ TABLES_SHARED_MAX = 100 * 1024
 # walks its blocks (csrc/geometry.cuh::walk_blocks).
 STRAIGHT_MAX_BLOCKS = 8
 
-# Launches of the CUDA kernel since import (or since a caller reset them):
-# regenerating mode (TPU kernel A) and hybrid mode (TPU kernel D).
+# Launches of the CUDA kernels since import (or since a caller reset them):
+# the per-iteration step in regenerating mode and in hybrid mode (TPU
+# kernel D), and the persistent render (TPU kernel A on the render path).
 launches = 0
 hybrid_launches = 0
+trace_launches = 0
+# The last persistent launch: its resident grid (`TRACE_INFO` keys) and its
+# scratch tensor on the card (lane counter and clock stamps; `trace_tail`).
+last_trace: dict = {}
+TRACE_INFO = ("blocks_per_sm", "sms", "grid", "block", "registers",
+              "local_bytes")
 # The bound kernel library, loaded by `library()` at the first launch.
 _lib: ctypes.CDLL | None = None
 
@@ -125,13 +155,14 @@ class _CParams(ctypes.Structure):
         ("n_nodes", ctypes.c_int32),
         ("walk", ctypes.c_int32),
         ("tables_shared", ctypes.c_int32),
+        ("s0", ctypes.c_int32),
     ]
 
 
 @dataclasses.dataclass
 class MegaParams:
     """Everything one render's launches share: the float row `parf`, the
-    path-hash base `h0` (one uint32), the sample end `s_end`, the volume
+    path-hash base `h0` (one uint32), the samples [s0, s_end), the volume
     slot count `n_vol` (max(scene.n_vol, 1)), the scene's tables (the
     split kernels' `SplitTables`: props, plan, AABB table with its
     hierarchy, hier rows, volume slots, on the scene's device), and the
@@ -139,27 +170,29 @@ class MegaParams:
 
     parf: np.ndarray          # float32 [PF]
     h0: int
+    s0: int
     s_end: int
     n_vol: int
     tables: TK.SplitTables
     c_params: _CParams
 
 
-def mega_params(scene: S.Scene, seed: int, cfg, s_end: int) -> MegaParams:
-    """Validate the envelope and assemble the launch parameters."""
+def mega_params(scene: S.Scene, seed: int, cfg, s_end: int,
+                s0: int = 0) -> MegaParams:
+    """Validate the envelope and assemble the launch parameters for the
+    samples [s0, s_end).  The camera and light rows reach the host in one
+    copy."""
     _validate_mega(cfg, scene)
     cam = scene.camera
     lt = scene.lights
-
-    def flat(t):
-        return t.detach().to("cpu", torch.float32).reshape(-1).numpy()
 
     parf = np.zeros(PF, np.float32)
     parts = [cam.origin, cam.lower_left, cam.horizontal, cam.vertical,
              cam.u, cam.v, cam.lens_radius, cam.time0, cam.time1,
              scene.sky_light, lt.position[0], lt.vec_u[0], lt.vec_v[0],
              lt.emission[0], lt.area[0], lt.normal[0]]
-    vals = np.concatenate([flat(p) for p in parts])
+    vals = torch.cat([p.detach().to(torch.float32).reshape(-1)
+                      for p in parts]).cpu().numpy()
     parf[:vals.size] = vals
 
     tables = TK.split_tables(scene)
@@ -189,7 +222,8 @@ def mega_params(scene: S.Scene, seed: int, cfg, s_end: int) -> MegaParams:
     c.walk = int(tables.n_blocks > STRAIGHT_MAX_BLOCKS)
     always, joined = table_bytes(c)
     c.tables_shared = int(always + joined <= TABLES_SHARED_MAX)
-    return MegaParams(parf=parf, h0=h0, s_end=s_end, n_vol=c.n_vol,
+    c.s0 = s0
+    return MegaParams(parf=parf, h0=h0, s0=s0, s_end=s_end, n_vol=c.n_vol,
                       tables=tables, c_params=c)
 
 
@@ -305,20 +339,20 @@ def mega_step_plain(scene: S.Scene, cfg, sf, si, params: MegaParams, rays,
     return sf2, si2
 
 
-def _check_tensors(sf, si, params: MegaParams, rays) -> int:
-    n = sf.shape[-1]
+def _check(named, params: MegaParams, device) -> None:
+    """Device, dtype, shape and contiguity of each (name, tensor, dtype,
+    shape) in `named` and of the scene's tables, and the tables' shared
+    memory against a block's."""
     c, tb = params.c_params, params.tables
-    for name, t, dtype, shape in (
-            ("sf", sf, torch.float32, (NF, n)),
-            ("si", si, torch.int32, (NI, n)),
+    for name, t, dtype, shape in (*named,
             ("props", tb.props, torch.float32, (c.n_props, c.kdim)),
             ("plan", tb.plan, torch.int32, (c.n_entries, TK.PLAN_COLS)),
             ("aabbs", tb.aabbs, torch.float32, (c.n_blocks + c.n_nodes, 8)),
             ("hier", tb.hier, torch.int32, (c.n_entries, TK.HIER_COLS)),
-            ("vol_slot", tb.vol_slot, torch.int32, (c.n_props,)),
-            ("rays", rays, torch.int64, (1,))):
-        if t.device != sf.device:
-            raise ValueError(f"{name} is on {t.device}, sf on {sf.device}")
+            ("vol_slot", tb.vol_slot, torch.int32, (c.n_props,))):
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, the lanes on "
+                             f"{device}")
         if t.dtype != dtype:
             raise TypeError(f"{name} has dtype {t.dtype}, needs {dtype}")
         if tuple(t.shape) != shape:
@@ -331,6 +365,13 @@ def _check_tensors(sf, si, params: MegaParams, rays) -> int:
     if need > TK.SMEM_MAX:
         raise ValueError(f"the kernel's tables take {need} bytes of shared "
                          f"memory, a block has {TK.SMEM_MAX}")
+
+
+def _check_tensors(sf, si, params: MegaParams, rays) -> int:
+    n = sf.shape[-1]
+    _check((("sf", sf, torch.float32, (NF, n)),
+            ("si", si, torch.int32, (NI, n)),
+            ("rays", rays, torch.int64, (1,))), params, sf.device)
     return n
 
 
@@ -371,6 +412,67 @@ def mega_step(scene: S.Scene, cfg, sf, si, params: MegaParams, rays,
     return osf, osi
 
 
+def mega_trace_plain(scene: S.Scene, cfg, pixel_idx, params: MegaParams,
+                     rays):
+    """`mega_trace` in plain torch: from the carry of `init_carry`,
+    `mega_step_plain` until no lane is alive or has samples left.  Returns
+    the accumulated radiance, float32 [3, N]."""
+    sf, si = init_carry(pixel_idx, params.s0)
+    while bool(((si[I_ALIVE] > 0) | (si[I_SAMPLE] < params.s_end)).any()):
+        sf, si = mega_step_plain(scene, cfg, sf, si, params, rays)
+    return sf[F_ACC:F_ACC + 3]
+
+
+def mega_trace(scene: S.Scene, cfg, pixel_idx, params: MegaParams, rays):
+    """Every lane of `pixel_idx` (int32 [N], one pixel a lane) over the
+    samples [params.s0, params.s_end): returns the accumulated radiance,
+    float32 [3, N], and adds the rays traced into the int64 [1] tensor
+    `rays`.
+
+    CPU tensors run `mega_trace_plain`; CUDA tensors make one launch of the
+    persistent kernel on the current stream (no synchronisation) or
+    raise."""
+    global trace_launches
+    if pixel_idx.device.type == "cpu":
+        return mega_trace_plain(scene, cfg, pixel_idx, params, rays)
+    if pixel_idx.device.type != "cuda":
+        raise ValueError(f"mega_trace runs on CPU or CUDA tensors, not "
+                         f"{pixel_idx.device}")
+    n = pixel_idx.shape[0]
+    _check((("pixel_idx", pixel_idx, torch.int32, (n,)),
+            ("rays", rays, torch.int64, (1,))), params, pixel_idx.device)
+    acc = torch.empty((3, n), dtype=torch.float32, device=pixel_idx.device)
+    scratch = torch.zeros(4, dtype=torch.int64, device=pixel_idx.device)
+    info = (ctypes.c_int * len(TRACE_INFO))()
+    lib = library()
+    tb = params.tables
+    with torch.cuda.device(pixel_idx.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rtw_mega_trace(pixel_idx.data_ptr(), tb.props.data_ptr(),
+                                 tb.plan.data_ptr(), tb.aabbs.data_ptr(),
+                                 tb.hier.data_ptr(), tb.vol_slot.data_ptr(),
+                                 acc.data_ptr(), rays.data_ptr(),
+                                 scratch.data_ptr(), n, params.c_params,
+                                 stream, info)
+    if err != 0:
+        raise RuntimeError(f"mega_trace kernel launch failed: "
+                           f"{lib.rtw_error_string(err).decode()} ({err})")
+    trace_launches += 1
+    last_trace.clear()
+    last_trace.update(zip(TRACE_INFO, info), scratch=scratch)
+    return acc
+
+
+def trace_tail(scratch) -> dict:
+    """The clock stamps of a persistent launch's scratch (`last_trace`'s),
+    read after the launch has ended: `kernel_ms` from the first block's
+    start to the last warp's exit, `tail_ms` from the moment the lane
+    counter ran dry (every lane handed out) to that exit."""
+    s = [int(v) for v in scratch.cpu()]
+    start, dry, end = ~s[1] & (2 ** 64 - 1), s[2], s[3]
+    return {"kernel_ms": (end - start) * 1e-6, "tail_ms": (end - dry) * 1e-6}
+
+
 def library() -> ctypes.CDLL:
     """csrc/mega_kernel.cu, built at first use and bound to its C
     interface."""
@@ -381,6 +483,10 @@ def library() -> ctypes.CDLL:
     lib.rtw_mega_step.restype = ctypes.c_int
     lib.rtw_mega_step.argtypes = [ctypes.c_void_p] * 10 + [
         ctypes.c_int, ctypes.c_int, _CParams, ctypes.c_void_p]
+    lib.rtw_mega_trace.restype = ctypes.c_int
+    lib.rtw_mega_trace.argtypes = [ctypes.c_void_p] * 9 + [
+        ctypes.c_int, _CParams, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int)]
     lib.rtw_error_string.restype = ctypes.c_char_p
     lib.rtw_error_string.argtypes = [ctypes.c_int]
     _lib = lib

@@ -87,10 +87,11 @@ def build_all(names) -> None:
 
 
 def ptxas_summary(name: str) -> str:
-    """The 'Used N registers' and spill lines of the build report."""
+    """The entry-function, 'Used N registers' and spill lines of the build
+    report (each kernel's mangled name, then its registers and spills)."""
     lines = build_log.get(name, "").splitlines()
     keep = [ln.strip() for ln in lines
-            if re.search(r"registers|spill", ln)]
+            if re.search(r"Compiling entry function|registers|spill", ln)]
     return "\n".join(keep) if keep else build_log.get(name, "")
 
 
