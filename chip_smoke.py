@@ -29,10 +29,19 @@ the port's paths through `render`:
   (the occlusion kernel), and the 16384 field with backend="mega" (the
   persistent kernel, against the loop as above) and scheduler="qmega";
 
-and checks that each path launched its kernels.  `--profile` adds a
-torch.profiler breakdown of one Cornell (at `--spp`), one scene-2, one
-scene-4 and one 65536-sphere field render.  Each
-phase prints one line; any failure raises, so the run exits non-zero and
+and checks that each path launched its kernels.  Beside them: the trace
+kernel on a scene of tied prims (equal spheres across and inside a block,
+coincident rects and boxes) against its plain version on every lane; the
+furnace cavity (6 lights, outside the megakernel's envelope) through
+scheduler="auto", which must render on the plain regen sweep with no
+kernel launched and meet tests/test_integrator.py's furnace bounds; per
+launch, each kernel's time beside the one read before the trace kernel's
+warps shared their sweeps (PERF.md) and, for the split kernels, the
+per-warp spread of the work their lanes need (the busiest lane's against
+the mean lane's, from the replay of the walk that gives the bound).
+`--profile` adds a torch.profiler breakdown of one Cornell (at `--spp`),
+one scene-2, one scene-4 and one 65536-sphere field render.  Each phase
+prints one line; any failure raises, so the run exits non-zero and
 prints no result.  With no CUDA device it exits 1.
 
 The line before the last is `nvidia-smi`'s name and power limit of the
@@ -98,6 +107,97 @@ SPLIT_BOXES = {0: ((0.0, 0.0, 0.0), (555.0, 555.0, 555.0)),
                # fog and its ground boxes' outer reach
                3: ((0.0, 0.0, 0.0), (555.0, 555.0, 555.0)),
                4: ((-100.0, 0.0, -25.0), (600.0, 555.0, 600.0))}
+
+
+# the tie scene's twin pairs: (centre, radius) of two equal spheres at rows
+# 63 and 64 of the sphere group (across the boundary of its 64-row blocks)
+# and of two at rows 65 and 66 (inside its second block)
+TWIN_CROSS = ((50.0, 50.0, 50.0), 6.0)
+TWIN_INSIDE = ((70.0, 70.0, 70.0), 4.0)
+
+
+def tie_scene(builder, scene_mod):
+    """Coincident and duplicated prims, built with `builder` (either
+    package's SceneBuilder) from the same calls.  The sphere group's
+    Morton order puts 63 spheres below the twins (every coordinate lower),
+    then the twin pair TWIN_CROSS (different materials: a tie whose winner
+    shows in the shading record), then TWIN_INSIDE (exact duplicates),
+    then 61 spheres above: 128 rows, two blocks.  Two coincident rects of
+    different materials and two duplicated boxes form small groups."""
+    b = builder()
+    grey = b.lambertian(b.constant_texture((0.5, 0.5, 0.5)))
+    red = b.lambertian(b.constant_texture((0.9, 0.1, 0.1)))
+    gold = b.metal(b.constant_texture((0.8, 0.6, 0.2)), 0.3)
+    rng = np.random.default_rng(11)
+    for c in rng.uniform(2.0, 30.0, (63, 3)):
+        b.sphere(c, 1.0, grey)
+    b.sphere(TWIN_CROSS[0], TWIN_CROSS[1], red)
+    b.sphere(TWIN_CROSS[0], TWIN_CROSS[1], gold)
+    b.sphere(TWIN_INSIDE[0], TWIN_INSIDE[1], grey)
+    b.sphere(TWIN_INSIDE[0], TWIN_INSIDE[1], grey)
+    for c in rng.uniform(80.0, 98.0, (61, 3)):
+        b.sphere(c, 1.0, grey)
+    b.rect(0.0, 100.0, 0.0, 100.0, -2.0, False, scene_mod.AXIS_Y, red)
+    b.rect(0.0, 100.0, 0.0, 100.0, -2.0, False, scene_mod.AXIS_Y, gold)
+    b.box((20.0, 40.0, 70.0), (30.0, 50.0, 80.0), red)
+    b.box((20.0, 40.0, 70.0), (30.0, 50.0, 80.0), gold)
+    b.set_camera((50.0, 50.0, -150.0), (50.0, 50.0, 50.0), (0, 1, 0), 40.0,
+                 1.0, 0.0, 1.0)
+    return b.build()
+
+
+def tie_rays(n, seed=3):
+    """Rays from random origins around the tie scene: a quarter each aimed
+    at the two twin pairs and an eighth each at the boxes and (from above)
+    at the floor rects, with jitter, and a quarter in random directions;
+    every 8th lane dead (tmax -1e30).  Float32 (o [3, n], d [3, n], tmax
+    [n])."""
+    rng = np.random.default_rng(seed)
+    q, e = n // 4, n // 8
+    o = rng.uniform(-60.0, 160.0, (n, 3))
+    o[2 * q + e:3 * q, 1] = np.abs(o[2 * q + e:3 * q, 1]) + 1.0
+    targets = np.concatenate([
+        np.tile(TWIN_CROSS[0], (q, 1)), np.tile(TWIN_INSIDE[0], (q, 1)),
+        np.tile((25.0, 45.0, 75.0), (e, 1)),
+        rng.uniform(0.0, 100.0, (q - e, 3)) * (1, 0, 1) + (0, -2, 0)])
+    d = np.concatenate([targets + rng.normal(0.0, 2.0, targets.shape)
+                        - o[:3 * q], rng.normal(size=(n - 3 * q, 3))])
+    tmax = np.where(np.arange(n) % 8 == 7, -1e30, 1e27)
+    return tuple(np.ascontiguousarray(a.T.astype(np.float32))
+                 for a in (o, d, tmax))
+
+
+CAVITY_L = 0.7
+
+
+def furnace_cavity():
+    """tests/test_integrator.py::test_furnace_cavity_exact's scene with the
+    port's builder, on the CPU: an albedo-1 sphere inside six walls that
+    each emit CAVITY_L and are each a registered light (7 prims, 6
+    lights: outside the megakernel's envelope)."""
+    from rtw_tpu_torch.models import scene as TS
+    from rtw_tpu_torch.models.builder import SceneBuilder
+
+    b = SceneBuilder()
+    lt = b.constant_texture((CAVITY_L,) * 3)
+    lm = b.diffuse_light(lt)
+    b.sphere((0.0, 0.0, 0.0), 1.0,
+             b.lambertian(b.constant_texture((1.0, 1.0, 1.0))))
+    h = 5.0
+    for axis in (TS.AXIS_Z, TS.AXIS_Y, TS.AXIS_X):   # normals face inward
+        b.rect(-h, h, -h, h, -h, False, axis, lm)
+        b.rect(-h, h, -h, h, h, True, axis, lm)
+    for axis, k, u, v in [(2, -h, (2 * h, 0, 0), (0, 2 * h, 0)),
+                          (2, h, (2 * h, 0, 0), (0, 2 * h, 0)),
+                          (1, -h, (2 * h, 0, 0), (0, 0, 2 * h)),
+                          (1, h, (2 * h, 0, 0), (0, 0, 2 * h)),
+                          (0, -h, (0, 2 * h, 0), (0, 0, 2 * h)),
+                          (0, h, (0, 2 * h, 0), (0, 0, 2 * h))]:
+        pos = [-h, -h, -h]
+        pos[axis] = k
+        b.add_light(tuple(pos), u, v, (CAVITY_L,) * 3, tex=lt)
+    b.set_camera((0, 0, 4.0), (0, 0, 0), (0, 1, 0), 40, 1.0, 0.0, 1.0)
+    return b.build()
 
 
 def _run(cmd: list[str]) -> str:
@@ -368,7 +468,7 @@ def _mega_bound(scene, sf, si, params, walk_only=False):
                     for e in scene.chunk_plan)
         sweeps = 1 + (scene.num_lights > 0)
         return _bound(n_bytes, n_alive * (sweeps * sweep + 300))
-    walk = _split_work(
+    walk, _ = _split_work(
         scene, params.tables, Vec3(*sf[MK.F_ORG:MK.F_ORG + 3]),
         Vec3(*sf[MK.F_DIR:MK.F_DIR + 3]), params.c_params.tmin,
         torch.where(alive, params.c_params.tmax, -BIG), sf[MK.F_TIME],
@@ -650,15 +750,17 @@ def _bound(n_bytes, n_flops):
 
 
 def _split_work(scene, tables, o, d, tmin, tmax, time, vol_u, nearest):
-    """f32 operations the split kernel needs for these rays, counted by
-    replaying its walk (csrc/geometry.cuh::walk_blocks) in plain torch.
-    Only live lanes (tmax > tmin) count: a dead lane's answer (a miss, not
-    occluded) needs no test.  Each lane's slab test of each upper node and
-    each block it reaches, the prim tests of the blocks it cannot cull (the
-    nearest-hit cull tightens with the best t so far; an any-hit lane stops
-    at its first hit), and the payload of each lane that hits.  A group
-    under the hierarchy's threshold has no upper nodes: every walking lane
-    tests every block's box, as before the hierarchy."""
+    """(f32 operations, per-lane counts): what the split kernel needs for
+    these rays, counted by replaying its walk (csrc/geometry.cuh) in plain
+    torch.  Only live lanes (tmax > tmin) count: a dead lane's answer (a
+    miss, not occluded) needs no test.  Each lane's slab test of each upper
+    node and each block it reaches, the prim tests of the blocks it cannot
+    cull (the nearest-hit cull tightens with the best t so far; an any-hit
+    lane stops at its first hit), and the payload of each lane that hits.
+    A group under the hierarchy's threshold has no upper nodes: every
+    walking lane tests every block's box, as before the hierarchy.  The
+    per-lane counts (int64 [N] each): "tests" (prim tests), "sweeps"
+    (blocks swept) and "slabs" (slab tests), for `_warp_spread`."""
     from rtw_tpu_torch.ops import intersect as I
     from rtw_tpu_torch.ops.vec import Vec3
 
@@ -671,6 +773,8 @@ def _split_work(scene, tables, o, d, tmin, tmax, time, vol_u, nearest):
     walking = live.clone()            # any-hit: lanes without a hit so far
     inv = [1.0 / torch.where(c == 0.0, 1e-30, c) for c in d]
     flops = torch.zeros((), dtype=torch.int64, device=dev)
+    lanes = {k: torch.zeros(n, dtype=torch.int64, device=dev)
+             for k in ("tests", "sweeps", "slabs")}
     prims = scene.prims
 
     def box_ok(row):
@@ -695,10 +799,10 @@ def _split_work(scene, tables, o, d, tmin, tmax, time, vol_u, nearest):
             for lv in range(levels, 0, -1):
                 if b % (16 ** lv) == 0:   # a node of this level begins here
                     came = inside[lv + 1] & walking
-                    flops += SLAB_FLOPS * came.sum()
+                    lanes["slabs"] += came
                     inside[lv] = came & box_ok(hr[2 + lv] + b // 16 ** lv)
             came = inside[1] & walking
-            flops += SLAB_FLOPS * came.sum()
+            lanes["slabs"] += came
             idx = torch.nonzero(came & box_ok(first + b))[:, 0]
             if idx.numel() == 0:
                 continue
@@ -711,28 +815,55 @@ def _split_work(scene, tables, o, d, tmin, tmax, time, vol_u, nearest):
                 Vec3(*(c[idx] for c in d)), tmin, tmax[idx], time[idx],
                 vol_u[:, idx],
                 torch.ones(rows, dtype=torch.bool, device=dev))
+            lanes["sweeps"][idx] += 1
             if nearest:
+                lanes["tests"][idx] += rows
                 flops += per * rows * idx.numel()
                 best[idx] = torch.minimum(best[idx], t_mat.min(dim=0).values)
             else:
                 hits = t_mat < I.BIG
                 hit = hits.any(0)
-                flops += per * torch.where(hit, hits.int().argmax(0) + 1,
-                                           rows).sum()
+                tested = torch.where(hit, hits.int().argmax(0) + 1, rows)
+                lanes["tests"][idx] += tested
+                flops += per * tested.sum()
                 walking[idx[hit]] = False
+    flops += SLAB_FLOPS * lanes["slabs"].sum()
     if nearest:
         flops += PAYLOAD_FLOPS * (best < I.BIG).sum()
-    return int(flops)
+    return int(flops), lanes
+
+
+def _warp_spread(counts):
+    """(busiest, mean): a per-lane count summed over 32-lane warps, each
+    warp taking its busiest lane's count or its mean lane's (lanes past N
+    count 0, as the kernel's idle threads)."""
+    per_warp = torch.nn.functional.pad(counts, (0, -counts.numel() % 32))
+    per_warp = per_warp.view(-1, 32).double()
+    return (float(per_warp.max(1).values.sum()),
+            float(per_warp.mean(1).sum()))
+
+
+def _divergence_report(lanes):
+    """The replay's per-warp spread: prim tests, block sweeps and slab
+    tests of the busiest and of the mean lane, summed over warps."""
+    parts = []
+    for k in ("tests", "sweeps", "slabs"):
+        busy, mean = _warp_spread(lanes[k])
+        parts.append(f"{k} busiest {busy:.0f} mean {mean:.1f} "
+                     f"(x{busy / max(mean, 1e-9):.3f})")
+    return "per warp, summed: " + ", ".join(parts)
 
 
 def _split_bound(scene, tables, args, nearest):
-    """Bound of one launch: each ray's 32 B in and its 104 B (trace) or 1 B
-    (occluded) out, the tables read once; the operations of _split_work."""
+    """(bound ms, "bytes" or "operations", per-lane counts) of one launch:
+    each ray's 32 B in and its 104 B (trace) or 1 B (occluded) out, the
+    tables read once; the operations of _split_work."""
     n = args[0].x.shape[0]
     n_bytes = (32 + (104 if nearest else 1)) * n + sum(
         t.numel() * t.element_size()
         for t in (tables.props, tables.plan, tables.aabbs))
-    return _bound(n_bytes, _split_work(scene, tables, *args, nearest))
+    flops, lanes = _split_work(scene, tables, *args, nearest)
+    return (*_bound(n_bytes, flops), lanes)
 
 
 def _split_rays(sid, scene, n, seed):
@@ -856,7 +987,65 @@ def phase_split_kernels():
                                      (o, d, 5e-5, occ_tmax, time, occ_u))
         worst["occluded"] = max(worst["occluded"], err)
         print(f"[6 split kernels] {rep}", flush=True)
+    err, rep = _compare_trace("B tie scene", *_tie_inputs(), min_equal=1.0)
+    worst["trace"] = max(worst["trace"], err)
+    print(f"[6 split kernels] {rep}", flush=True)
     return worst
+
+
+def _tie_inputs():
+    """(scene, tables, trace arguments) of the tie scene on the card, the
+    SPLIT_LANES rays of `tie_rays`."""
+    from rtw_tpu_torch.models import scene as TS
+    from rtw_tpu_torch.models.builder import SceneBuilder
+    from rtw_tpu_torch.ops import trace_kernel as TK
+    from rtw_tpu_torch.ops.vec import Vec3
+
+    n = SPLIT_LANES
+    scene = tie_scene(SceneBuilder, TS).to("cuda")
+    o, d, tmax = (torch.as_tensor(a, device="cuda") for a in tie_rays(n))
+    return scene, TK.split_tables(scene), (
+        Vec3(*o), Vec3(*d), 1e-6, tmax, torch.zeros(n, device="cuda"),
+        torch.full((1, n), 0.5, device="cuda"))
+
+
+def phase_cavity():
+    """The furnace cavity (7 prims, 6 lights: outside the megakernel's
+    envelope) through `render` with scheduler="auto" on the card, at
+    test_furnace_cavity_exact's 24x24, 256 spp, depth 24: the plain regen
+    sweep, with no megakernel, trace or occlusion launch counted, and that
+    test's assertions on the image: the albedo-1 sphere's mean within 2%
+    of the walls' radiance L and each of its pixels within 12%, the wall
+    pixels at L within 1e-5."""
+    import rtw_tpu_torch as rtt
+    from rtw_tpu_torch.ops import mega_kernel as MK
+    from rtw_tpu_torch.ops import trace_kernel as TK
+
+    scene = furnace_cavity().to("cuda")
+    cfg = rtt.RenderConfig(nx=24, ny=24, spp=256, max_depth=24, seed=3)
+    MK.launches = MK.hybrid_launches = MK.trace_launches = 0
+    TK.trace_launches = TK.occluded_launches = 0
+    m = {}
+    img = rtt.render(scene, cfg, metrics=m)
+    launched = dict(mega_trace=MK.trace_launches, mega_step=MK.launches,
+                    hybrid=MK.hybrid_launches, trace=TK.trace_launches,
+                    occluded=TK.occluded_launches)
+    if any(launched.values()):
+        raise AssertionError(f"cavity: auto launched kernels {launched}")
+    img = img.cpu().numpy()
+    sphere_px = img[9:15, 9:15]
+    wall_px = np.concatenate([img[:2].reshape(-1, 3),
+                              img[-2:].reshape(-1, 3)])
+    report = (f"cavity 24x24 spp 256 depth 24 through auto on the card: "
+              f"launches {launched}, {m['rays']} rays, sphere mean "
+              f"{sphere_px.mean():.5f} (L {CAVITY_L}), worst sphere pixel "
+              f"off by {np.abs(sphere_px - CAVITY_L).max():.5f}, wall "
+              f"pixels off by at most {np.abs(wall_px - CAVITY_L).max():.2e}")
+    if (abs(sphere_px.mean() - CAVITY_L) >= 0.02 * CAVITY_L
+            or not np.all(np.abs(sphere_px - CAVITY_L) < 0.12 * CAVITY_L)
+            or not np.allclose(wall_px, CAVITY_L, rtol=1e-7, atol=1e-5)):
+        raise AssertionError(f"{report}: outside the furnace test's bounds")
+    print(f"[22 cavity] {report}", flush=True)
 
 
 def phase_split_small_render():
@@ -1033,7 +1222,8 @@ def _split_step(tag, label, name, captured, **check):
     n = args[0].x.shape[0]
     live = int((args[3] > args[2]).sum())
     print(f"[{tag} step times] {name} {label}: {n} lanes ({live} live), "
-          f"{times}; bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+          f"{times}; bound {bound[0]:.4f} ms ({bound[1]}); "
+          f"{_divergence_report(bound[2])}", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                 bound_by=bound[1], library_ms=None)
 
@@ -1565,17 +1755,20 @@ def phase_profiles(spp):
     phase_profile(f"{FIELDS[1]} spheres", _field(FIELDS[1])[0], _field_cfg())
 
 
-# The same figures as read on an NVIDIA H100 80GB HBM3 at 700.00 W before
-# the block hierarchy (the split kernels scanned every block's box, the
-# megakernel swept every prim), printed beside this run's.
-BEFORE_WALK = {
-    "A cornell ms": "0.1100-0.1117", "A scene3 ms": "0.0244-0.0466",
-    "B scene1 ms": "0.3427-0.3543", "B scene2 ms": "0.2658-0.2717",
-    "B scene4 ms": "0.5544-0.5639", "C scene2 ms": "0.1996-0.2105",
-    "C scene4 ms": "0.3813-0.3904", "D scene1 ms": "0.7454-0.7518",
-    "cornell 64 spp Mrays/s": "4400-4800", "scene3 Mrays/s": "828-2194",
-    "scene1 Mrays/s": "17.8-35.8", "scene2 Mrays/s": "11-16",
-    "scene4 Mrays/s": "9.0-12.3", "scene1 qmega Mrays/s": "49.7-76.4"}
+# The same figures as read on an NVIDIA H100 80GB HBM3 at 700.00 W while
+# the trace kernel swept each block with one thread a ray (PERF.md),
+# printed beside this run's.
+BEFORE_SHARED_SWEEP = {
+    "A cornell ms": "0.1073-0.1105", "A scene3 ms": "0.0316-0.0357",
+    "B scene1 ms": "0.3403-0.3491", "B scene2 ms": "0.2588-0.2656",
+    "B scene4 ms": "0.5647-0.5661", "B field16384 ms": "2.00-2.01",
+    "B field65536 ms": "2.17-2.19", "B field262144 ms": "4.63",
+    "B field65536lit ms": "2.34-2.35", "C scene2 ms": "0.2092-0.2185",
+    "C scene4 ms": "0.3933-0.3956", "C field65536lit ms": "1.46-1.48",
+    "D scene1 ms": "0.6199-0.6235",
+    "cornell 64 spp Mrays/s": "8086-8992", "scene3 Mrays/s": "3337-3481",
+    "scene1 Mrays/s": "14-36", "scene2 Mrays/s": "11-16",
+    "scene4 Mrays/s": "9-12", "scene1 qmega Mrays/s": "28-76"}
 
 
 def main(argv=None) -> int:
@@ -1614,6 +1807,7 @@ def main(argv=None) -> int:
     scene3 = timed(phase_scene3)
     split_err = timed(phase_split_kernels)
     timed(phase_split_small_render)
+    timed(phase_cavity)
     counts = timed(phase_split_main)
     steps = timed(phase_split_step_times)
     hybrid = timed(phase_hybrid_step)
@@ -1636,12 +1830,13 @@ def main(argv=None) -> int:
                mega["mega_trace"]["mrays_per_sec"],
            "scene3 Mrays/s": scene3["mega_trace"]["mrays_per_sec"],
            "scene1 qmega Mrays/s": qmega["mrays_per_sec"]}
-    for (name, sid), v in steps.items():
-        now[f"{'B' if name == 'trace' else 'C'} scene{sid} ms"] = v["ms"]
+    for (name, path), v in [*steps.items(), *scale_steps.items()]:
+        path = f"scene{path}" if isinstance(path, int) else path
+        now[f"{'B' if name == 'trace' else 'C'} {path} ms"] = v["ms"]
     for sid, (_, _, m) in counts.items():
         now[f"scene{sid} Mrays/s"] = m["mrays_per_sec"]
-    print("[21 beside the flat scan] " + "; ".join(
-        f"{k} {v:.4f} (before the walk: {BEFORE_WALK.get(k, 'not read')})"
+    print("[21 beside the one-thread sweep] " + "; ".join(
+        f"{k} {v:.4f} (before: {BEFORE_SHARED_SWEEP.get(k, 'not read')})"
         for k, v in now.items()) + f" on {card_line()}", flush=True)
 
     # one entry per kernel and path: `launches` is that path's own count; a

@@ -2,12 +2,13 @@
 // vectors, the 3x4 affine transforms of the props table, the primitive
 // t-tests of rtw_tpu/ops/intersect.py for all six prim types (`prim_t`, and
 // `sweep_rows` over a plan group's rows), the per-ray walk over a plan
-// group's block hierarchy (`walk_blocks`) and the winner's payload
-// (`hit_payload`).  Every expression follows the plain
-// torch version's order of operations term by term, and the kernels are
-// built with -fmad=false, so kernel and plain version round alike; the
-// fused multiply-adds are explicit (fmaf), where the plain version fuses
-// them too (intersect.fma: the reference's compiled CPU code fuses them).
+// group's block hierarchy (`walk_blocks`, and `WalkCursor`, the same walk
+// one candidate block at a time) and the winner's payload (`hit_payload`).
+// Every expression follows the plain torch version's order of operations
+// term by term, and the kernels are built with -fmad=false, so kernel and
+// plain version round alike; the fused multiply-adds are explicit (fmaf),
+// where the plain version fuses them too (intersect.fma: the reference's
+// compiled CPU code fuses them).
 
 #pragma once
 
@@ -255,14 +256,14 @@ __device__ __forceinline__ float prim_t(const float* pr, int axis, bool xform,
   }
 }
 
-template <int kType, class RowU, class Visit>
+template <int kType, int kStep, class RowU, class Visit>
 __device__ __forceinline__ bool sweep_typed(const float* props, int kdim,
                                             int r0, int r1, int axis,
                                             bool xform, V3 o, V3 d,
                                             float time, float tmin,
                                             float tmax, RowU row_u,
                                             Visit visit) {
-  for (int r = r0; r < r1; ++r) {
+  for (int r = r0; r < r1; r += kStep) {
     float u = 0.0f;
     if constexpr (kType == PRIM_VOLUME_SPHERE || kType == PRIM_VOLUME_BOX)
       u = row_u(r);
@@ -273,13 +274,14 @@ __device__ __forceinline__ bool sweep_typed(const float* props, int kdim,
   return false;
 }
 
-// Rows [r0, r1) of one plan group of type `ptype`, tested in row order:
-// visit(r, t) gets each row's t and returns true to end the sweep (then
-// sweep_rows returns true).  The loop is instantiated per type, as the
-// reference's statically typed chunks are, so a group's rows run one
-// straight-line test; row_u(r), the fetch of a volume row's free-flight
-// uniform, is called for volume rows only.
-template <class RowU, class Visit>
+// Rows r0, r0 + kStep, ... below r1 of one plan group of type `ptype`,
+// tested in row order: visit(r, t) gets each row's t and returns true to
+// end the sweep (then sweep_rows returns true).  The loop is instantiated
+// per type, as the reference's statically typed chunks are, so a group's
+// rows run one straight-line test; row_u(r), the fetch of a volume row's
+// free-flight uniform, is called for volume rows only.  kStep 32 is one
+// lane's share of a block that its warp sweeps together.
+template <int kStep = 1, class RowU, class Visit>
 __device__ __forceinline__ bool sweep_rows(int ptype, const float* props,
                                            int kdim, int r0, int r1,
                                            int axis, bool xform, V3 o, V3 d,
@@ -288,26 +290,29 @@ __device__ __forceinline__ bool sweep_rows(int ptype, const float* props,
                                            Visit visit) {
   switch (ptype) {
     case PRIM_SPHERE:
-      return sweep_typed<PRIM_SPHERE>(props, kdim, r0, r1, axis, xform, o, d,
-                                      time, tmin, tmax, row_u, visit);
+      return sweep_typed<PRIM_SPHERE, kStep>(props, kdim, r0, r1, axis,
+                                             xform, o, d, time, tmin, tmax,
+                                             row_u, visit);
     case PRIM_MOVING_SPHERE:
-      return sweep_typed<PRIM_MOVING_SPHERE>(props, kdim, r0, r1, axis,
-                                             xform, o, d, time, tmin, tmax,
-                                             row_u, visit);
+      return sweep_typed<PRIM_MOVING_SPHERE, kStep>(
+          props, kdim, r0, r1, axis, xform, o, d, time, tmin, tmax, row_u,
+          visit);
     case PRIM_RECT:
-      return sweep_typed<PRIM_RECT>(props, kdim, r0, r1, axis, xform, o, d,
-                                    time, tmin, tmax, row_u, visit);
+      return sweep_typed<PRIM_RECT, kStep>(props, kdim, r0, r1, axis, xform,
+                                           o, d, time, tmin, tmax, row_u,
+                                           visit);
     case PRIM_VOLUME_SPHERE:
-      return sweep_typed<PRIM_VOLUME_SPHERE>(props, kdim, r0, r1, axis,
-                                             xform, o, d, time, tmin, tmax,
-                                             row_u, visit);
+      return sweep_typed<PRIM_VOLUME_SPHERE, kStep>(
+          props, kdim, r0, r1, axis, xform, o, d, time, tmin, tmax, row_u,
+          visit);
     case PRIM_VOLUME_BOX:
-      return sweep_typed<PRIM_VOLUME_BOX>(props, kdim, r0, r1, axis, xform,
+      return sweep_typed<PRIM_VOLUME_BOX, kStep>(
+          props, kdim, r0, r1, axis, xform, o, d, time, tmin, tmax, row_u,
+          visit);
+    default:
+      return sweep_typed<PRIM_BOX, kStep>(props, kdim, r0, r1, axis, xform,
                                           o, d, time, tmin, tmax, row_u,
                                           visit);
-    default:
-      return sweep_typed<PRIM_BOX>(props, kdim, r0, r1, axis, xform, o, d,
-                                   time, tmin, tmax, row_u, visit);
   }
 }
 
@@ -387,6 +392,58 @@ __device__ __forceinline__ bool walk_blocks(const float* blocks,
   }
   return false;
 }
+
+// What WalkCursor::step returns when the candidate it tested (or the node
+// span it skipped) holds no block for the ray, and when every plan group is
+// done.
+constexpr int kWalkMiss = -1, kWalkDone = -2;
+
+// walk_blocks over every plan group in plan order, one candidate block a
+// call, for a caller that interleaves the walk with other work (the
+// nearest-hit kernel's warp-shared sweeps): the plan entry and the next
+// block of its group to consider.  step(bound) tests that block against
+// `bound`, after the node tests that begin at it (a failed node skips its
+// span, as in walk_blocks), moves past it, and returns its index in its
+// group (the entry is `e`) if it passes, else kWalkMiss, or kWalkDone.
+// Called with the caller's best t after each block's sweep, it tests
+// exactly walk_blocks' nodes and blocks, in walk_blocks' order.
+struct WalkCursor {
+  int e, b;
+
+  __device__ __forceinline__ int step(const float* blocks,
+                                      const float* nodes, int node_base,
+                                      const int* hier, int n_entries, V3 o,
+                                      V3 inv, float tmin, float tmax,
+                                      float bound) {
+    for (; e < n_entries; ++e, b = 0) {
+      const int* hr = hier + e * HIER_COLS;
+      const int levels = hr[H_LEVELS];
+      if (b >= hr[H_BLOCKS]) continue;
+      const int at = b;
+      if (levels > 0 && (at & ((1 << WALK_SHIFT) - 1)) == 0) {
+        int skip = 0;     // as walk_blocks: the highest level first
+        for (int lv = levels; lv >= 1 && skip == 0; --lv) {
+          int shift = WALK_SHIFT * lv;
+          if (at & ((1 << shift) - 1)) continue;
+          int row = hr[H_LEVEL0 + lv] - node_base + (at >> shift);
+          if (!box_active(nodes + row * AABB_COLS, o, inv, tmin, tmax,
+                          bound))
+            skip = 1 << shift;
+        }
+        if (skip) {
+          b = at + skip;
+          return kWalkMiss;
+        }
+      }
+      b = at + 1;
+      return box_active(blocks + (hr[H_FIRST] + at) * AABB_COLS, o, inv,
+                        tmin, tmax, bound)
+                 ? at
+                 : kWalkMiss;
+    }
+    return kWalkDone;
+  }
+};
 
 // The face of box `pr` that a hit at the entry (or, from inside, the exit)
 // crosses, and its outward normal (intersect._box_payload): returns the

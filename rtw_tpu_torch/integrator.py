@@ -17,9 +17,11 @@ chain (so all trace the same paths):
   with the whole bounce in one launch of the megakernel's hybrid mode.
 
 `trace_wavefront` dispatches: `scheduler="auto"` on a CUDA scene picks the
-megakernel inside its envelope (fewer than 128 prims) and the queue with
-the split kernels at 128 prims and above, as the reference does on its
-TPU; a CPU scene runs the plain regen path.  What is not ported raises
+megakernel below 128 prims when the scene is inside its envelope, the
+plain regen sweep below 128 prims when it is not (the reference's jnp
+sweep there), and the queue with the split kernels at 128 prims and
+above, as the reference does on its TPU; a CPU scene runs the plain regen
+path.  What is not ported raises
 NotImplementedError naming its ROADMAP item; nothing falls back silently
 to the plain path on the card in place of an unported kernel.
 """
@@ -254,12 +256,9 @@ def _raise_unported(cfg) -> None:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
 
-def _validate_mega(cfg, scene):
-    """The megakernel's feature envelope, checked loudly: what the port has
-    not ported raises NotImplementedError, and a scene the kernel can never
-    take (more than one light, unregistered emissives, noise or image
-    textures) raises ValueError."""
-    _raise_unported(cfg)
+def _mega_problems(scene) -> list[str]:
+    """What puts a scene outside the megakernel's envelope for good: more
+    than one light, unregistered emissives, noise or image textures."""
     problems = []
     if scene.num_lights > 1:
         problems.append(f"num_lights={scene.num_lights} (kernel NEE is "
@@ -269,6 +268,15 @@ def _validate_mega(cfg, scene):
                         "attributes all emissive hits to light row 0)")
     if scene.tex_present[S.TEX_NOISE] or scene.tex_present[S.TEX_IMAGE]:
         problems.append("noise/image textures (no in-kernel atlas fetch)")
+    return problems
+
+
+def _validate_mega(cfg, scene):
+    """The megakernel's feature envelope, checked loudly: what the port has
+    not ported raises NotImplementedError, and a scene the kernel can never
+    take (`_mega_problems`) raises ValueError."""
+    _raise_unported(cfg)
+    problems = _mega_problems(scene)
     if problems:
         raise ValueError("backend='mega' unsupported for this render: "
                          + "; ".join(problems))
@@ -280,11 +288,14 @@ def _n_prims(scene) -> int:
 
 def _mega_backend(cfg, scene) -> bool:
     """Whether the render runs the megakernel scheduler: forced by
-    backend="mega", or chosen by "auto" for a CUDA scene below the split
-    tier (which must then be inside the envelope: an unported kernel raises
-    rather than the plain path running on the card in its place).  CPU
-    scenes run the plain regen path under "auto", as the reference does on
-    its CPU."""
+    backend="mega" (inside the envelope, or it raises), or chosen by "auto"
+    for a CUDA scene below the split tier that is inside the envelope, as
+    the reference's predicate chooses it.  Under "auto" a scene the kernel
+    can never take (`_mega_problems`) runs `_split_backend`'s choice, the
+    regen sweep below 128 prims, as the reference runs its jnp sweep there;
+    an option the port has not ported still raises NotImplementedError.
+    CPU scenes run the plain regen path under "auto", as the reference
+    does on its CPU."""
     if cfg.backend == "mega":
         _validate_mega(cfg, scene)
         return True
@@ -292,8 +303,8 @@ def _mega_backend(cfg, scene) -> bool:
         return False
     if scene.device.type != "cuda" or _n_prims(scene) >= SPLIT_TIER_PRIMS:
         return False
-    _validate_mega(cfg, scene)
-    return True
+    _raise_unported(cfg)
+    return not _mega_problems(scene)
 
 
 def _split_backend(cfg, scene) -> bool:

@@ -23,6 +23,7 @@ from rtw_tpu.integrator import trace_wavefront_regen as j_regen
 from rtw_tpu.ops import mega_kernel as JMK
 from rtw_tpu.utils import rng as JR
 import rtw_tpu_torch as rtt
+from chip_smoke import furnace_cavity
 from rtw_tpu_torch import integrator as TI
 from rtw_tpu_torch.ops import mega_kernel as TMK
 
@@ -235,3 +236,73 @@ def test_mega_step_checks_its_inputs():
     with pytest.raises(ValueError):
         TMK.mega_step(ts, cfg, sf.to("meta"), si, params, rays)
 
+
+
+def _small_marble():
+    """A scene of 2 prims with a Perlin-marble texture: below the split
+    tier, outside the megakernel's envelope."""
+    from rtw_tpu_torch.models.builder import SceneBuilder
+
+    b = SceneBuilder()
+    b.sphere((0.0, 0.0, 0.0), 1.0, b.lambertian(b.noise_texture(4.0)))
+    b.sphere((0.0, -101.0, 0.0), 100.0,
+             b.lambertian(b.constant_texture((0.5, 0.5, 0.5))))
+    b.set_camera((0, 0, 4.0), (0, 0, 0), (0, 1, 0), 40, 1.0, 0.0, 1.0)
+    return b.build()
+
+
+@pytest.fixture
+def on_cuda(monkeypatch):
+    """Every Scene reports its device as cuda (the dispatcher's view of a
+    scene on the card); no tensor moves."""
+    from rtw_tpu_torch.models import scene as TS
+
+    monkeypatch.setattr(TS.Scene, "device",
+                        property(lambda self: torch.device("cuda")))
+
+
+GATE_SCENES = {"cornell": lambda: rtt.build_scene(0, 8, 8, device="cpu"),
+               "cavity": furnace_cavity,
+               "scene2": lambda: rtt.build_scene(2, 8, 8, device="cpu"),
+               "marble": _small_marble}
+
+
+@pytest.mark.parametrize("name,auto", [("cornell", True), ("cavity", False),
+                                       ("scene2", False), ("marble", False)])
+def test_auto_gate_follows_the_reference_on_the_card(name, auto, on_cuda):
+    """tests/test_mega.py's gating on a CUDA scene: "auto" takes the
+    megakernel inside its envelope and nowhere else (more lights,
+    noise or image textures, 128 prims or more), as the reference's
+    predicate does on its TPU; outside it, a scene below the split tier
+    runs the regen sweep and one at or above it the queue."""
+    scene = GATE_SCENES[name]()
+    assert scene.device.type == "cuda"
+    cfg = rtt.RenderConfig(nx=8, ny=8, spp=1)
+    assert TI._mega_backend(cfg, scene) is auto
+    assert TI._split_backend(cfg, scene) is (name == "scene2")
+    for off in ("jnp", "pallas"):
+        assert not TI._mega_backend(dataclasses.replace(cfg, backend=off),
+                                    scene)
+
+
+@pytest.mark.parametrize("name,match", [("cavity", "num_lights=6"),
+                                        ("scene2", "noise/image"),
+                                        ("marble", "noise/image")])
+def test_forced_mega_still_refuses_outside_the_envelope(name, match,
+                                                        on_cuda):
+    scene = GATE_SCENES[name]()
+    cfg = rtt.RenderConfig(nx=8, ny=8, spp=1)
+    with pytest.raises(ValueError, match=match):
+        TI._mega_backend(dataclasses.replace(cfg, backend="mega"), scene)
+    for sched in ("mega", "qmega"):
+        with pytest.raises(ValueError, match=match):
+            TI.trace_wavefront(scene, dataclasses.replace(
+                cfg, scheduler=sched), torch.arange(64), 0, 0, 1)
+
+
+@pytest.mark.parametrize("name", ["cornell", "cavity", "marble"])
+def test_auto_gate_still_raises_on_unported_options(name, on_cuda):
+    scene = GATE_SCENES[name]()
+    cfg = rtt.RenderConfig(nx=8, ny=8, spp=1, rng="threefry")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+        TI._mega_backend(cfg, scene)

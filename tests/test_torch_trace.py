@@ -25,10 +25,16 @@ import pytest
 import torch
 
 import rtw_tpu as rt
+from rtw_tpu.models import scene as JS
+from rtw_tpu.models.builder import SceneBuilder as JSceneBuilder
 from rtw_tpu.ops import intersect as JI
 from rtw_tpu.ops.shading import gather_shade as j_gather_shade
 from rtw_tpu.ops.vec import Vec3 as JV
 import rtw_tpu_torch as rtt
+from chip_smoke import TWIN_CROSS, TWIN_INSIDE, tie_rays, tie_scene
+from rtw_tpu_torch.models import scene as TS
+from rtw_tpu_torch.models.builder import SceneBuilder as TSceneBuilder
+from rtw_tpu_torch.ops import intersect as TI
 from rtw_tpu_torch.ops import trace_kernel as TK
 from rtw_tpu_torch.ops.vec import Vec3 as TV
 
@@ -165,3 +171,184 @@ def test_kernel_launch_refuses_cpu_tensors_and_volumes():
     assert vol.vol_slot.dtype == torch.int32
     assert vol.vol_slot.tolist() == [
         -1] * 1040 + [1, 0] + [-1] * (vol.props.shape[0] - 1042)
+
+
+# ---- ties, and the CUDA kernel's warp-shared sweep emulated in torch ----
+
+def test_tie_scene_lays_the_twins_across_and_inside_a_block():
+    ts = tie_scene(TSceneBuilder, TS)
+    start, count, size, ptype, axis, xform, block = ts.chunk_plan[0]
+    assert (ptype, count, block) == (0, 128, 64)
+    p = ts.prims.params.numpy()
+    for (c, r), rows in ((TWIN_CROSS, [63, 64]), (TWIN_INSIDE, [65, 66])):
+        at = np.nonzero((p[:, :3] == np.float32(c)).all(1)
+                        & (p[:, 3] == np.float32(r)))[0]
+        assert (at - start).tolist() == rows
+    assert ts.prims.material_id[start + 63] != ts.prims.material_id[
+        start + 64]
+
+
+def test_trace_plain_matches_reference_on_ties():
+    """Every lane's winner, payload and shading record on the tie scene
+    equal the reference's: the lowest row of equal t wins, across and
+    inside a block, and for coincident rects and boxes."""
+    js = tie_scene(JSceneBuilder, JS)
+    ts = tie_scene(TSceneBuilder, TS)
+    o, d, tmax = tie_rays(N)
+    time = np.zeros(N, np.float32)
+    vol_u = np.full((1, N), 0.5, np.float32)
+
+    def ref(o_, d_, tm, t_, v_):
+        h = JI.intersect_scene(js, o_, d_, 1e-6, tm, t_, v_)
+        return h, j_gather_shade(js, h.prim_idx, h.prim_idx >= 0)
+
+    want, wshade = jax.jit(ref)(_jv(o), _jv(d), jnp.asarray(tmax),
+                                jnp.asarray(time), jnp.asarray(vol_u))
+    got, gshade = TK.trace_plain(ts, _tv(o), _tv(d), 1e-6,
+                                 torch.as_tensor(tmax),
+                                 torch.as_tensor(time),
+                                 torch.as_tensor(vol_u))
+    prim = got.prim_idx.numpy()
+    np.testing.assert_array_equal(prim, np.asarray(want.prim_idx))
+    start = ts.chunk_plan[0][0]
+    for row in (63, 65):           # the twins' lower rows win every tie
+        assert (prim == start + row).sum() > 50
+        assert not (prim == start + row + 1).any()
+    hit = prim >= 0
+    np.testing.assert_array_equal(got.mat_id.numpy(), np.asarray(want.mat_id))
+    np.testing.assert_allclose(got.t.numpy()[hit], np.asarray(want.t)[hit],
+                               rtol=2e-4)
+    for g, w in ((got.point, want.point), (got.normal, want.normal),
+                 ((got.u, got.v), (want.u, want.v))):
+        np.testing.assert_allclose(_np(g)[:, hit], _np(w)[:, hit],
+                                   rtol=1e-4, atol=1e-4)
+    for f in SHADE_I32:
+        np.testing.assert_array_equal(getattr(gshade, f).numpy(),
+                                      np.asarray(getattr(wshade, f)), f)
+    for f in (*SHADE_F32, "rgb", "odd", "even"):
+        np.testing.assert_allclose(_np(getattr(gshade, f)),
+                                   _np(getattr(wshade, f)), atol=1e-6)
+
+
+def _warp_sweep(t_mat, b0):
+    """The CUDA kernel's shared sweep of one block for every lane's ray:
+    row r goes to warp lane r % 32, which keeps its first row of least t
+    (strict `<` from BIG); the butterfly (xor 16, 8, 4, 2, 1) reduces (t,
+    row) to the lexicographic minimum.  Returns (t, row) [N] each, after
+    checking that all 32 lanes end with the same pair."""
+    rows, n = t_mat.shape
+    lt = torch.full((32, n), TI.BIG)
+    lr = torch.full((32, n), 2 ** 31 - 1, dtype=torch.int64)
+    for r in range(rows):
+        k = r % 32
+        take = t_mat[r] < lt[k]
+        lt[k] = torch.where(take, t_mat[r], lt[k])
+        lr[k] = torch.where(take, b0 + r, lr[k])
+    for off in (16, 8, 4, 2, 1):
+        other = torch.arange(32) ^ off
+        t2, r2 = lt[other], lr[other]
+        take = (t2 < lt) | ((t2 == lt) & (r2 < lr))
+        lt, lr = torch.where(take, t2, lt), torch.where(take, r2, lr)
+    assert bool((lt == lt[0]).all()) and bool((lr == lr[0]).all())
+    return lt[0], lr[0]
+
+
+def _warp_shared_trace(scene, tables, o, d, tmin, tmax, time, vol_u):
+    """(best t, winning row) [N] of each ray under the CUDA kernel's
+    schedule: each ray's walk (csrc/geometry.cuh::WalkCursor: the blocks of
+    each group in order, a node tested where it begins, a node or block
+    culled by box_active against the ray's best t so far) and, for every
+    block it reaches, `_warp_sweep`; the owner takes the block's pair when
+    its t beats the best."""
+    n = o.x.shape[0]
+    tmax = torch.as_tensor(tmax, dtype=torch.float32).expand(n)
+    best_t = torch.full((n,), TI.BIG)
+    best_row = torch.full((n,), -1, dtype=torch.int64)
+    inv = [1.0 / torch.where(c == 0.0, 1e-30, c) for c in d]
+    prims = scene.prims
+
+    def active(row):
+        ab = tables.aabbs[row]
+        near = torch.full((n,), -TI.BIG)
+        far = torch.full((n,), TI.BIG)
+        for ax in range(3):
+            t0 = (ab[ax] - o[ax]) * inv[ax]
+            t1 = (ab[3 + ax] - o[ax]) * inv[ax]
+            near = torch.maximum(near, torch.minimum(t0, t1))
+            far = torch.minimum(far, torch.maximum(t0, t1))
+        return ((far >= torch.clamp_min(near, tmin)) & (near < tmax)
+                & (near < best_t))
+
+    for entry, hr in zip(scene.chunk_plan, tables.layout):
+        start, count, size, ptype, axis, xform, block = entry
+        levels, first, n_blocks = hr[:3]
+        inside = [torch.ones(n, dtype=torch.bool)] * (levels + 2)
+        for b in range(n_blocks):
+            for lv in range(levels, 0, -1):
+                if b % TK.WALK_FAN ** lv == 0:
+                    inside[lv] = inside[lv + 1] & active(
+                        hr[TK.H_LEVEL0 + lv] + b // TK.WALK_FAN ** lv)
+            reach = inside[1] & active(first + b)
+            if not bool(reach.any()):
+                continue
+            b0 = start + b * block
+            rows = min(block, start + count - b0)
+            sl = slice(b0, b0 + rows)
+            t_mat = TI._block_t(ptype, axis, xform, prims.params[sl],
+                                prims.w2o[sl], prims.vol_slot[sl], o, d,
+                                tmin, tmax, time, vol_u,
+                                torch.ones(rows, dtype=torch.bool))
+            t, row = _warp_sweep(t_mat, b0)
+            take = reach & (t < best_t)
+            best_t = torch.where(take, t, best_t)
+            best_row = torch.where(take, row, best_row)
+    return best_t, best_row
+
+
+def _assert_warp_shared_equals_plain(scene, o, d, tmax, time, vol_u):
+    tables = TK.split_tables(scene)
+    args = (_tv(o), _tv(d), 1e-6, torch.as_tensor(tmax),
+            torch.as_tensor(time), torch.as_tensor(vol_u))
+    t, row = _warp_shared_trace(scene, tables, *args)
+    hit, _ = TK.trace_plain(scene, *args)
+    assert torch.equal(row, hit.prim_idx)
+    assert torch.equal(t, hit.t)
+    assert 0.1 < float((row >= 0).float().mean()) < 1.0
+
+
+@pytest.mark.parametrize("sid", [0, 1, 2, 5, 3, 4, "ties"])
+def test_warp_shared_sweep_gives_the_plain_winner(sid):
+    """The kernel's schedule, emulated, picks trace_plain's winner and t on
+    every lane of scenes 0-5 and the tie scene."""
+    if sid == "ties":
+        scene = tie_scene(TSceneBuilder, TS)
+        o, d, tmax = tie_rays(N, 5)
+        n_vol = 1
+    else:
+        scene = rtt.build_scene(sid, 64, 48, device="cpu")
+        o, d, _, _ = _rays(sid)
+        n_vol = scene.n_vol
+        tmax = np.where(np.arange(N) % 8 == 7, -1e30, 1e27).astype(
+            np.float32)
+    rng = np.random.default_rng(17)
+    time = rng.uniform(0.0, 1.0, N).astype(np.float32)
+    vol_u = rng.uniform(size=(max(n_vol, 1), N)).astype(np.float32)
+    _assert_warp_shared_equals_plain(scene, o, d, tmax, time, vol_u)
+
+
+def test_warp_shared_sweep_gives_the_plain_winner_on_the_walked_field(
+        monkeypatch):
+    """The same on tests/test_torch_scale.py's 2500-sphere field, walked
+    with the threshold at 32 blocks: two full nodes and a ragged one."""
+    from rtw_tpu_torch.models.registry import build_stress_scene
+
+    monkeypatch.setattr(TK, "TWO_LEVEL_MIN", 32)
+    scene = build_stress_scene(2500, device="cpu")
+    assert [r[TK.H_LEVELS] for r in TK.split_tables(scene).layout] == [1]
+    rng = np.random.default_rng(19)
+    o = (rng.uniform(-1, 1, (3, N)) * 250.0).astype(np.float32)
+    d = rng.normal(size=(3, N)).astype(np.float32)
+    tmax = np.where(np.arange(N) % 8 == 7, -1e30, 1e27).astype(np.float32)
+    _assert_warp_shared_equals_plain(scene, o, d, tmax,
+                                     np.zeros(N, np.float32),
+                                     np.full((1, N), 0.5, np.float32))
