@@ -30,15 +30,17 @@ the port's paths through `render`:
   persistent kernel, against the loop as above) and scheduler="qmega";
 
 and checks that each path launched its kernels.  Beside them: the trace
-kernel on a scene of tied prims (equal spheres across and inside a block,
-coincident rects and boxes) against its plain version on every lane; the
-furnace cavity (6 lights, outside the megakernel's envelope) through
-scheduler="auto", which must render on the plain regen sweep with no
-kernel launched and meet tests/test_integrator.py's furnace bounds; per
-launch, each kernel's time beside the one read before the trace kernel's
-warps shared their sweeps (PERF.md) and, for the split kernels, the
-per-warp spread of the work their lanes need (the busiest lane's against
-the mean lane's, from the replay of the walk that gives the bound).
+and occlusion kernels on a scene of tied prims (equal spheres across and
+inside a block, coincident rects and boxes) against their plain versions
+on every lane; the furnace cavity (6 lights, outside the megakernel's
+envelope) through scheduler="auto", which must render on the plain regen
+sweep with no kernel launched and meet tests/test_integrator.py's furnace
+bounds; per
+launch, each kernel's time beside the one read before its warps shared
+their sweeps (PERF.md) and, for the split kernels and the hybrid step's
+nearest hit, the per-warp spread of the work their lanes need (the
+busiest lane's against the mean lane's, from the replay of the walk that
+gives the bound).
 `--profile` adds a torch.profiler breakdown of one Cornell (at `--spp`),
 one scene-2, one scene-4 and one 65536-sphere field render.  Each phase
 prints one line; any failure raises, so the run exits non-zero and
@@ -454,7 +456,8 @@ def _mega_bound(scene, sf, si, params, walk_only=False):
     whole; above that the nearest-hit sweep is the walk's own count on the
     carry's rays (`_split_work`), and a shadow sweep counts nothing (no
     culled path here has a light; less work keeps the bound a bound).
-    `walk_only`: that walk's operations alone, an int."""
+    Returns (ms, "bytes" or "operations", the walk's per-lane counts or
+    None); `walk_only`: that walk's operations alone, an int."""
     from rtw_tpu_torch.ops import mega_kernel as MK
     from rtw_tpu_torch.ops.intersect import BIG
     from rtw_tpu_torch.ops.vec import Vec3
@@ -467,15 +470,15 @@ def _mega_bound(scene, sf, si, params, walk_only=False):
         sweep = sum(e[1] * PRIM_FLOPS[e[3]] + e[1] * XFORM_FLOPS * e[5]
                     for e in scene.chunk_plan)
         sweeps = 1 + (scene.num_lights > 0)
-        return _bound(n_bytes, n_alive * (sweeps * sweep + 300))
-    walk, _ = _split_work(
+        return (*_bound(n_bytes, n_alive * (sweeps * sweep + 300)), None)
+    walk, lanes = _split_work(
         scene, params.tables, Vec3(*sf[MK.F_ORG:MK.F_ORG + 3]),
         Vec3(*sf[MK.F_DIR:MK.F_DIR + 3]), params.c_params.tmin,
         torch.where(alive, params.c_params.tmax, -BIG), sf[MK.F_TIME],
         torch.zeros((params.n_vol, n), device=sf.device), True)
     if walk_only:
         return walk
-    return _bound(n_bytes, walk + 300 * n_alive)
+    return (*_bound(n_bytes, walk + 300 * n_alive), lanes)
 
 
 def _trace_calls(cfg):
@@ -961,7 +964,8 @@ def phase_split_kernels():
     """Kernels B and C against their plain versions on scenes 0, 1, 2, 5, 3
     and 4 (scene 0 for the transformed box, 3 and 4 for the volumes), 320k
     rays each, with random volume uniforms in [0, 1) (the trace's rows and
-    the shadow ray's own); every 8th lane is dead (tmax = -BIG)."""
+    the shadow ray's own); every 8th lane is dead (tmax = -BIG).  Then both
+    on the tie scene, on every lane."""
     import rtw_tpu_torch as rtt
     from rtw_tpu_torch.ops import trace_kernel as TK
     from rtw_tpu_torch.ops.intersect import BIG
@@ -987,8 +991,20 @@ def phase_split_kernels():
                                      (o, d, 5e-5, occ_tmax, time, occ_u))
         worst["occluded"] = max(worst["occluded"], err)
         print(f"[6 split kernels] {rep}", flush=True)
-    err, rep = _compare_trace("B tie scene", *_tie_inputs(), min_equal=1.0)
+    scene, tables, args = _tie_inputs()
+    err, rep = _compare_trace("B tie scene", scene, tables, args,
+                              min_equal=1.0)
     worst["trace"] = max(worst["trace"], err)
+    print(f"[6 split kernels] {rep}", flush=True)
+    # C on the same rays with finite shadow lengths (the dead lanes stay)
+    o, d, _, tmax, time_, vol_u = args
+    g = torch.Generator(device="cuda").manual_seed(206)
+    occ_tmax = torch.where(tmax < 0, -BIG, 300.0 * torch.rand(
+        SPLIT_LANES, generator=g, device="cuda"))
+    err, rep = _compare_occluded("C tie scene", scene, tables,
+                                 (o, d, 5e-5, occ_tmax, time_, vol_u),
+                                 min_equal=1.0)
+    worst["occluded"] = max(worst["occluded"], err)
     print(f"[6 split kernels] {rep}", flush=True)
     return worst
 
@@ -1296,9 +1312,10 @@ def phase_hybrid_step():
         lambda: MK.mega_step_plain(scene, cfg, sf, si, params, rays,
                                    hybrid=True))
     bound = _mega_bound(scene, sf, si, params)
-    print(f"[12 hybrid step times] scene {QMEGA_SCENE} {sf.shape[1]} lanes, "
-          f"carry of hybrid launch 10: {times}; bound {bound[0]:.4f} ms "
-          f"({bound[1]})", flush=True)
+    print(f"[12 hybrid step times] scene {QMEGA_SCENE} {sf.shape[1]} lanes "
+          f"({int((si[MK.I_ALIVE] > 0).sum())} live), carry of hybrid launch "
+          f"10: {times}; bound {bound[0]:.4f} ms ({bound[1]}); nearest hit, "
+          f"{_divergence_report(bound[2])}", flush=True)
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound[0], bound_by=bound[1], library_ms=None)
 
@@ -1498,10 +1515,12 @@ def _mega_step_row(label, scene, cfg, params, sf, si, hybrid):
         lambda: MK.mega_step_plain(scene, cfg, sf, si, params, rays, hybrid),
         plain_reps=1, kernel_reps=20)
     bound = _mega_bound(scene, sf, si, params)
+    spread = ("" if bound[2] is None else
+              f"; nearest hit, {_divergence_report(bound[2])}")
     print(f"[17 mega at scale] {label}: {times}; bound {bound[0]:.4f} ms "
           f"({bound[1]}); tables "
-          f"{'shared' if params.c_params.tables_shared else 'global'}",
-          flush=True)
+          f"{'shared' if params.c_params.tables_shared else 'global'}"
+          f"{spread}", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                 bound_by=bound[1], library_ms=None)
 
@@ -1756,8 +1775,8 @@ def phase_profiles(spp):
 
 
 # The same figures as read on an NVIDIA H100 80GB HBM3 at 700.00 W while
-# the trace kernel swept each block with one thread a ray (PERF.md),
-# printed beside this run's.
+# the split kernels and the hybrid step's nearest hit swept each block with
+# one thread a ray (PERF.md), printed beside this run's.
 BEFORE_SHARED_SWEEP = {
     "A cornell ms": "0.1073-0.1105", "A scene3 ms": "0.0316-0.0357",
     "B scene1 ms": "0.3403-0.3491", "B scene2 ms": "0.2588-0.2656",
@@ -1765,7 +1784,7 @@ BEFORE_SHARED_SWEEP = {
     "B field65536 ms": "2.17-2.19", "B field262144 ms": "4.63",
     "B field65536lit ms": "2.34-2.35", "C scene2 ms": "0.2092-0.2185",
     "C scene4 ms": "0.3933-0.3956", "C field65536lit ms": "1.46-1.48",
-    "D scene1 ms": "0.6199-0.6235",
+    "D scene1 ms": "0.6199-0.6235", "D field16384 ms": "2.29-2.32",
     "cornell 64 spp Mrays/s": "8086-8992", "scene3 Mrays/s": "3337-3481",
     "scene1 Mrays/s": "14-36", "scene2 Mrays/s": "11-16",
     "scene4 Mrays/s": "9-12", "scene1 qmega Mrays/s": "28-76"}
@@ -1826,6 +1845,7 @@ def main(argv=None) -> int:
     now = {"A cornell ms": mega["mega_step"]["ms"],
            "A scene3 ms": scene3["mega_step"]["ms"],
            "D scene1 ms": hybrid["ms"],
+           f"D field{MEGA_FIELD} ms": mega_scale["mega_step_hybrid"]["ms"],
            f"cornell {args.spp} spp Mrays/s":
                mega["mega_trace"]["mrays_per_sec"],
            "scene3 Mrays/s": scene3["mega_trace"]["mrays_per_sec"],

@@ -3,7 +3,9 @@
 // t-tests of rtw_tpu/ops/intersect.py for all six prim types (`prim_t`, and
 // `sweep_rows` over a plan group's rows), the per-ray walk over a plan
 // group's block hierarchy (`walk_blocks`, and `WalkCursor`, the same walk
-// one candidate block at a time) and the winner's payload (`hit_payload`).
+// one candidate block at a time), the warp-shared walks on the cursor
+// (`warp_nearest_hit`, `warp_any_hit`) and the winner's payload
+// (`hit_payload`).
 // Every expression follows the plain torch version's order of operations
 // term by term, and the kernels are built with -fmad=false, so kernel and
 // plain version round alike; the fused multiply-adds are explicit (fmaf),
@@ -13,6 +15,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <limits.h>
 
 namespace rtw {
 
@@ -444,6 +447,205 @@ struct WalkCursor {
     return kWalkDone;
   }
 };
+
+// ---- the warp-shared walk (the kernels B, C and D's nearest hit) ----------
+//
+// Every lane of a warp walks its own ray with a WalkCursor, one candidate
+// block a step, so the lanes walk in step; the warp ballots the lanes whose
+// candidate passed.  With kOwnSweepMin such lanes or more each sweeps its
+// own block, all of them at once, as one thread a ray does.  Below that the
+// warp sweeps each pending lane's block together, lowest lane first: the
+// owner's ray, entry and block go to every lane by shuffles, and lane k tests
+// rows b0 + k, b0 + k + 32, ... of it.  Threads without a ray (past the
+// launch's lanes, dead lanes, lanes already answered) start or end with a
+// done cursor and still take part in every ballot and shuffle, with the full
+// mask.  The caller supplies where the tables live (SweepTables), a lane's
+// tmax, and how a volume row's free-flight uniform is fetched for a ray:
+// row_u(r, key) with the lane's `key`, and key_of(j), lane j's key on every
+// lane (called by the whole warp), for the shared sweeps.
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// What a warp-shared walk reads, in shared or global memory as the caller
+// staged it: the props table [P, kdim], the block AABBs, the upper nodes
+// (row 0 is table row n_blocks), the plan and the hier rows.
+struct SweepTables {
+  const float* props;
+  const float* blocks;
+  const float* nodes;
+  const int* plan;
+  const int* hier;
+  int n_entries, n_blocks, kdim;
+};
+
+// (t, row) of every lane of the warp reduced to the lexicographic minimum,
+// on every lane: the smallest t, and the lowest row among equal t.  Every
+// t is below BIG or exactly BIG (no NaN), so the order is total and the
+// butterfly gives every lane the same pair.
+__device__ __forceinline__ void warp_min(float* t, int* row) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    float t2 = __shfl_xor_sync(kFullMask, *t, off);
+    int r2 = __shfl_xor_sync(kFullMask, *row, off);
+    if (t2 < *t || (t2 == *t && r2 < *row)) {
+      *t = t2;
+      *row = r2;
+    }
+  }
+}
+
+__device__ __forceinline__ V3 shfl3(V3 v, int lane) {
+  return {__shfl_sync(kFullMask, v.x, lane), __shfl_sync(kFullMask, v.y, lane),
+          __shfl_sync(kFullMask, v.z, lane)};
+}
+
+// Nearest hit: (best t, best row) of the lane's ray over the groups in plan
+// order, or (BIG, -1).  The plain sweep's winner is the first row, in plan
+// and row order, that reaches the least t over the rows the walk does not
+// cull: rows rise with plan entry and block, so that is the lexicographic
+// minimum of (t, row), which warp_min computes block by block, and the owner
+// takes it if its t beats the lane's best.  Each cursor culls against its
+// own lane's best t after each of its blocks, exactly as the one-thread walk
+// does, so the same blocks are swept and the winner is the same row.  An own
+// sweep keeps rows in order with a strict `<`, as one thread a ray does.
+template <int kOwnSweepMin, class Key, class KeyOf, class RowU>
+__device__ __forceinline__ void warp_nearest_hit(
+    const SweepTables& tb, bool live, V3 o, V3 d, float time, float tmin,
+    float tmax, Key key, KeyOf key_of, RowU row_u, float* best_t,
+    int* best_row) {
+  const int lane = threadIdx.x & 31;
+  const V3 inv = inverse_dir(d);
+  float bt = BIG;
+  int bi = -1;
+  WalkCursor cur = {live ? 0 : tb.n_entries, 0};
+  for (;;) {
+    // every lane walks one candidate block; the warp leaves when all are
+    // done, and sweeps the blocks that passed
+    const int blk = cur.step(tb.blocks, tb.nodes, tb.n_blocks, tb.hier,
+                             tb.n_entries, o, inv, tmin, tmax, bt);
+    if (!__any_sync(kFullMask, blk != kWalkDone)) break;
+    unsigned todo = __ballot_sync(kFullMask, blk >= 0);
+    if (todo == 0) continue;
+    if (__popc(todo) >= kOwnSweepMin) {
+      // a nearly full warp: each pending lane sweeps its own block
+      if (blk >= 0) {
+        const int* en = tb.plan + cur.e * PLAN_COLS;
+        int b0 = en[0] + blk * en[6];
+        sweep_rows(en[3], tb.props, tb.kdim, b0,
+                   min(b0 + en[6], en[0] + en[1]), en[4], en[5] != 0, o, d,
+                   time, tmin, tmax, [&](int r) { return row_u(r, key); },
+                   [&](int r, float t) {
+                     if (t < bt) {
+                       bt = t;
+                       bi = r;
+                     }
+                     return false;
+                   });
+      }
+    } else {
+      // the warp sweeps each pending lane's block together, lowest lane
+      // first: lane k tests rows b0 + k, b0 + k + 32, ... of lane j's block
+      // on lane j's ray
+      do {
+        const int j = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const V3 oj = shfl3(o, j), dj = shfl3(d, j);
+        const float time_j = __shfl_sync(kFullMask, time, j);
+        const float tmax_j = __shfl_sync(kFullMask, tmax, j);
+        const int e = __shfl_sync(kFullMask, cur.e, j);
+        const int b = __shfl_sync(kFullMask, blk, j);
+        const Key key_j = key_of(j);
+        const int* en = tb.plan + e * PLAN_COLS;
+        const int b0 = en[0] + b * en[6];
+        const int b1 = min(b0 + en[6], en[0] + en[1]);  // past count: padding
+        float t = BIG;
+        int row = INT_MAX;
+        sweep_rows<32>(
+            en[3], tb.props, tb.kdim, b0 + lane, b1, en[4], en[5] != 0, oj,
+            dj, time_j, tmin, tmax_j,
+            [&](int r) { return row_u(r, key_j); },
+            [&](int r, float tr) {
+              if (tr < t) {        // rows rise: the lowest row of equal t
+                t = tr;
+                row = r;
+              }
+              return false;
+            });
+        warp_min(&t, &row);
+        if (lane == j && t < bt) {
+          bt = t;
+          bi = row;
+        }
+      } while (todo);
+    }
+  }
+  *best_t = bt;
+  *best_row = bi;
+}
+
+// Any hit of the lane's ray in (tmin, tmax).  Each cursor walks with the
+// bound BIG, so it culls the same nodes and blocks whatever was found
+// before, and the answer is the OR over the rows of those blocks: any order
+// of sweeping gives walk_blocks' answer.  An own sweep stops at its first
+// hit, as one thread a ray does; a shared sweep goes a 32-row round at a
+// time (lane k tests row b0 + k + 32 m in round m) and ballots the round's
+// hits, ending the block at the first round that has one.  A lane that is
+// occluded is done.
+template <int kOwnSweepMin, class Key, class KeyOf, class RowU>
+__device__ __forceinline__ bool warp_any_hit(const SweepTables& tb, bool live,
+                                             V3 o, V3 d, float time,
+                                             float tmin, float tmax, Key key,
+                                             KeyOf key_of, RowU row_u) {
+  const int lane = threadIdx.x & 31;
+  const V3 inv = inverse_dir(d);
+  bool occ = false;
+  WalkCursor cur = {live ? 0 : tb.n_entries, 0};
+  for (;;) {
+    const int blk = cur.step(tb.blocks, tb.nodes, tb.n_blocks, tb.hier,
+                             tb.n_entries, o, inv, tmin, tmax, BIG);
+    if (!__any_sync(kFullMask, blk != kWalkDone)) break;
+    unsigned todo = __ballot_sync(kFullMask, blk >= 0);
+    if (todo == 0) continue;
+    if (__popc(todo) >= kOwnSweepMin) {
+      if (blk >= 0) {
+        const int* en = tb.plan + cur.e * PLAN_COLS;
+        int b0 = en[0] + blk * en[6];
+        occ = sweep_rows(en[3], tb.props, tb.kdim, b0,
+                         min(b0 + en[6], en[0] + en[1]), en[4], en[5] != 0, o,
+                         d, time, tmin, tmax,
+                         [&](int r) { return row_u(r, key); },
+                         [](int, float t) { return t < BIG; });
+      }
+    } else {
+      do {
+        const int j = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const V3 oj = shfl3(o, j), dj = shfl3(d, j);
+        const float time_j = __shfl_sync(kFullMask, time, j);
+        const float tmax_j = __shfl_sync(kFullMask, tmax, j);
+        const int e = __shfl_sync(kFullMask, cur.e, j);
+        const int b = __shfl_sync(kFullMask, blk, j);
+        const Key key_j = key_of(j);
+        const int* en = tb.plan + e * PLAN_COLS;
+        const int b0 = en[0] + b * en[6];
+        const int b1 = min(b0 + en[6], en[0] + en[1]);  // past count: padding
+        bool hit = false;
+        for (int base = b0; base < b1 && !hit; base += 32) {  // warp-uniform
+          // one row a lane: base + lane, if it is below b1
+          const bool mine = sweep_rows<32>(
+              en[3], tb.props, tb.kdim, base + lane, min(base + 32, b1),
+              en[4], en[5] != 0, oj, dj, time_j, tmin, tmax_j,
+              [&](int r) { return row_u(r, key_j); },
+              [](int, float t) { return t < BIG; });
+          hit = __any_sync(kFullMask, mine);
+        }
+        if (lane == j) occ = hit;
+      } while (todo);
+    }
+    if (occ) cur.e = tb.n_entries;      // answered: the lane is done
+  }
+  return occ;
+}
 
 // The face of box `pr` that a hit at the entry (or, from inside, the exit)
 // crosses, and its outward normal (intersect._box_payload): returns the

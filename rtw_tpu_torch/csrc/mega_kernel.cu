@@ -84,6 +84,18 @@
 // kernel's carry rows keep the reference's [rows, N] layout, so each row
 // access is coalesced.
 //
+// D's nearest hit over more than 8 blocks (scene 1, the fields) is the
+// split trace kernel's warp-shared walk (geometry.cuh::warp_nearest_hit):
+// each lane walks a candidate block a step and the warp sweeps the pending
+// blocks together below kHybridOwnSweepMin of them, so a warp no longer
+// waits for its busiest lane's sweeps.  It needs the whole warp at one point
+// of control flow, so it runs before the alive branch, dead lanes and the
+// threads past the carry's lanes with a done cursor; a shared sweep draws a
+// volume row's uniform from the owner's bounce hash, which the warp
+// shuffles with the ray.  Its winner is the per-lane walk's, row for row.
+// Every other instantiation (A, and D over at most 8 blocks) keeps the
+// per-lane sweeps; D's shadow test stays per lane too.
+//
 // Shared memory: the upper nodes, the plan and the hier rows always.  The
 // props table, the volume slots and the block AABBs join them, read as
 // warp-wide broadcasts, while everything together fits TABLES_SHARED_MAX of
@@ -117,6 +129,14 @@ constexpr int kBlock = 128;
 // at 700.00 W (PERF.md).
 constexpr int kTraceBlock = 256;
 constexpr int kTraceMinBlocks = 4;
+// D's walking nearest hit: when at least this many lanes of a warp have a
+// block to sweep at one step each sweeps its own, else the warp sweeps them
+// one by one together (csrc/geometry.cuh::warp_nearest_hit).  16 had the
+// least summed time of 1, 8, 12, 16, 20, 24 and 33 at the hybrid launch's
+// captured carries of scene 1 and the 16384-sphere field on an NVIDIA H100
+// 80GB HBM3 at 700.00 W (1.382 ms; 12: 1.412, 20: 1.408; every block alone
+// 2.863, every block shared 1.773; the one-thread walk 2.911; PERF.md).
+constexpr int kHybridOwnSweepMin = 16;
 
 // carry layout (rtw_tpu_torch/ops/mega_kernel.py)
 constexpr int F_ORG = 0, F_DIR = 3, F_THR = 6, F_RAD = 9, F_ACC = 12,
@@ -413,12 +433,34 @@ __device__ __forceinline__ unsigned lane_step(Lane& lane, const Tables& tb,
     alive = true;
   }
 
+  // D walking (the hybrid mode over more than 8 blocks): the warp's shared
+  // nearest hit, which every thread of the warp enters, dead lanes with a
+  // done cursor; a volume row's uniform comes from the owner's bounce hash
+  float shared_t = BIG;
+  int shared_bi = -1;
+  if constexpr (kHybrid && kWalk) {
+    const uint32_t hb = pcg(pk + (uint32_t)(depth + 1) * GOLDEN);
+    warp_nearest_hit<kHybridOwnSweepMin>(
+        {tb.props, tb.blocks, tb.nodes, tb.plan, tb.hier, p.n_entries,
+         p.n_blocks, p.kdim},
+        alive, org, dir, time, p.tmin, p.tmax, hb,
+        [&](int j) { return __shfl_sync(kFullMask, hb, j); },
+        [&](int r, uint32_t h) { return row_u(tb.vol_slot, r, h, 0); },
+        &shared_t, &shared_bi);
+  }
+
   bool still = false;
   if (alive) {
     rays = 1;
     uint32_t hb = pcg(pk + (uint32_t)(depth + 1) * GOLDEN);
     float best_t;
-    int bi = nearest_hit<kWalk>(tb, p, org, dir, time, hb, &best_t);
+    int bi;
+    if constexpr (kHybrid && kWalk) {
+      best_t = shared_t;
+      bi = shared_bi;
+    } else {
+      bi = nearest_hit<kWalk>(tb, p, org, dir, time, hb, &best_t);
+    }
     bool hit = bi >= 0;
     V3 du = normalized(dir);
 
@@ -648,7 +690,13 @@ __global__ void __launch_bounds__(kBlock)
 
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned r = 0;
-  if (i < n) {
+  if constexpr (kHybrid && kWalk) {
+    // the warp-shared nearest hit needs every thread of the warp: a thread
+    // past n steps a dead lane (it traces nothing) and stores nothing
+    Lane lane = i < n ? load_lane(i, n, sf, si) : fresh_lane(0, 0);
+    r = lane_step<kHybrid, kWalk>(lane, tb, p);
+    if (i < n) store_lane(i, n, lane, osf, osi);
+  } else if (i < n) {
     Lane lane = load_lane(i, n, sf, si);
     r = lane_step<kHybrid, kWalk>(lane, tb, p);
     store_lane(i, n, lane, osf, osi);

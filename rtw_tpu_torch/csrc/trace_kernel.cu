@@ -1,5 +1,5 @@
 // Split-tier nearest-hit and any-hit kernels for Hopper (sm_90a), one
-// thread per ray; the nearest-hit kernel's warps share their sweeps.
+// thread per ray, whose warps share their sweeps.
 //
 // `trace_kernel` replaces rtw_tpu/ops/trace_kernel.py::_kernel_body ->
 // _nearest_hit (launched by the pallas_call of _make_tracer.run): the
@@ -11,15 +11,15 @@
 // ray's shutter time, axis rect, box, volume sphere and volume box), each
 // with or without the 3x4 world->object transform.  A volume row reads its
 // free-flight uniform from the wrapper's [max(n_vol, 1), N] rows, row
-// max(vol_slot, 0) (the reference's _block_test); the occlusion query gets
-// the shadow ray's own rows.  The plain versions are
+// max(vol_slot, 0) (the reference's _block_test), in the column of the ray
+// that owns the block (a shared sweep's lane tests another lane's ray); the
+// occlusion query gets the shadow ray's own rows.  The plain versions are
 // rtw_tpu_torch/ops/trace_kernel.py::trace_plain and ::occluded_plain; with
 // -fmad=false and the same explicit fused multiply-adds the two round alike
 // apart from libm (atan2f, asinf and logf here, torch's there).
 //
 // Traversal: per ray, each plan group's blocks in index order through the
-// walk of csrc/geometry.cuh (walk_blocks for the any-hit kernel; the same
-// walk a candidate block at a time, WalkCursor, for the nearest hit).  A
+// walk of csrc/geometry.cuh, a candidate block a step (WalkCursor).  A
 // block is skipped when its world AABB slab test shows that the ray cannot
 // reach it inside (tmin, tmax), or (nearest hit) not before the best t so
 // far: the reference's _block_active cull.  A group of TWO_LEVEL_MIN blocks
@@ -27,30 +27,22 @@
 // blocks, and a node that fails the same test takes its whole span with
 // it: what the reference's two-level _walk_group and its supers do for a
 // 1024-ray tile, each ray here does for itself, over as many levels as the
-// group needs.  The any-hit thread sweeps each block it reaches and returns
-// at its first hit.
+// group needs.
 //
-// The nearest hit sweeps a block with the whole warp.  At each step every
-// lane tests its walk's next candidate block (WalkCursor::step: the node
-// tests that begin there, then the block's own box), so the lanes walk in
-// step; the warp ballots the lanes whose block passed and, for each in turn
-// (lowest lane first), broadcasts that lane's ray and block; lane k tests
-// rows b0 + k, b0 + k + 32, ... and keeps the first row of its least t; the
-// warp reduces (t, row) to the lexicographic minimum, and the owning lane
-// takes it if its t beats the lane's best.  The plain sweep's winner is the
-// first row, in plan and row order, that reaches the least t over the rows
-// the walk does not cull: rows rise with plan entry and block, so that is
-// the lexicographic minimum of (t, row), which the reduction computes block
-// by block; each lane's cursor culls against its own best t after each of
-// its blocks, exactly as the one-thread walk did, so the same blocks are
-// swept and the winner is the same row, its payload the same bits.  A step
-// with kOwnSweepMin passing lanes or more has little to gain from sharing
-// (each shared block costs the warp ~21 shuffles and the ballot on top of
-// its rows): there each of those lanes sweeps its own block, in row order
-// with a strict `<`, as one thread a ray does, all of them at once.  The
-// sweep keeps only (best t, best row) and reads the winner's props row once
-// after it (the TPU's one-hot winner fetch exists only because Mosaic has
-// no per-lane gather).
+// Both kernels are geometry.cuh's warp-shared walk (warp_nearest_hit,
+// warp_any_hit): each step every lane tests its walk's next candidate (the
+// node tests that begin there, then the block's own box), so the lanes walk
+// in step; the warp ballots the lanes whose block passed and, below a
+// threshold, sweeps each such block together (lane k tests rows b0 + k,
+// b0 + k + 32, ... on the owner's ray), at or above it each lane sweeps its
+// own.  The nearest hit reduces (t, row) to the lexicographic minimum, the
+// plain sweep's winner, and each lane culls on its own best t; the any-hit
+// walk culls on nothing but (tmin, tmax), so its answer is the OR over the
+// rows of the blocks it reaches, in any order, and a shared sweep ends at
+// the first 32-row round with a hit.  The sweep keeps only (best t, best
+// row) and reads the winner's props row once after it (the TPU's one-hot
+// winner fetch exists only because Mosaic has no per-lane gather).  An
+// any-hit lane whose tmax <= tmin can pass no prim test: it starts done.
 //
 // What bounds it on this card: not memory.  A ray reads 32 B (o, d, time,
 // tmax) and writes 104 B (21 f32 + 5 i32 rows) or 1 B; the props table
@@ -59,10 +51,11 @@
 // consecutive rows.  The cost is the slab tests of the walk and the prim
 // tests of the blocks each ray cannot cull, under divergence: lanes of a
 // warp reach different numbers of blocks (the busiest lane of a warp needs
-// 1.7-4.4x the prim tests of the mean lane at the paths' captured inputs,
-// chip_smoke.py's replay), and one thread a ray sweeps as long as the
-// busiest lane.  Shared sweeps cost the warp the mean lane's tests plus the
-// shuffles, a pending block at a time.  The walk cuts the slab tests from
+// 1.7-4.4x the prim tests of the mean lane at the paths' captured inputs
+// for the nearest hit, 6.7-8.0x for the any-hit query, whose lanes are
+// mostly dead or stop early; chip_smoke.py's replay), and one thread a ray
+// sweeps as long as the busiest lane.  Shared sweeps cost the warp the
+// mean lane's tests plus the shuffles, a pending block at a time.  The walk cuts the slab tests from
 // one per block to 16 per node entered; SceneBuilder's Morton order makes
 // consecutive blocks neighbours, so a node's box is tight.  The step of
 // one candidate and kOwnSweepMin = 20 come from two sweeps on an NVIDIA
@@ -74,7 +67,12 @@
 // Walking on to the next block let the lanes drift apart (a flat
 // 4096-block group ran 4.5x slower than one thread a ray); in the first
 // sweep, sharing every block was 3-64% slower than 20, sweeping every
-// block alone 23-74%.  The walk's slab tests stay per lane.  A volume's t
+// block alone 23-74%.  kOcclOwnSweepMin = 16 comes from a third sweep, of
+// 1, 4, 8, 12, 16, 20, 24 and 33, at the any-hit launch's captured inputs
+// of scenes 2 and 4 and the lit 65536-sphere field on the same card: 16
+// had the least summed time (0.562 ms; 12: 0.580, 20: 0.572; every block
+// alone 1.996, every block shared 0.789; the one-thread walk 2.056).  The
+// walk's slab tests stay per lane.  A volume's t
 // is never before its boundary's entry, so the cull stays exact for
 // volumes (their groups stay flat); scene 4's radius-500 fog covers the
 // scene, so its block is never culled and every ray pays one log per fog
@@ -99,11 +97,11 @@ using namespace rtw;
 namespace {
 
 constexpr int kBlock = 128;
-constexpr unsigned kFullMask = 0xffffffffu;
-// trace_kernel: when at least this many lanes of a warp have a block to
-// sweep at one step, each sweeps its own, as one thread a ray does; below
-// it the warp sweeps them one by one together
+// When at least this many lanes of a warp have a block to sweep at one step,
+// each sweeps its own, as one thread a ray does; below it the warp sweeps
+// them one by one together: trace_kernel, occluded_kernel (the sweeps above)
 constexpr int kOwnSweepMin = 20;
+constexpr int kOcclOwnSweepMin = 16;
 // block AABBs are staged in shared memory up to this many bytes
 constexpr int kBlocksSharedMax = 16 * 1024;
 
@@ -137,22 +135,16 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays,
           rays[7 * n + i]};
 }
 
-// What the walk reads: the block AABBs (shared or global), the upper nodes,
-// the plan and the hier rows (shared).
-struct Tables {
-  const float* blocks;
-  const float* nodes;
-  const int* plan;
-  const int* hier;
-};
-
 // Stage the tables in dynamic shared memory: [nodes][blocks, if
 // kBlocksShared][plan][hier].  `aabbs` is the augmented table: n_blocks
-// block rows, then n_nodes upper rows.
+// block rows, then n_nodes upper rows.  The walk reads the props from
+// global memory.
 template <bool kBlocksShared>
-__device__ __forceinline__ Tables stage(const float* aabbs, const int* plan,
-                                        const int* hier,
-                                        const TraceParams& p, float* smem) {
+__device__ __forceinline__ SweepTables stage(const float* props,
+                                             const float* aabbs,
+                                             const int* plan, const int* hier,
+                                             const TraceParams& p,
+                                             float* smem) {
   const int n_nd = p.n_nodes * AABB_COLS, n_bl = p.n_blocks * AABB_COLS;
   float* s_nodes = smem;
   float* s_blocks = smem + n_nd;
@@ -169,28 +161,8 @@ __device__ __forceinline__ Tables stage(const float* aabbs, const int* plan,
   for (int k = threadIdx.x; k < p.n_entries * HIER_COLS; k += blockDim.x)
     s_hier[k] = hier[k];
   __syncthreads();
-  return {kBlocksShared ? s_blocks : aabbs, s_nodes, s_plan, s_hier};
-}
-
-// (t, row) of every lane of the warp reduced to the lexicographic minimum,
-// on every lane: the smallest t, and the lowest row among equal t.  Every
-// t is below BIG or exactly BIG (no NaN), so the order is total and the
-// butterfly gives every lane the same pair.
-__device__ __forceinline__ void warp_min(float* t, int* row) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    float t2 = __shfl_xor_sync(kFullMask, *t, off);
-    int r2 = __shfl_xor_sync(kFullMask, *row, off);
-    if (t2 < *t || (t2 == *t && r2 < *row)) {
-      *t = t2;
-      *row = r2;
-    }
-  }
-}
-
-__device__ __forceinline__ V3 shfl3(V3 v, int lane) {
-  return {__shfl_sync(kFullMask, v.x, lane), __shfl_sync(kFullMask, v.y, lane),
-          __shfl_sync(kFullMask, v.z, lane)};
+  return {props, kBlocksShared ? s_blocks : aabbs, s_nodes, s_plan, s_hier,
+          p.n_entries, p.n_blocks, p.kdim};
 }
 
 template <bool kBlocksShared>
@@ -203,7 +175,8 @@ __global__ void __launch_bounds__(kBlock)
                  const int* __restrict__ vol_slot, float* __restrict__ of,
                  int* __restrict__ oi, int n, TraceParams p) {
   extern __shared__ float smem[];
-  Tables tb = stage<kBlocksShared>(aabbs, plan, hier, p, smem);
+  const SweepTables tb = stage<kBlocksShared>(props, aabbs, plan, hier, p,
+                                              smem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
   // Threads past n stay to the end: every lane of a warp takes part in
@@ -211,74 +184,17 @@ __global__ void __launch_bounds__(kBlock)
   const bool valid = i < n;
   Ray ray = {};
   if (valid) ray = load_ray(rays, i, n);
-  const V3 inv = inverse_dir(ray.d);
 
   // ---- nearest hit: (best t, best row) over the groups in plan order ----
-  float bt = BIG;
-  int bi = -1;
-  WalkCursor cur = {valid ? 0 : p.n_entries, 0};
-  for (;;) {
-    // every lane walks one candidate block; the warp leaves when all are
-    // done, and sweeps the blocks that passed
-    const int blk = cur.step(tb.blocks, tb.nodes, p.n_blocks, tb.hier,
-                             p.n_entries, ray.o, inv, p.tmin, ray.tmax, bt);
-    if (!__any_sync(kFullMask, blk != kWalkDone)) break;
-    unsigned todo = __ballot_sync(kFullMask, blk >= 0);
-    if (todo == 0) continue;
-    if (__popc(todo) >= kOwnSweepMin) {
-      // a nearly full warp: each pending lane sweeps its own block
-      if (blk >= 0) {
-        const int* en = tb.plan + cur.e * PLAN_COLS;
-        int b0 = en[0] + blk * en[6];
-        sweep_rows(en[3], props, p.kdim, b0, min(b0 + en[6], en[0] + en[1]),
-                   en[4], en[5] != 0, ray.o, ray.d, ray.time, p.tmin,
-                   ray.tmax,
-                   [&](int r) { return vol_u[max(vol_slot[r], 0) * n + i]; },
-                   [&](int r, float t) {
-                     if (t < bt) {
-                       bt = t;
-                       bi = r;
-                     }
-                     return false;
-                   });
-      }
-    } else {
-      // the warp sweeps each pending lane's block together, lowest lane
-      // first: lane k tests rows b0 + k, b0 + k + 32, ... of lane j's block
-      // on lane j's ray
-      do {
-        const int j = __ffs(todo) - 1;
-        todo &= todo - 1;
-        const V3 o = shfl3(ray.o, j), d = shfl3(ray.d, j);
-        const float time = __shfl_sync(kFullMask, ray.time, j);
-        const float tmax = __shfl_sync(kFullMask, ray.tmax, j);
-        const int e = __shfl_sync(kFullMask, cur.e, j);
-        const int b = __shfl_sync(kFullMask, blk, j);
-        const int owner = i - lane + j;      // lane j's ray index
-        const int* en = tb.plan + e * PLAN_COLS;
-        const int b0 = en[0] + b * en[6];
-        const int b1 = min(b0 + en[6], en[0] + en[1]);  // past count: padding
-        float t = BIG;
-        int row = INT_MAX;
-        sweep_rows<32>(
-            en[3], props, p.kdim, b0 + lane, b1, en[4], en[5] != 0, o, d,
-            time, p.tmin, tmax,
-            [&](int r) { return vol_u[max(vol_slot[r], 0) * n + owner]; },
-            [&](int r, float tr) {
-              if (tr < t) {        // rows rise: the lowest row of equal t
-                t = tr;
-                row = r;
-              }
-              return false;
-            });
-        warp_min(&t, &row);
-        if (lane == j && t < bt) {
-          bt = t;
-          bi = row;
-        }
-      } while (todo);
-    }
-  }
+  float bt;
+  int bi;
+  warp_nearest_hit<kOwnSweepMin>(
+      tb, valid, ray.o, ray.d, ray.time, p.tmin, ray.tmax, i,
+      [&](int j) { return i - lane + j; },   // lane j's ray index
+      [&](int r, int ray_i) {
+        return vol_u[max(vol_slot[r], 0) * n + ray_i];
+      },
+      &bt, &bi);
   if (!valid) return;
 
   // ---- payload of the winner (intersect._winner_payload) ----------------
@@ -330,31 +246,22 @@ __global__ void __launch_bounds__(kBlock)
                     const int* __restrict__ vol_slot,
                     uint8_t* __restrict__ out, int n, TraceParams p) {
   extern __shared__ float smem[];
-  Tables tb = stage<kBlocksShared>(aabbs, plan, hier, p, smem);
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Ray ray = load_ray(rays, i, n);
-  auto row_u = [&](int r) { return vol_u[max(vol_slot[r], 0) * n + i]; };
-
-  bool occ = false;
-  for (int e = 0; e < p.n_entries && !occ; ++e) {
-    const int* en = tb.plan + e * PLAN_COLS;
-    int start = en[0], end = en[0] + en[1], ptype = en[3], axis = en[4],
-        block = en[6];
-    bool xform = en[5] != 0;
-    // first hit: the lane leaves
-    occ = walk_blocks(
-        tb.blocks, tb.nodes, p.n_blocks, tb.hier + e * HIER_COLS, ray.o,
-        ray.d, p.tmin, ray.tmax, [] { return BIG; },
-        [&](int b) {
-          int b0 = start + b * block;
-          return sweep_rows(ptype, props, p.kdim, b0, min(b0 + block, end),
-                            axis, xform, ray.o, ray.d, ray.time, p.tmin,
-                            ray.tmax, row_u,
-                            [](int, float t) { return t < BIG; });
-        });
-  }
-  out[i] = occ ? 1 : 0;
+  const SweepTables tb = stage<kBlocksShared>(props, aabbs, plan, hier, p,
+                                              smem);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  // Threads past n stay to the end, as in trace_kernel; a dead lane (tmax
+  // <= tmin: no prim test can pass) starts done.
+  const bool valid = i < n;
+  Ray ray = {};
+  if (valid) ray = load_ray(rays, i, n);
+  const bool occ = warp_any_hit<kOcclOwnSweepMin>(
+      tb, valid && ray.tmax > p.tmin, ray.o, ray.d, ray.time, p.tmin, ray.tmax, i,
+      [&](int j) { return i - lane + j; },   // lane j's ray index
+      [&](int r, int ray_i) {
+        return vol_u[max(vol_slot[r], 0) * n + ray_i];
+      });
+  if (valid) out[i] = occ ? 1 : 0;
 }
 
 bool blocks_shared(const TraceParams& p) {

@@ -306,3 +306,46 @@ def test_auto_gate_still_raises_on_unported_options(name, on_cuda):
     cfg = rtt.RenderConfig(nx=8, ny=8, spp=1, rng="threefry")
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
         TI._mega_backend(cfg, scene)
+
+
+def test_warp_shared_walk_gives_the_hybrid_step_winner(monkeypatch):
+    """D's nearest hit on the card is the trace kernel's warp-shared walk
+    (csrc/geometry.cuh::warp_nearest_hit).  Its schedule, emulated
+    (tests/test_torch_trace.py::_warp_shared_trace), picks the plain hybrid
+    step's winner and t on every live lane of scene 1's carry after three
+    qmega iterations (plain hybrid steps and the queue's flush), on the
+    rays, tmax and uniforms that step traces; dead lanes miss."""
+    from test_torch_trace import _warp_shared_trace
+    from rtw_tpu_torch.ops import trace_kernel as TK
+
+    class _Traced(Exception):
+        pass
+
+    calls = []
+
+    def record(*args):
+        hit = intersect(*args)
+        calls.append((args, hit))
+        if len(calls) == 4:
+            raise _Traced
+        return hit
+
+    intersect = TMK.intersect_scene
+    monkeypatch.setattr(TMK, "intersect_scene", record)
+    cfg = rtt.RenderConfig(nx=64, ny=32, spp=3, max_depth=6, scene_id=1,
+                           seed=5)
+    ts = rtt.build_scene(1, cfg.nx, cfg.ny, device="cpu")
+    assert TK.split_tables(ts).n_blocks > TMK.STRAIGHT_MAX_BLOCKS  # walked
+    with pytest.raises(_Traced):
+        TI.trace_wavefront_qmega(ts, cfg, torch.arange(cfg.num_pixels),
+                                 cfg.seed, 0, cfg.spp)
+    (scene, o, d, tmin, tmax, time, vol_u), want = calls[-1]
+    live = tmax > tmin
+    assert 0.2 < float(live.float().mean()) < 1.0
+    assert not bool((want.prim_idx[~live] >= 0).any())
+    t, row = _warp_shared_trace(
+        scene, TK.split_tables(scene), type(o)(*(c[live] for c in o)),
+        type(d)(*(c[live] for c in d)), tmin, tmax[live], time[live],
+        vol_u[:, live])
+    assert torch.equal(row, want.prim_idx[live])
+    assert torch.equal(t, want.t[live])

@@ -352,3 +352,211 @@ def test_warp_shared_sweep_gives_the_plain_winner_on_the_walked_field(
     _assert_warp_shared_equals_plain(scene, o, d, tmax,
                                      np.zeros(N, np.float32),
                                      np.full((1, N), 0.5, np.float32))
+
+
+# ---- the any-hit kernel's warp-shared schedule, emulated in torch ----
+
+def _occl_own_sweep_min():
+    """occluded_kernel's threshold, read from its source."""
+    import re
+    from pathlib import Path
+
+    src = (Path(TK.__file__).parent.parent / "csrc" / "trace_kernel.cu")
+    return int(re.search(r"kOcclOwnSweepMin = (\d+);",
+                         src.read_text()).group(1))
+
+
+def _warp_any_hit(scene, tables, o, d, tmin, tmax, time, vol_u, own_min):
+    """(occluded [N], branch counts) under the CUDA kernel's schedule
+    (csrc/geometry.cuh::warp_any_hit), one 32-lane warp per 32 rays: each
+    step every lane's WalkCursor tests its next candidate (the nodes that
+    begin there, highest level first, then the block; bound BIG, so no cull
+    by earlier hits); the warp ballots the lanes whose block passed; with
+    `own_min` of them or more each sweeps its own block to its first hit,
+    else the warp sweeps each pending lane's block in lane order, lane k
+    testing rows b0 + k + 32 m on the owner's ray in round m, the ballot of
+    a round's hits ending the block; an occluded lane is done.  Lanes past
+    N and dead lanes (tmax <= tmin) are done from the start and stay in
+    every ballot."""
+    n = o.x.shape[0]
+    n_pad = -(-n // 32) * 32
+    tmax = torch.as_tensor(tmax, dtype=torch.float32).expand(n)
+    o, d = ([torch.nn.functional.pad(c, (0, n_pad - n)) for c in v]
+            for v in (o, d))
+    tmax_p = torch.nn.functional.pad(tmax, (0, n_pad - n), value=-TI.BIG)
+    inv = [1.0 / torch.where(c == 0.0, 1e-30, c) for c in d]
+    plan = scene.chunk_plan
+    n_entries = len(plan)
+    hier = torch.tensor([list(r) for r in tables.layout])
+    rounds = -(-max(e[6] for e in plan) // 32)
+    # hits[g, k, i]: row k of the g-th block (all groups in plan order) hit
+    # by ray i, on ray i's own shutter time and volume uniforms; rows past
+    # a group's count are padding and never hit
+    hits, first_g = [], []
+    for entry in plan:
+        start, count, size, ptype, axis, xform, blk = entry
+        first_g.append(len(hits))
+        for b0 in range(start, start + size, blk):
+            rows = max(0, min(blk, start + count - b0))
+            sl = slice(b0, b0 + rows)
+            t = TI._block_t(ptype, axis, xform, scene.prims.params[sl],
+                            scene.prims.w2o[sl], scene.prims.vol_slot[sl],
+                            TV(*(c[:n] for c in o)), TV(*(c[:n] for c in d)),
+                            tmin, tmax, time, vol_u,
+                            torch.ones(rows, dtype=torch.bool))
+            h = torch.zeros(32 * rounds, n_pad, dtype=torch.bool)
+            h[:rows, :n] = t < TI.BIG
+            hits.append(h)
+    hits = torch.stack(hits)
+    first_g = torch.tensor(first_g)
+    rows_of = torch.tensor([max(0, min(e[6], e[0] + e[1] - b0))
+                            for e in plan
+                            for b0 in range(e[0], e[0] + e[2], e[6])])
+
+    def box_active(row):                      # per lane, bound BIG
+        ab = tables.aabbs[row]                # [n_pad, 8]
+        near = torch.full((n_pad,), -TI.BIG)
+        far = torch.full((n_pad,), TI.BIG)
+        for ax in range(3):
+            t0 = (ab[:, ax] - o[ax]) * inv[ax]
+            t1 = (ab[:, 3 + ax] - o[ax]) * inv[ax]
+            near = torch.maximum(near, torch.minimum(t0, t1))
+            far = torch.minimum(far, torch.maximum(t0, t1))
+        return ((far >= torch.clamp_min(near, tmin)) & (near < tmax_p)
+                & (near < TI.BIG))
+
+    lane_ids = torch.arange(n_pad)
+    e = torch.where((lane_ids < n) & (tmax_p > tmin), 0, n_entries)
+    b = torch.zeros(n_pad, dtype=torch.int64)
+    occ = torch.zeros(n_pad, dtype=torch.bool)
+    counts = {"steps": 0, "own": 0, "shared": 0, "rounds": 0}
+    while True:
+        # ---- WalkCursor::step of every lane
+        while True:                           # past exhausted groups
+            ec = e.clamp(max=n_entries - 1)
+            past = (e < n_entries) & (b >= hier[ec, TK.H_BLOCKS])
+            if not bool(past.any()):
+                break
+            e, b = torch.where(past, e + 1, e), torch.where(past, 0, b)
+        walking = e < n_entries
+        ec = e.clamp(max=n_entries - 1)
+        levels = hier[ec, TK.H_LEVELS]
+        skip = torch.zeros(n_pad, dtype=torch.int64)
+        for lv in range(int(hier[:, TK.H_LEVELS].max()), 0, -1):
+            span = TK.WALK_FAN ** lv
+            here = walking & (levels >= lv) & (b % span == 0) & (skip == 0)
+            row = hier[ec, TK.H_LEVEL0 + lv].clamp(min=0) + b // span
+            row = torch.where(here, row, 0)
+            skip = torch.where(here & ~box_active(row), span, skip)
+        passed = box_active(torch.where(walking, hier[ec, TK.H_FIRST] + b, 0))
+        blk = torch.where(walking & (skip == 0) & passed, b, -1)
+        blk = torch.where(walking, blk, -2)
+        b = torch.where(walking, b + torch.where(skip > 0, skip, 1), b)
+        if not bool((blk != -2).any()):
+            break
+        counts["steps"] += 1
+        g = first_g[ec] + blk.clamp(min=0)    # the lane's block, if pending
+        # ---- the ballot and the sweeps, warp by warp
+        pend = (blk >= 0).view(-1, 32)
+        own = pend.sum(1, keepdim=True) >= own_min
+        mine = (own & pend).view(-1)
+        counts["own"] += int(mine.sum())
+        occ |= mine & hits[g, :, lane_ids].any(1)
+        shared = ~own & pend                  # [warps, 32]
+        for j in range(32):                   # lowest pending lane first
+            wj = torch.nonzero(shared[:, j])[:, 0]
+            if wj.numel() == 0:
+                continue
+            counts["shared"] += wj.numel()
+            owner = wj * 32 + j
+            go = g[owner]
+            hit = torch.zeros(wj.numel(), dtype=torch.bool)
+            for m in range(rounds):           # 32-row rounds
+                k = torch.arange(32) + 32 * m
+                live = ~hit & (32 * m < rows_of[go])
+                counts["rounds"] += int(live.sum())
+                mine_k = (hits[go[:, None], k[None, :], owner[:, None]]
+                          & (k[None, :] < rows_of[go][:, None]))
+                hit |= live & mine_k.any(1)   # the round's ballot
+            occ[owner] |= hit
+        e = torch.where(occ, n_entries, e)    # answered: done
+    return occ[:n], counts
+
+
+def _shadow_inputs(sid):
+    """(scene, o, d, tmax, time, vol_u) of N shadow queries: on a scene
+    with a light, from _rays' origins toward random points of the light
+    (unit direction, tmax 0.999 of the distance); else random directions
+    with random finite tmax; every 8th lane dead (tmax -1e30).  "ties": the
+    tie scene's rays with random finite tmax."""
+    rng = np.random.default_rng(23)
+    if sid == "ties":
+        scene = tie_scene(TSceneBuilder, TS)
+        o, d, tmax = tie_rays(N, 5)
+        tmax = np.where(tmax < 0, tmax, rng.uniform(0.0, 300.0, N))
+        n_vol = 1
+    else:
+        scene = rtt.build_scene(sid, 64, 48, device="cpu")
+        o, d, _, _ = _rays(sid)
+        n_vol = scene.n_vol
+        if scene.num_lights:
+            lt = scene.lights
+            a, c = rng.uniform(size=(2, N, 1))
+            target = (lt.position[0].numpy() + a * lt.vec_u[0].numpy()
+                      + c * lt.vec_v[0].numpy()).T
+            ray = target - o
+            dist = np.linalg.norm(ray, axis=0)
+            d = ray / dist
+            tmax = 0.999 * dist
+        else:
+            tmax = rng.uniform(0.0, 2.0 * RAYS[sid][0], N)
+    tmax = np.where(np.arange(N) % 8 == 7, -1e30, tmax)
+    time = rng.uniform(0.0, 1.0, N).astype(np.float32)
+    vol_u = rng.uniform(size=(max(n_vol, 1), N)).astype(np.float32)
+    return (scene, np.ascontiguousarray(o, np.float32),
+            np.ascontiguousarray(d, np.float32), tmax.astype(np.float32),
+            time, vol_u)
+
+
+def _assert_warp_any_hit_equals_plain(scene, o, d, tmax, time, vol_u):
+    tables = TK.split_tables(scene)
+    args = (_tv(o), _tv(d), 1e-4, torch.as_tensor(tmax),
+            torch.as_tensor(time), torch.as_tensor(vol_u))
+    want = TK.occluded_plain(scene, *args)
+    for own_min in (1, 33, _occl_own_sweep_min()):
+        got, counts = _warp_any_hit(scene, tables, *args, own_min)
+        assert torch.equal(got, want), own_min
+    assert 0.02 < float(want.float().mean()) < 0.98
+    assert not bool(want[7::8].any())         # dead lanes: never occluded
+    return counts
+
+
+@pytest.mark.parametrize("sid", [0, 1, 2, 5, 3, 4, "ties"])
+def test_warp_shared_any_hit_gives_the_plain_answer(sid):
+    """The any-hit kernel's schedule, emulated, equals occluded_plain on
+    every lane of scenes 0-5 (shadow rays toward the light where there is
+    one) and the tie scene, at the kernel's threshold, with every block
+    swept alone (1) and with every block shared (33)."""
+    counts = _assert_warp_any_hit_equals_plain(*_shadow_inputs(sid))
+    assert counts["shared"] > 0
+
+
+def test_warp_shared_any_hit_gives_the_plain_answer_on_the_walked_field(
+        monkeypatch):
+    """The same on the walked 2500-sphere field (threshold 32 blocks: two
+    full nodes and a ragged one), where the kernel's threshold sends some
+    steps to each lane's own sweep."""
+    from rtw_tpu_torch.models.registry import build_stress_scene
+
+    monkeypatch.setattr(TK, "TWO_LEVEL_MIN", 32)
+    scene = build_stress_scene(2500, device="cpu")
+    assert [r[TK.H_LEVELS] for r in TK.split_tables(scene).layout] == [1]
+    rng = np.random.default_rng(29)
+    o = (rng.uniform(-1, 1, (3, N)) * 250.0).astype(np.float32)
+    d = rng.normal(size=(3, N)).astype(np.float32)
+    tmax = np.where(np.arange(N) % 8 == 7, -1e30,
+                    rng.uniform(0.0, 700.0, N)).astype(np.float32)
+    counts = _assert_warp_any_hit_equals_plain(
+        scene, o, d, tmax, np.zeros(N, np.float32),
+        np.full((1, N), 0.5, np.float32))
+    assert counts["shared"] > 0 and counts["own"] > 0
