@@ -28,6 +28,14 @@ the port's paths through `render`:
   fields with the flat block scan beside it, the 65536 field with a light
   (the occlusion kernel), and the 16384 field with backend="mega" (the
   persistent kernel, against the loop as above) and scheduler="qmega";
+- the rest of render()'s option surface on the split tier: scene 2 at
+  800x400, 16 spp, depth 20 with rng="tea", rng="threefry" and
+  estimator="book", and scene 1 with bounce_stats and occupancy_trace,
+  each beside the fast, mis, counter-free render of its scene in turns;
+- resume on the megakernel path: Cornell at 800x800, 16 spp in chunks of
+  4, stopped after its second save and resumed, bit-equal to a whole
+  render in two `mega_trace` launches, and the kernel held against its
+  plain twin at the first resumed chunk's inputs;
 
 and checks that each path launched its kernels.  Beside them: the trace
 and occlusion kernels on a scene of tied prims (equal spheres across and
@@ -35,8 +43,9 @@ inside a block, coincident rects and boxes) against their plain versions
 on every lane; the furnace cavity (6 lights, outside the megakernel's
 envelope) through scheduler="auto", which must render on the plain regen
 sweep with no kernel launched and meet tests/test_integrator.py's furnace
-bounds; per
-launch, each kernel's time beside the one read before its warps shared
+bounds; Cornell with estimator="book" and with rng="tea" through "auto",
+outside the megakernel's envelope: no kernel launched, and a forced
+megakernel refused; per launch, each kernel's time beside the one read before its warps shared
 their sweeps (PERF.md) and, for the split kernels and the hybrid step's
 nearest hit, the per-warp spread of the work their lanes need (the
 busiest lane's against the mean lane's, from the replay of the walk that
@@ -74,6 +83,18 @@ SCENE3_WORKLOAD = (400, 400, 32)
 SCENE5_WORKLOAD = (400, 224, 64)
 SPLIT_WORKLOADS = {1: (800, 400, 16), 2: (800, 400, 16), 4: (800, 400, 8)}
 QMEGA_SCENE = 1
+# the rest of render()'s option surface on the split tier: (path, scene,
+# options), each at its scene's SPLIT_WORKLOADS entry, depth 20
+OPTION_PATHS = (("tea", 2, {"rng": "tea"}),
+                ("threefry", 2, {"rng": "threefry"}),
+                ("book", 2, {"estimator": "book"}),
+                ("stats", 1, {"bounce_stats": True, "occupancy_trace": True}))
+COUNTER_METRICS = ("rays_by_depth", "wavefront_iterations", "mean_occupancy",
+                   "occupancy_by_iter")
+# resume on the megakernel path: Cornell at (nx, ny, spp), in chunks of
+# RESUME_CHUNK samples, a save after each, stopped after the second save
+RESUME_WORKLOAD = (800, 800, 16)
+RESUME_CHUNK = 4
 SPLIT_LANES = 800 * 400
 # the scale tier: tools/stress_scale.py's workload on the stress fields
 FIELDS = (16384, 65536, 262144)
@@ -534,6 +555,59 @@ def _trace_bound(scene, params, probe, grid, n):
                   + 300 * probe["traced"])
 
 
+# the kernels line's keys that `_against_twin` measures
+TWIN_KEYS = ("max_abs_err", "plain_ms", "bound_ms", "bound_by")
+
+
+def _against_twin(scene, cfg, pix, params, s0, n_samples):
+    """`mega_trace` against its plain twin `mega_trace_plain` on the same
+    inputs (the samples [s0, s0 + n_samples) of `pix`): every lane but
+    0.1% within 1e-4 a sample, channel means within rtol 0.02 / atol
+    0.003, rays within 0.5%; the twin timed once with CUDA events; the
+    bound from the per-iteration loop's run on the same lanes
+    (`_trace_bound`).  Returns {"max_abs_err": a lane's max abs diff a
+    sample, "plain_ms", "bound_ms", "bound_by", "report", "carry": the
+    loop's carry after 10 iterations}."""
+    from rtw_tpu_torch.ops import mega_kernel as MK
+
+    rk = torch.zeros(1, dtype=torch.int64, device="cuda")
+    rp = torch.zeros_like(rk)
+    acc_k = MK.mega_trace(scene, cfg, pix, params, rk)
+    grid = MK.last_trace["grid"]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    acc_p = MK.mega_trace_plain(scene, cfg, pix, params, rp)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    mk, mp = (a.mean(1).cpu().numpy() / n_samples for a in (acc_k, acc_p))
+    diff = (acc_k - acc_p).abs()
+    share = float((diff <= 1e-4 * (n_samples + acc_p.abs())).all(0)
+                  .float().mean())
+    err = float(diff.max()) / n_samples        # a lane's pixel value
+    report = (f"mega_trace vs mega_trace_plain, {pix.shape[0]} lanes, "
+              f"samples {s0}-{s0 + n_samples - 1}: means {_fmt(mk)} vs "
+              f"{_fmt(mp)}, rays {int(rk)} vs {int(rp)}, lanes within 1e-4 a "
+              f"sample {share:.6f}, max abs diff a lane {err:.3e} a sample; "
+              f"plain {plain_ms:.1f} ms")
+    if share < 0.999:
+        raise AssertionError(f"{report}: fewer than 0.999 of the lanes within "
+                             "1e-4 a sample")
+    np.testing.assert_allclose(mk, mp, rtol=0.02, atol=0.003,
+                               err_msg=report)
+    if abs(int(rk) - int(rp)) > 0.005 * int(rp):
+        raise AssertionError(f"{report}: rays beyond 0.5%")
+
+    probe = {}
+    _loop_trace(scene, cfg, pix, cfg.seed, s0, n_samples, probe)
+    bound = _trace_bound(scene, params, probe, grid, pix.shape[0])
+    report += (f"; bound {bound[0]:.4f} ms ({bound[1]}; {probe['traced']} "
+               f"lane-steps in {probe['steps']} steps)")
+    return dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], report=report, carry=probe["carry"])
+
+
 def _mega_path(label, scene, cfg, path):
     """A megakernel path through `render` at its full width, twice: the
     persistent kernel (one `mega_trace` launch per `trace_wavefront_mega`
@@ -606,48 +680,17 @@ def _mega_path(label, scene, cfg, path):
           flush=True)
 
     params = MK.mega_params(scene, cfg.seed, cfg, cfg.spp)
-    rk = torch.zeros(1, dtype=torch.int64, device="cuda")
-    rp = torch.zeros_like(rk)
-    acc_k = MK.mega_trace(scene, cfg, pix, params, rk)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    acc_p = MK.mega_trace_plain(scene, cfg, pix, params, rp)
-    end.record()
-    torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(end)
-    mk, mp = (a.mean(1).cpu().numpy() / cfg.spp for a in (acc_k, acc_p))
-    diff = (acc_k - acc_p).abs()
-    share = float((diff <= 1e-4 * (cfg.spp + acc_p.abs())).all(0)
-                  .float().mean())
-    err = float(diff.max()) / cfg.spp          # a lane's pixel value
-    report = (f"mega_trace vs mega_trace_plain, {pix.shape[0]} lanes: means "
-              f"{_fmt(mk)} vs {_fmt(mp)}, rays {int(rk)} vs {int(rp)}, lanes "
-              f"within 1e-4 a sample {share:.6f}, max abs diff a lane "
-              f"{err:.3e} a sample; plain {plain_ms:.1f} ms")
-    if share < 0.999:
-        raise AssertionError(f"{report}: fewer than 0.999 of the lanes within "
-                             "1e-4 a sample")
-    np.testing.assert_allclose(mk, mp, rtol=0.02, atol=0.003,
-                               err_msg=report)
-    if abs(int(rk) - int(rp)) > 0.005 * int(rp):
-        raise AssertionError(f"{report}: rays beyond 0.5%")
-
-    probe = {}
-    _loop_trace(scene, cfg, pix, cfg.seed, 0, cfg.spp, probe)
-    bound = _trace_bound(scene, params, probe, info["grid"], pix.shape[0])
-    print(f"[{label} check] {report}; bound {bound[0]:.4f} ms ({bound[1]}; "
-          f"{probe['traced']} lane-steps in {probe['steps']} steps)",
-          flush=True)
-    trace_row = dict(launches=counts["trace"], max_abs_err=err,
-                     ms=(p1 + p2) / 2, plain_ms=plain_ms, bound_ms=bound[0],
-                     bound_by=bound[1], library_ms=None,
-                     loop_ms=(l1 + l2) / 2, loop_launches=counts_l["step"],
+    twin = _against_twin(scene, cfg, pix, params, 0, cfg.spp)
+    print(f"[{label} check] {twin['report']}", flush=True)
+    trace_row = dict(launches=counts["trace"], ms=(p1 + p2) / 2,
+                     library_ms=None, loop_ms=(l1 + l2) / 2,
+                     loop_launches=counts_l["step"],
                      mrays_per_sec=m["mrays_per_sec"],
-                     loop_mrays_per_sec=m_l["mrays_per_sec"])
+                     loop_mrays_per_sec=m_l["mrays_per_sec"],
+                     **{k: twin[k] for k in TWIN_KEYS})
 
-    c_params, sf, si = probe["carry"]
-    err, report = _compare_step(f"{path} {sf.shape[1]} lanes, carry after "
+    c_params, sf, si = twin["carry"]
+    _, report = _compare_step(f"{path} {sf.shape[1]} lanes, carry after "
                                 f"10 iterations", scene, cfg, c_params, sf,
                                 si, min_equal=1.0 if c_params.c_params.walk
                                 else 0.999)
@@ -1609,7 +1652,8 @@ def _field_render(tag, label, scene, cfg, need_occluded=False):
 
 def _against_plain_queue(tag, label, scene, cfg):
     """`auto` (the queue with kernels B and C) against the plain queue
-    (backend="jnp") on the card: equal rays, every pixel within 1e-4."""
+    (backend="jnp") on the card: equal rays, every pixel within 1e-4, and
+    with cfg.bounce_stats equal counters."""
     import dataclasses
 
     import rtw_tpu_torch as rtt
@@ -1630,6 +1674,12 @@ def _against_plain_queue(tag, label, scene, cfg):
     if (mk["rays"] != mp["rays"] or not bool(close.all())
             or not bool(torch.isfinite(img_k).all())):
         raise AssertionError(f"{report}: needs equal rays and every pixel")
+    if cfg.bounce_stats:
+        differ = [k for k in COUNTER_METRICS if mk[k] != mp[k]]
+        report += (f", counters equal ({mk['wavefront_iterations']:.0f} "
+                   f"iterations, mean occupancy {mk['mean_occupancy']:.4f})")
+        if differ:
+            raise AssertionError(f"{report}: counters differ: {differ}")
     print(f"[{tag}] {report}", flush=True)
 
 
@@ -1774,6 +1824,215 @@ def phase_profiles(spp):
     phase_profile(f"{FIELDS[1]} spheres", _field(FIELDS[1])[0], _field_cfg())
 
 
+def phase_options():
+    """The option surface on the split tier (OPTION_PATHS): scene 2 at
+    800x400, 16 spp, depth 20 with rng="tea", rng="threefry" and
+    estimator="book", and scene 1 with the counters.  For each path:
+    warm-ups, then renders in turns, the fast, mis, counter-free render of
+    the same scene (F) and the path's (O): F, O, O, F, with B's and C's
+    launch counts set to 0 just before the first O and read just after (C
+    runs where NEE does: not under "book", not on scene 1); B and C against
+    plain at the inputs of the path's 10th launch, with times and bound;
+    a 128x128, 8 spp, depth 10 render of the path against the plain queue
+    on the card (`_against_plain_queue`).  Returns {(kernel, path): row}."""
+    import rtw_tpu_torch as rtt
+    from rtw_tpu_torch.ops import trace_kernel as TK
+
+    out = {}
+    for path, sid, opts in OPTION_PATHS:
+        nx, ny, spp = SPLIT_WORKLOADS[sid]
+        fast = rtt.RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=BENCH_DEPTH,
+                                scene_id=sid)
+        cfg = dataclasses.replace(fast, **opts)
+        scene = rtt.build_scene(sid, nx, ny)
+        label = f"scene {sid} {path}"
+        nee = scene.num_lights > 0 and cfg.estimator == "mis"
+        rtt.render(scene, cfg)                     # warm-ups
+        rtt.render(scene, fast)
+        f1, o1, o2, f2 = {}, {}, {}, {}
+        rtt.render(scene, fast, metrics=f1)
+        TK.trace_launches = TK.occluded_launches = 0
+        img = rtt.render(scene, cfg, metrics=o1)
+        nt, no = TK.trace_launches, TK.occluded_launches
+        rtt.render(scene, cfg, metrics=o2)
+        rtt.render(scene, fast, metrics=f2)
+        if nt <= 0 or (no > 0) != nee:
+            raise AssertionError(f"{label}: launches trace {nt} occluded "
+                                 f"{no} (NEE {nee})")
+        if tuple(img.shape) != (ny, nx, 3) or not bool(
+                torch.isfinite(img).all()):
+            raise AssertionError(f"{label}: bad image {tuple(img.shape)}")
+        if o1["rays"] != o2["rays"]:
+            raise AssertionError(f"{label}: rays {o1['rays']} then "
+                                 f"{o2['rays']}")
+        counters = ""
+        if cfg.bounce_stats:
+            if any(o1[k] != o2[k] for k in COUNTER_METRICS) or (
+                    o1["rays_by_depth"][0] != nx * ny * spp):
+                raise AssertionError(f"{label}: counters differ between "
+                                     "renders or miss the camera rays")
+            counters = (f", {o1['wavefront_iterations']:.0f} iterations at "
+                        f"mean occupancy {o1['mean_occupancy']:.4f}, "
+                        f"{len(o1['occupancy_by_iter'])} traced")
+        mean = img.reshape(-1, 3).mean(0).cpu().numpy()
+        print(f"[23 options path] {label} {nx}x{ny} spp {spp} depth "
+              f"{cfg.max_depth}: {o1['rays']} rays, "
+              f"{o1['mrays_per_sec']:.2f} / {o2['mrays_per_sec']:.2f} "
+              f"Mrays/s ({o1['wall_seconds']:.3f} / {o2['wall_seconds']:.3f}"
+              f" s) beside the fast path's {f1['mrays_per_sec']:.2f} / "
+              f"{f2['mrays_per_sec']:.2f} ({f1['rays']} rays); launches "
+              f"trace {nt} occluded {no}{counters}, mean {_fmt(mean)} on "
+              f"{card_line()}", flush=True)
+        wrappers = {"trace": (TK, "trace")}
+        if nee:
+            wrappers["occluded"] = (TK, "occluded_kernel")
+        got = _capture(cfg, wrappers, scene=scene)
+        for name in got:
+            row = _split_step("23 options", label, name, got[name])
+            row["launches"] = nt if name == "trace" else no
+            out[name, f"scene{sid}{path}"] = row
+        small = dataclasses.replace(cfg, nx=128, ny=128, spp=8, max_depth=10)
+        _against_plain_queue("23 options small render", label,
+                             rtt.build_scene(sid, 128, 128), small)
+    return out
+
+
+def phase_options_off_the_megakernel():
+    """Cornell at 200x200, 4 spp, depth 20 with estimator="book" and with
+    rng="tea" under "auto": outside the megakernel's envelope, so the plain
+    regen sweep renders it and no kernel launches (A, its step, D, B, C);
+    a finite image.  Forced backend="mega" with "book" raises ValueError."""
+    import rtw_tpu_torch as rtt
+    from rtw_tpu_torch.ops import mega_kernel as MK
+    from rtw_tpu_torch.ops import trace_kernel as TK
+
+    scene = rtt.build_scene(0, 200, 200)
+    parts = []
+    for opts in ({"estimator": "book"}, {"rng": "tea"}):
+        cfg = rtt.RenderConfig(nx=200, ny=200, spp=4, max_depth=BENCH_DEPTH,
+                               scene_id=0, **opts)
+        before = (MK.trace_launches, MK.launches, MK.hybrid_launches,
+                  TK.trace_launches, TK.occluded_launches)
+        m = {}
+        img = rtt.render(scene, cfg, metrics=m)
+        after = (MK.trace_launches, MK.launches, MK.hybrid_launches,
+                 TK.trace_launches, TK.occluded_launches)
+        if after != before:
+            raise AssertionError(f"Cornell {opts}: kernels launched "
+                                 f"{before} -> {after}")
+        if not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"Cornell {opts}: non-finite image")
+        mean = img.reshape(-1, 3).mean(0).cpu().numpy()
+        parts.append(f"{opts}: no kernel launched, {m['rays']} rays, "
+                     f"{m['wall_seconds']:.3f} s, mean {_fmt(mean)}")
+    try:
+        rtt.render(scene, rtt.RenderConfig(nx=200, ny=200, spp=4,
+                                           scene_id=0, estimator="book",
+                                           backend="mega"))
+    except ValueError as e:
+        parts.append(f"forced mega with book: ValueError ({e})")
+    else:
+        raise AssertionError("forced mega with estimator='book' rendered")
+    print("[24 options off the megakernel] Cornell 200x200 spp 4: "
+          + "; ".join(parts), flush=True)
+
+
+def phase_resume():
+    """Resume on the megakernel path: Cornell at RESUME_WORKLOAD, depth
+    20, spp_chunk and checkpoint_every RESUME_CHUNK, rendered once whole
+    and once stopped after its second save (the save raises then), then
+    resumed: the resumed image bit-equal to the whole render's, the rays
+    equal, `paths` the resumed samples', and the resumed call exactly the
+    remaining chunks' `mega_trace` launches, each timed with CUDA events.
+    Then A against its plain twin at the first resumed chunk's inputs
+    (`_against_twin`).  The files go under build/ and are removed.
+    Returns the kernels line's `mega_trace` row for this path."""
+    import os
+
+    import rtw_tpu_torch as rtt
+    from rtw_tpu_torch.ops import mega_kernel as MK
+    from rtw_tpu_torch.render import tile_permutation
+    from rtw_tpu_torch.utils import checkpoint as ckpt
+
+    nx, ny, spp = RESUME_WORKLOAD
+    cfg = rtt.RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=BENCH_DEPTH,
+                           scene_id=0, spp_chunk=RESUME_CHUNK)
+    scene = rtt.build_scene(0, nx, ny)
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke_checkpoints")
+    os.makedirs(folder, exist_ok=True)
+    whole_path, path = (os.path.join(folder, f) for f in ("whole.npz",
+                                                          "stopped.npz"))
+    for f in (whole_path, path):
+        if os.path.exists(f):
+            os.remove(f)
+    kw = dict(checkpoint_every=RESUME_CHUNK)
+    m_whole = {}
+    whole = rtt.render(scene, cfg, metrics=m_whole,
+                       checkpoint_path=whole_path, **kw)
+
+    class Stopped(Exception):
+        pass
+
+    real_save, saved = ckpt.save, []
+
+    def save(*a):
+        real_save(*a)
+        saved.append(a[-1])
+        if len(saved) == 2:
+            raise Stopped
+    ckpt.save = save
+    try:
+        rtt.render(scene, cfg, checkpoint_path=path, **kw)
+        raise AssertionError("the stopped render did not stop")
+    except Stopped:
+        pass
+    finally:
+        ckpt.save = real_save
+
+    real_trace, times = MK.mega_trace, []
+
+    def timed_trace(*a):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_trace(*a)
+        end.record()
+        times.append((start, end))
+        return out
+    MK.mega_trace = timed_trace
+    MK.trace_launches = 0
+    m = {}
+    try:
+        resumed = rtt.render(scene, cfg, metrics=m, checkpoint_path=path,
+                             **kw)
+    finally:
+        MK.mega_trace = real_trace
+    launches = MK.trace_launches
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in times]
+    for f in (whole_path, path):
+        os.remove(f)
+    done = saved[-1]
+    want = (spp - done) // RESUME_CHUNK
+    report = (f"Cornell {nx}x{ny} spp {spp} in chunks of {RESUME_CHUNK}: "
+              f"stopped after the saves at {saved} spp, resumed with "
+              f"{launches} mega_trace launches ({', '.join(f'{t:.3f}' for t in ms)}"
+              f" ms), rays {m['rays']} vs {m_whole['rays']}, paths "
+              f"{m['paths']}, image bit-equal {bool(torch.equal(resumed, whole))}")
+    if (launches != want or not torch.equal(resumed, whole)
+            or m["rays"] != m_whole["rays"]
+            or m["paths"] != nx * ny * (spp - done)):
+        raise AssertionError(report)
+    print(f"[25 resume] {report} on {card_line()}", flush=True)
+    pix = torch.as_tensor(tile_permutation(nx, ny), device="cuda")
+    params = MK.mega_params(scene, cfg.seed, cfg, done + RESUME_CHUNK, done)
+    twin = _against_twin(scene, cfg, pix, params, done, RESUME_CHUNK)
+    print(f"[25 resume check] {twin['report']}", flush=True)
+    return dict(launches=launches, ms=sum(ms) / len(ms), library_ms=None,
+                **{k: twin[k] for k in TWIN_KEYS})
+
+
 # The same figures as read on an NVIDIA H100 80GB HBM3 at 700.00 W while
 # the split kernels and the hybrid step's nearest hit swept each block with
 # one thread a ray (PERF.md), printed beside this run's.
@@ -1839,6 +2098,9 @@ def main(argv=None) -> int:
     field_counts = timed(phase_scale_path)
     field_counts[f"{LIT_FIELD}lit"] = timed(phase_lit_path)
     scale_steps = timed(phase_scale_step_times)
+    option_steps = timed(phase_options)
+    timed(phase_options_off_the_megakernel)
+    resume = timed(phase_resume)
     if args.profile:
         timed(phase_profiles, args.spp)
 
@@ -1867,7 +2129,8 @@ def main(argv=None) -> int:
              v["mega_trace"])
             for path, v in (("cornell", mega), ("scene5", scene5),
                             ("scene3", scene3),
-                            (f"field{MEGA_FIELD}", mega_scale))]
+                            (f"field{MEGA_FIELD}", mega_scale),
+                            ("cornellresume", {"mega_trace": resume}))]
     rows += [("mega_step_hybrid", f"scene{QMEGA_SCENE}", mega_src,
               "rtw_tpu/ops/mega_kernel.py:437", hybrid),
              ("mega_step_hybrid", f"field{MEGA_FIELD}", mega_src,
@@ -1882,6 +2145,8 @@ def main(argv=None) -> int:
     for name, path, v, count, err in split:
         v["launches"] = count[0 if name == "trace" else 1]
         v["max_abs_err"] = max(err, v["max_abs_err"])
+    for name, path, v, *_ in split + [(name, path, v) for (name, path), v
+                                      in option_steps.items()]:
         rep = ("rtw_tpu/ops/trace_kernel.py:918" if name == "trace" else
                "rtw_tpu/ops/trace_kernel.py:1114")
         rows.append((name, path, "rtw_tpu_torch/csrc/trace_kernel.cu", rep,

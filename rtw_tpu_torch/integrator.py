@@ -1,7 +1,9 @@
 """Wavefront path-tracing integrator (port of rtw_tpu/integrator.py).
 
-Four executors of the same estimator, all drawing the reference's fast-RNG
-chain (so all trace the same paths):
+Four executors of the same estimator, all drawing the reference's sample
+streams (so all trace the same paths): regen and the queue draw any
+`cfg.rng` and run either `cfg.estimator`; the two megakernel executors
+draw the fast chain and run NEE + MIS:
 
 - `trace_wavefront_regen`: each lane owns one pixel and regenerates its
   next sample when its path ends; every bounce is `bounce_step`.
@@ -21,9 +23,13 @@ megakernel below 128 prims when the scene is inside its envelope, the
 plain regen sweep below 128 prims when it is not (the reference's jnp
 sweep there), and the queue with the split kernels at 128 prims and
 above, as the reference does on its TPU; a CPU scene runs the plain regen
-path.  What is not ported raises
-NotImplementedError naming its ROADMAP item; nothing falls back silently
-to the plain path on the card in place of an unported kernel.
+path.  A render outside the megakernel's envelope (`_mega_problems`:
+`rng` other than "fast", `estimator="book"`, `bounce_stats`, or the
+scene) never takes it: "auto" picks regen or the queue, and a forced
+megakernel raises ValueError, as the reference's gate does.  What is not
+ported (`differentiable`) raises NotImplementedError naming its ROADMAP
+item; nothing falls back silently to the plain path on the card in place
+of an unported kernel.
 """
 
 from __future__ import annotations
@@ -52,8 +58,14 @@ SPLIT_TIER_PRIMS = 128
 # The card's loops (trace_wavefront_queue, _qmega) read their
 # termination test once per this many iterations: each read is a host sync,
 # and an iteration past the end is exact (it changes nothing a result
-# reads).
+# reads; the counters mask it).
 _CHECK_EVERY = 8
+
+
+def _check_every(device) -> int:
+    """Iterations per termination read: `_CHECK_EVERY` on the card, 1 on
+    the CPU, where a read costs nothing."""
+    return _CHECK_EVERY if device.type == "cuda" else 1
 
 
 class PathState(NamedTuple):
@@ -136,6 +148,42 @@ def _light_pdf_at(scene: S.Scene, origin: Vec3, point: Vec3, dir_unit: Vec3,
     return torch.where(sel, pdf, 0.0)
 
 
+def _light_pdf_dir(scene: S.Scene, origin: Vec3, dir_unit: Vec3, mask):
+    """(1/L) * sum over lights of the solid-angle pdf of `dir_unit` from
+    `origin` hitting that light: the books' hittable_pdf::value, a
+    geometric parallelogram test with no scene occlusion, for the "book"
+    mixture's pdf.  L unrolled tests of scalar light rows."""
+    lights = scene.lights
+    L = scene.num_lights
+    total = torch.zeros_like(origin.x)
+    for li in range(L):
+        q = V.v3(lights.position[li])
+        eu = V.v3(lights.vec_u[li])
+        ev = V.v3(lights.vec_v[li])
+        ln = V.v3(lights.normal[li])
+        area = lights.area[li]
+        denom = dir_unit.dot(ln)
+        ok = denom.abs() > 1e-8
+        denom_s = torch.where(ok, denom, 1.0)
+        t = (q - origin).dot(ln) / denom_s
+        ok = ok & (t > 1e-4)
+        w = origin + dir_unit * t - q
+        uu = eu.dot(eu)
+        vv = ev.dot(ev)
+        uv = eu.dot(ev)
+        det = uu * vv - uv * uv
+        wu = w.dot(eu)
+        wv = w.dot(ev)
+        a = (wu * vv - wv * uv) / det
+        b = (wv * uu - wu * uv) / det
+        ok = ok & (a >= 0.0) & (a <= 1.0) & (b >= 0.0) & (b <= 1.0)
+        pdf_l = torch.where(
+            ok & mask,
+            t * t / (area * torch.clamp_min(denom.abs(), 1e-8)), 0.0)
+        total = total + pdf_l
+    return total / float(max(L, 1))
+
+
 def _pick_light(scene: S.Scene, u_sel, ua, ub):
     """Uniform selection among the scene's Lights rows."""
     lights = scene.lights
@@ -181,6 +229,7 @@ def bounce_env(scene: S.Scene, cfg, time, occ_u, use_split=False,
         occlude=functools.partial(_occlude, scene, cfg, use_split, tables,
                                   time, occ_u),
         estimator=cfg.estimator,
+        light_pdf_dir=functools.partial(_light_pdf_dir, scene),
     )
 
 
@@ -230,6 +279,65 @@ def bounce_step(scene: S.Scene, cfg, path_keys, state: PathState, bounce,
                      prev_diffuse=res.prev_diffuse), res.rays_lane
 
 
+# Length of the iteration-occupancy trace (cfg.occupancy_trace); later
+# iterations add into its last entry, as in the reference.
+OCC_TRACE_CAP = 512
+
+
+class WavefrontStats(NamedTuple):
+    """The wavefront counters of cfg.bounce_stats (the reference's), int64
+    on the scene's device: exact, and summed without atomics on floats.
+    They add across tiles and spp chunks (`stats_add`).
+
+    `len_hist[L]` counts finished paths of length L bounces (bin 0 unused),
+    recorded when a path finishes (regen) or is flushed (queue); render
+    derives the rays traced at each depth from it."""
+
+    len_hist: Any      # [max_depth + 1]
+    iters: Any         # [1]: wavefront iterations run
+    alive_sum: Any     # [1]: alive lanes summed over iterations
+    occ_sum: Any       # [OCC_TRACE_CAP] (or [0]): alive lanes at iteration i
+    occ_cnt: Any       # [OCC_TRACE_CAP] (or [0]): iterations at index i
+
+
+def stats_zero(max_depth: int, trace: bool, device) -> WavefrontStats:
+    cap = OCC_TRACE_CAP if trace else 0
+
+    def z(n):
+        return torch.zeros(n, dtype=torch.int64, device=device)
+    return WavefrontStats(len_hist=z(max_depth + 1), iters=z(1),
+                          alive_sum=z(1), occ_sum=z(cap), occ_cnt=z(cap))
+
+
+def stats_add(a: WavefrontStats, b: WavefrontStats) -> WavefrontStats:
+    return WavefrontStats(*(x + y for x, y in zip(a, b)))
+
+
+def _stats_update(st: WavefrontStats, alive, live=None) -> None:
+    """Count one wavefront iteration in place: its alive lanes and, when
+    the occupancy trace is on, the lanes at its index.  `live` (a [1] bool
+    tensor, default true) is whether the iteration counts: the reference
+    counts only iterations its loop condition admits, and the card's queue
+    runs some past the end (`_CHECK_EVERY`); those have no alive lane, so
+    only the iteration counts need the mask."""
+    n_alive = alive.sum(dtype=torch.int64).reshape(1)
+    one = 1 if live is None else live.to(torch.int64)
+    if st.occ_sum.numel():
+        ti = torch.clamp_max(st.iters, OCC_TRACE_CAP - 1)
+        st.occ_sum.index_add_(0, ti, n_alive)
+        st.occ_cnt.index_add_(0, ti, torch.ones_like(n_alive) * one)
+    st.iters.add_(one)
+    st.alive_sum.add_(n_alive)
+
+
+def _stats_record_lengths(st: WavefrontStats, finished, length,
+                          max_depth: int) -> None:
+    """Add the lengths of the paths in `finished` to the histogram in
+    place (the other lanes add 0 into bin 0)."""
+    idx = torch.where(finished, torch.clamp_max(length, max_depth), 0)
+    st.len_hist.index_add_(0, idx, finished.to(torch.int64))
+
+
 def _nan_to_zero(x):
     """nan_to_num(nan=0, posinf=0, neginf=0)."""
     return torch.where(torch.isfinite(x), x, 0.0)
@@ -241,12 +349,6 @@ def unported(cfg) -> list[str]:
     out = []
     if cfg.differentiable:
         out.append("differentiable=True (ROADMAP item 12)")
-    if cfg.bounce_stats or cfg.occupancy_trace:
-        out.append("bounce_stats/occupancy_trace (ROADMAP item 11)")
-    if cfg.rng != "fast":
-        out.append(f"rng={cfg.rng!r} (ROADMAP item 11)")
-    if cfg.estimator != "mis":
-        out.append(f"estimator={cfg.estimator!r} (ROADMAP item 11)")
     return out
 
 
@@ -256,10 +358,21 @@ def _raise_unported(cfg) -> None:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
 
-def _mega_problems(scene) -> list[str]:
-    """What puts a scene outside the megakernel's envelope for good: more
-    than one light, unregistered emissives, noise or image textures."""
+def _mega_problems(cfg, scene) -> list[str]:
+    """What puts a render outside the megakernel's envelope (the
+    reference's `_validate_mega`): the kernel draws only the fast hash,
+    computes only NEE + MIS with one light, counts nothing, has no
+    gradients and fetches no noise or image texture."""
     problems = []
+    if cfg.differentiable:
+        problems.append("differentiable=True (no in-kernel gradients)")
+    if cfg.bounce_stats:
+        problems.append("bounce_stats=True (no in-kernel counters)")
+    if cfg.rng != "fast":
+        problems.append(f"rng={cfg.rng!r} (only 'fast' is drawn in-kernel)")
+    if cfg.estimator != "mis":
+        problems.append(f"estimator={cfg.estimator!r} (only the NEE+MIS "
+                        "estimator is implemented in-kernel)")
     if scene.num_lights > 1:
         problems.append(f"num_lights={scene.num_lights} (kernel NEE is "
                         "single-light)")
@@ -273,10 +386,10 @@ def _mega_problems(scene) -> list[str]:
 
 def _validate_mega(cfg, scene):
     """The megakernel's feature envelope, checked loudly: what the port has
-    not ported raises NotImplementedError, and a scene the kernel can never
-    take (`_mega_problems`) raises ValueError."""
+    not ported raises NotImplementedError, and a render the kernel does
+    not compute (`_mega_problems`) raises ValueError."""
     _raise_unported(cfg)
-    problems = _mega_problems(scene)
+    problems = _mega_problems(cfg, scene)
     if problems:
         raise ValueError("backend='mega' unsupported for this render: "
                          + "; ".join(problems))
@@ -290,12 +403,12 @@ def _mega_backend(cfg, scene) -> bool:
     """Whether the render runs the megakernel scheduler: forced by
     backend="mega" (inside the envelope, or it raises), or chosen by "auto"
     for a CUDA scene below the split tier that is inside the envelope, as
-    the reference's predicate chooses it.  Under "auto" a scene the kernel
-    can never take (`_mega_problems`) runs `_split_backend`'s choice, the
-    regen sweep below 128 prims, as the reference runs its jnp sweep there;
-    an option the port has not ported still raises NotImplementedError.
-    CPU scenes run the plain regen path under "auto", as the reference
-    does on its CPU."""
+    the reference's predicate chooses it.  Under "auto" a render the kernel
+    does not compute (`_mega_problems`: a config option or the scene) runs
+    `_split_backend`'s choice, the regen sweep below 128 prims, as the
+    reference runs its jnp sweep there; an option the port has not ported
+    still raises NotImplementedError.  CPU scenes run the plain regen path
+    under "auto", as the reference does on its CPU."""
     if cfg.backend == "mega":
         _validate_mega(cfg, scene)
         return True
@@ -304,7 +417,7 @@ def _mega_backend(cfg, scene) -> bool:
     if scene.device.type != "cuda" or _n_prims(scene) >= SPLIT_TIER_PRIMS:
         return False
     _raise_unported(cfg)
-    return not _mega_problems(scene)
+    return not _mega_problems(cfg, scene)
 
 
 def _split_backend(cfg, scene) -> bool:
@@ -326,7 +439,8 @@ def _split_backend(cfg, scene) -> bool:
 def trace_wavefront(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
                     n_samples: int):
     """Dispatch to the configured wavefront scheduler (cfg.scheduler).
-    Returns (accum Vec3 of [N], rays as an int64 [1] tensor, stats=())."""
+    Returns (accum Vec3 of [N], rays as an int64 [1] tensor, stats: a
+    WavefrontStats with cfg.bounce_stats, else ())."""
     sched = cfg.scheduler
     if cfg.backend not in ("auto", "mega", "jnp", "pallas"):
         raise ValueError(f"unknown backend {cfg.backend!r}")
@@ -378,7 +492,8 @@ def trace_wavefront_regen(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
     path ends.  Every draw is keyed by (pixel, sample, bounce, slot), so the
     image matches the reference's regen scheduler.  The reference's drain
     tail compaction is compiled out on its plain path too, and is not
-    ported."""
+    ported.  Returns (accum Vec3 of [N], rays int64 [1], stats: a
+    WavefrontStats with cfg.bounce_stats, else ())."""
     _raise_unported(cfg)
     tables = (TK.split_tables(scene) if _split_backend(cfg, scene)
               else None)
@@ -391,13 +506,19 @@ def trace_wavefront_regen(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
     depth = torch.zeros(n, dtype=torch.int64, device=dev)
     accum = V.zeros(n, dev)
     rays = torch.zeros(1, dtype=torch.int64, device=dev)
+    stats = (stats_zero(cfg.max_depth, cfg.occupancy_trace, dev)
+             if cfg.bounce_stats else ())
 
     while bool(path.alive.any()):
+        if stats:
+            _stats_update(stats, path.alive)
         st, rays_lane = bounce_step(scene, cfg, path_keys, path, depth,
                                     tables)
         rays += rays_lane.sum(dtype=torch.int64)
         depth = depth + 1
         finished = path.alive & (~st.alive | (depth >= cfg.max_depth))
+        if stats:
+            _stats_record_lengths(stats, finished, depth, cfg.max_depth)
         rad = Vec3(*(_nan_to_zero(c) for c in st.radiance))
         accum = V.where(finished, accum + rad, accum)
         sample = torch.where(finished, sample + 1, sample)
@@ -418,7 +539,7 @@ def trace_wavefront_regen(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
         )
         path_keys = torch.where(regen, new_keys, path_keys)
         depth = torch.where(regen, 0, depth)
-    return accum, rays, ()
+    return accum, rays, stats
 
 
 def trace_wavefront_queue(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
@@ -443,7 +564,12 @@ def trace_wavefront_queue(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
     the CPU, where a read costs nothing); the iterations past the end find
     no lane alive or pending, trace no ray and flush nothing.
 
-    Returns (accum Vec3 of [N] positional sums, rays int64 [1], ())."""
+    With cfg.bounce_stats the counters are updated on the device, masked
+    by the termination test, so the card's iterations past the end count
+    nothing and its counters equal the CPU's.
+
+    Returns (accum Vec3 of [N] positional sums, rays int64 [1], stats: a
+    WavefrontStats with cfg.bounce_stats, else ())."""
     _raise_unported(cfg)
     use_split = _split_backend(cfg, scene)
     tables = TK.split_tables(scene) if use_split else None
@@ -464,10 +590,15 @@ def trace_wavefront_queue(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
                    for _ in range(3)))
     rays = torch.zeros(1, dtype=i64, device=dev)
     cursor = torch.full((1,), n, dtype=i64, device=dev)
-    check_every = _CHECK_EVERY if dev.type == "cuda" else 1
+    check_every = _check_every(dev)
+    stats = (stats_zero(cfg.max_depth, cfg.occupancy_trace, dev)
+             if cfg.bounce_stats else ())
 
     while True:
         for _ in range(check_every):
+            if stats:
+                live = (path.alive.any() | pending.any()).reshape(1)
+                _stats_update(stats, path.alive, live)
             st, rays_lane = bounce_step(scene, cfg, path_keys, path, depth,
                                         tables)
             rays += rays_lane.sum(dtype=i64)
@@ -481,6 +612,9 @@ def trace_wavefront_queue(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
             pend, have, item_pos, q_sample, q_pixel, cursor = _queue_flush(
                 pending, running, path.radiance, accum, item_pos, cursor,
                 pixel_idx, s0, n_items, cfg.flush_denom)
+            if stats:
+                # a flushed lane's depth froze at its path's length
+                _stats_record_lengths(stats, pend, depth, cfg.max_depth)
             sample = torch.where(have, q_sample, sample)
             pixel = torch.where(have, q_pixel, pixel)
 
@@ -502,7 +636,7 @@ def trace_wavefront_queue(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
             pending = pending & ~pend
         if not bool((path.alive.any() | pending.any())):
             break
-    return accum, rays, ()
+    return accum, rays, stats
 
 
 def _queue_flush(pending, running, radiance: Vec3, accum: Vec3, item_pos,
@@ -576,7 +710,7 @@ def trace_wavefront_qmega(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
                    for _ in range(3)))
     rays = torch.zeros(1, dtype=i64, device=dev)
     cursor = torch.full((1,), n, dtype=i64, device=dev)
-    check_every = _CHECK_EVERY if dev.type == "cuda" else 1
+    check_every = _check_every(dev)
 
     while True:
         for _ in range(check_every):

@@ -6,8 +6,9 @@ same steps per lane in the same order.  Every material is evaluated for
 every lane and selected per lane, as in the reference, so each plane rounds
 exactly as the reference's does.
 
-Only `estimator="mis"` (NEE + power-heuristic MIS) is ported; the books'
-mixture estimator raises (ROADMAP item 11).
+Two estimators, as in the reference: "mis" (NEE shadow rays +
+power-heuristic MIS) and "book" (the books' 0.5/0.5 cosine/light mixture
+for the next ray, with no shadow rays and no MIS).
 """
 
 from __future__ import annotations
@@ -26,10 +27,7 @@ from rtw_tpu_torch.utils import rng as R
 
 
 def check_estimator(estimator: str) -> None:
-    if estimator == "book":
-        raise NotImplementedError(
-            "estimator='book' is not ported yet (ROADMAP item 11)")
-    if estimator != "mis":
+    if estimator not in ("mis", "book"):
         raise ValueError(f"unknown estimator {estimator!r}")
 
 
@@ -47,6 +45,10 @@ class BounceEnv(NamedTuple):
     pick_light: Optional[Callable[..., Any]]
     occlude: Optional[Callable[..., Any]]
     estimator: str = "mis"
+    # (origin, dir_unit, mask) -> (1/L) * sum over lights of the solid-angle
+    # pdf of dir_unit hitting that light, with no occlusion: the mixture's
+    # light pdf ("book" only)
+    light_pdf_dir: Optional[Callable[..., Any]] = None
 
 
 class BounceResult(NamedTuple):
@@ -106,7 +108,30 @@ def bounce_core(env: BounceEnv, U, depth, alive, o: Vec3, d: Vec3, time,
     terminate = false_n
 
     # ----- lambertian: cosine-hemisphere scatter --------------------------
-    if mp[S.MAT_LAMBERTIAN]:
+    book = env.estimator == "book" and env.num_lights > 0
+    if mp[S.MAT_LAMBERTIAN] and book:
+        # the books' mixture: the next ray itself from 0.5 cosine + 0.5
+        # light-area sampling, the reflectance weighted by
+        # scattering_pdf / mixture_pdf
+        ou, ov, ow = sm.build_onb(nrm)
+        local = sm.cosine_direction(U[R.U_SCATTER_0], U[R.U_SCATTER_1])
+        cos_dir = sm.onb_local(ou, ov, ow, local).normalized()
+        lpos, _, _, _ = env.pick_light(
+            U[R.U_LIGHT_SELECT], U[R.U_LIGHT_A], U[R.U_LIGHT_B])
+        ldir = lpos - point
+        ldir_u = ldir * (1.0 / torch.clamp_min(ldir.length(), 1e-12))
+        take_light = U[R.U_DIELECTRIC] < 0.5     # a slot lambertian skips
+        lamb_dir = V.where(take_light, ldir_u, cos_dir)
+        cos_pdf = torch.clamp_min(nrm.dot(lamb_dir), 0.0) * sm.INV_PI
+        lgt_pdf = env.light_pdf_dir(point, lamb_dir, hit_alive & is_lamb)
+        lamb_pdf = 0.5 * cos_pdf + 0.5 * lgt_pdf
+        lamb_cancel = (lamb_pdf <= 0.0) | (cos_pdf <= 0.0)
+        pdf_safe = torch.where(lamb_cancel, 1.0, lamb_pdf)
+        w_mix = torch.where(lamb_cancel, 0.0, cos_pdf / pdf_safe)
+        attenuation = V.where(is_lamb, albedo * w_mix, attenuation)
+        scatter_dir = V.where(is_lamb, lamb_dir, scatter_dir)
+        cancel = cancel | (is_lamb & lamb_cancel)
+    elif mp[S.MAT_LAMBERTIAN]:
         ou, ov, ow = sm.build_onb(nrm)
         local = sm.cosine_direction(U[R.U_SCATTER_0], U[R.U_SCATTER_1])
         lamb_dir = sm.onb_local(ou, ov, ow, local).normalized()
@@ -156,7 +181,7 @@ def bounce_core(env: BounceEnv, U, depth, alive, o: Vec3, d: Vec3, time,
     if mp[S.MAT_DIFFUSE_LIGHT]:
         facing = nrm.dot(d_unit) < 0.0
         emitted = V.where(facing, albedo, zero3)
-        if env.mis_bsdf_weight and env.num_lights > 0:
+        if env.mis_bsdf_weight and env.num_lights > 0 and not book:
             w_mask = hit_alive & is_light & prev_diffuse
             lp = env.light_pdf_at(o, point, d_unit, prim_idx, w_mask)
             prev_safe = torch.where(w_mask, prev_pdf, 1.0)
@@ -178,8 +203,9 @@ def bounce_core(env: BounceEnv, U, depth, alive, o: Vec3, d: Vec3, time,
 
     terminate = terminate | cancel
 
-    # ----- next-event estimation ------------------------------------------
-    if env.num_lights > 0 and mp[S.MAT_LAMBERTIAN]:
+    # ----- next-event estimation (none under "book": light sampling is the
+    # scatter) --------------------------------------------------------------
+    if env.num_lights > 0 and mp[S.MAT_LAMBERTIAN] and not book:
         lpos, l_area, l_nrm, l_emission = env.pick_light(
             U[R.U_LIGHT_SELECT], U[R.U_LIGHT_A], U[R.U_LIGHT_B])
         ldir = lpos - point

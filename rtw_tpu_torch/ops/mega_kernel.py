@@ -40,7 +40,9 @@ fallback: a CUDA tensor gets the kernel or an error.
 
 The kernel's envelope is the reference's (`integrator._validate_mega`):
 fast RNG, at most one light, constant/checker textures, every prim type,
-no gradients, estimator "mis"; "auto" takes it below 128 prims.
+no gradients, estimator "mis", no `bounce_stats`; "auto" takes it below
+128 prims.  `mega_params` validates it, so no caller can hand the kernel
+a render it does not compute.
 """
 
 from __future__ import annotations
@@ -179,9 +181,10 @@ class MegaParams:
 
 def mega_params(scene: S.Scene, seed: int, cfg, s_end: int,
                 s0: int = 0) -> MegaParams:
-    """Validate the envelope and assemble the launch parameters for the
-    samples [s0, s_end).  The camera and light rows reach the host in one
-    copy."""
+    """Validate the envelope (`_validate_mega`: ValueError for a render
+    the kernel does not compute) and assemble the launch parameters for
+    the samples [s0, s_end).  The camera and light rows reach the host in
+    one copy."""
     _validate_mega(cfg, scene)
     cam = scene.camera
     lt = scene.lights

@@ -1,8 +1,8 @@
 """Top-level render driver (port of rtw_tpu/render.py): spp accumulation,
-ray batches, image assembly.
+ray batches, checkpoint and resume, image assembly, and the metrics of the
+wavefront counters (cfg.bounce_stats).
 
-The render runs on its scene's device.  Checkpointing (ROADMAP item 13) and
-the wavefront counters of `bounce_stats` (ROADMAP item 11) raise.
+The render runs on its scene's device.
 """
 
 from __future__ import annotations
@@ -14,7 +14,8 @@ import time as _time
 import numpy as np
 import torch
 
-from rtw_tpu_torch.integrator import trace_wavefront
+from rtw_tpu_torch.integrator import stats_add, stats_zero, trace_wavefront
+from rtw_tpu_torch.utils import checkpoint as ckpt
 
 
 def tile_permutation(nx: int, ny: int, tile: int = 32) -> np.ndarray:
@@ -38,23 +39,26 @@ def render(scene, cfg, seed: int | None = None, verbose: bool = False,
     """Render and return the linear [ny, nx, 3] float32 image (row 0 at the
     bottom), on the scene's device.  `seed` defaults to cfg.seed.
 
+    With `checkpoint_path` the accumulator is saved whenever at least
+    `checkpoint_every` samples have accrued since the last save (every spp
+    chunk when 0) and at the end, and a file saved for the same config is
+    resumed from (utils/checkpoint.py): the image is bit-equal to an
+    uninterrupted render's.
+
     `metrics` receives wall_seconds (host clock around work that ends in a
-    device sync), pixels, spp, paths, rays (camera + bounce + NEE queries,
-    counted in int64), samples_per_sec and mrays_per_sec."""
-    if checkpoint_path is not None or checkpoint_every:
-        raise NotImplementedError(
-            "checkpointing is not ported yet (ROADMAP item 13)")
-    if cfg.bounce_stats or cfg.occupancy_trace:
-        raise NotImplementedError(
-            "bounce_stats/occupancy_trace are not ported yet (ROADMAP item "
-            "11)")
+    device sync), pixels, spp, paths (those rendered by this call), rays
+    (camera + bounce + NEE queries, counted in int64, a resumed file's
+    included), samples_per_sec and mrays_per_sec; with cfg.bounce_stats
+    also rays_by_depth, wavefront_iterations, mean_occupancy and
+    occupancy_by_iter (empty unless cfg.occupancy_trace), counted by this
+    call."""
     if seed is None:
         seed = cfg.seed
     dev = scene.device
 
     npix = cfg.num_pixels
     batch = cfg.resolved_ray_batch()
-    chunk = cfg.resolved_spp_chunk(checkpointing=False)
+    chunk = cfg.resolved_spp_chunk(checkpointing=checkpoint_path is not None)
     n_tiles = math.ceil(npix / batch)
     pad = n_tiles * batch - npix
     perm = tile_permutation(cfg.nx, cfg.ny)
@@ -63,22 +67,46 @@ def render(scene, cfg, seed: int | None = None, verbose: bool = False,
     accums = [torch.zeros((batch, 3), dtype=torch.float32, device=dev)
               for _ in range(n_tiles)]
     rays = torch.zeros(1, dtype=torch.int64, device=dev)
+    stats = (stats_zero(cfg.max_depth, cfg.occupancy_trace, dev)
+             if cfg.bounce_stats else ())
+    spp_done = 0
+    if checkpoint_path is not None:
+        state = ckpt.load(checkpoint_path, cfg)
+        if state is not None:
+            acc_np, rays0, spp_done = state
+            per = np.zeros((n_tiles * batch, 3), np.float32)
+            per[:acc_np.shape[0]] = acc_np
+            accums = list(torch.as_tensor(per, device=dev).split(batch))
+            rays += rays0
+            if verbose:
+                print(f"INFO: resumed at {spp_done}/{cfg.spp} spp",
+                      file=_sys.stderr, flush=True)
 
     _sync(dev)
     t_start = _time.perf_counter()
-    s0 = 0
+    s0 = last_save = spp_done
     while s0 < cfg.spp:
         ns = min(chunk, cfg.spp - s0)
         for ti in range(n_tiles):
             tile_pix = pixel_idx[ti * batch:(ti + 1) * batch]
-            acc_v, r, _ = trace_wavefront(scene, cfg, tile_pix, seed, s0, ns)
+            acc_v, r, st = trace_wavefront(scene, cfg, tile_pix, seed, s0, ns)
             accums[ti] = accums[ti] + acc_v.stack()
             rays += r
+            if stats:
+                stats = stats_add(stats, st)
         s0 += ns
         if verbose:
             _sync(dev)
             print(f"INFO: {s0}/{cfg.spp} spp done", file=_sys.stderr,
                   flush=True)
+        # not an exact-multiple test: spp chunks need not divide
+        # checkpoint_every
+        if checkpoint_path is not None and (
+                s0 >= cfg.spp or checkpoint_every <= 0
+                or s0 - last_save >= checkpoint_every):
+            acc_np = torch.cat(accums)[:npix].cpu().numpy()
+            ckpt.save(checkpoint_path, cfg, acc_np, int(rays.item()), s0)
+            last_save = s0
 
     lanes = torch.cat(accums, dim=0)[:npix]
     img = torch.empty_like(lanes)
@@ -88,7 +116,7 @@ def render(scene, cfg, seed: int | None = None, verbose: bool = False,
     elapsed = _time.perf_counter() - t_start
 
     if metrics is not None:
-        n_paths = npix * cfg.spp
+        n_paths = npix * (cfg.spp - spp_done)
         metrics.update(
             wall_seconds=elapsed,
             pixels=npix,
@@ -98,7 +126,27 @@ def render(scene, cfg, seed: int | None = None, verbose: bool = False,
             samples_per_sec=n_paths / max(elapsed, 1e-9),
             mrays_per_sec=total_rays / max(elapsed, 1e-9) / 1e6,
         )
+        if stats:
+            metrics.update(_stats_metrics(stats, batch))
     return img.reshape(cfg.ny, cfg.nx, 3)
+
+
+def _stats_metrics(stats, batch: int) -> dict:
+    """The reference's metrics of the counters, from their exact int64
+    values (the reference's float32 sums equal them while exact)."""
+    st = [t.cpu().numpy() for t in stats]
+    len_hist, iters, alive_sum, occ_sum, occ_cnt = st
+    # rays_by_depth[d]: paths that traced a ray at depth d, the paths of
+    # every length L > d
+    tail = np.cumsum(len_hist[::-1])[::-1]
+    return dict(
+        rays_by_depth=[float(x) for x in tail[1:]],
+        wavefront_iterations=float(iters[0]),
+        mean_occupancy=float(alive_sum[0]) / max(float(iters[0]) * batch,
+                                                 1.0),
+        occupancy_by_iter=[float(np.float32(s) / np.float32(c)) / batch
+                           for s, c in zip(occ_sum, occ_cnt) if c >= 1],
+    )
 
 
 def to_srgb8(linear_img, gamma: float = 2.0) -> np.ndarray:

@@ -4,8 +4,8 @@ Copied, not imported: importing anything under `rtw_tpu` runs its package
 `__init__`, which imports JAX, and the port must run where JAX is absent.
 Fields, defaults and checks are the reference's, so one config value means
 the same render in both packages.  The reference file carries the history
-of each option; options the port does not implement yet raise where they
-are consumed (integrator.py, render.py), naming the ROADMAP item.
+of each option; `differentiable`, which the port does not implement yet,
+raises where it is consumed (integrator.py), naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,7 +29,8 @@ class RenderConfig:
     # False: reference parity (only the NEE side carries the MIS weight).
     mis_bsdf_weight: bool = True
     # "mis": NEE shadow rays + power-heuristic MIS; "book": the books'
-    # 0.5/0.5 cosine/light mixture (not ported yet: ROADMAP item 11).
+    # 0.5/0.5 cosine/light mixture (regen and the queue only: outside the
+    # megakernel's envelope).
     estimator: str = "mis"
     rr_start_depth: int = 2       # Russian roulette start depth
 
@@ -55,11 +56,11 @@ class RenderConfig:
     # no per-lane gather); accepted as a no-op, the queue gathers.
     pixel_layout: str = "generic"
 
-    # "fast" (pcg_hash, bit-exact with the reference) | "tea" | "threefry"
-    # (the last two: ROADMAP item 11).
+    # "fast" (pcg_hash) | "tea" | "threefry", each bit-exact with the
+    # reference (utils/rng.py); only "fast" runs in the megakernel.
     rng: str = "fast"
 
-    # Wavefront observability (ROADMAP item 11).
+    # Wavefront counters (regen and the queue; render's metrics).
     bounce_stats: bool = False
     occupancy_trace: bool = False
 

@@ -58,7 +58,19 @@ def test_mega_step_plain_matches_pallas_kernel(sid):
     """Scenes 0 and 3 (volumes: the free-flight rows after the fixed
     slots), 1152 lanes padded to 2048 as the reference pads them, four
     successive steps, each started from the reference's carry."""
-    cfg = _cfg(sid)
+    _check_steps(_cfg(sid), 4)
+
+
+def test_mega_step_plain_without_bsdf_weight_matches_pallas_kernel():
+    """Cornell with mis_bsdf_weight=False (the kernel's one-sided MIS):
+    two steps, the second with light hits of BSDF-sampled rays."""
+    _check_steps(_cfg(0, mis_bsdf_weight=False), 2)
+
+
+def _check_steps(cfg, steps):
+    """`steps` successive plain steps against the reference kernel in
+    interpret mode, each from the reference's carry."""
+    sid = cfg.scene_id
     jcfg = rt.RenderConfig(**dataclasses.asdict(cfg))
     js = rt.build_scene(sid, NX, NY)
     ts = rtt.build_scene(sid, NX, NY, device="cpu")
@@ -79,7 +91,7 @@ def test_mega_step_plain_matches_pallas_kernel(sid):
     with pltpu.force_tpu_interpret_mode():
         step = jax.jit(lambda a, b: JMK.mega_step(js, jcfg, a, b, parf,
                                                   pari))
-        for it in range(4):
+        for it in range(steps):
             j_sf, j_si, j_rays = step(sf, si)
             rays = torch.zeros(1, dtype=torch.int64)
             t_sf, t_si = TMK.mega_step(ts, cfg, torch.tensor(np.asarray(sf)),
@@ -185,19 +197,36 @@ def test_trace_wavefront_mega_matches_reference_regen(sid):
     assert int(rays) == pytest.approx(float(ref_rays), rel=1e-6)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("rng", "threefry", "ROADMAP item 11"),
-    ("rng", "tea", "ROADMAP item 11"),
-    ("estimator", "book", "ROADMAP item 11"),
-    ("differentiable", True, "ROADMAP item 12"),
-    ("bounce_stats", True, "ROADMAP item 11"),
-])
-def test_gate_refuses_unported_options(field, value, item):
+# The options outside the megakernel's envelope: it draws only the fast
+# hash, computes only NEE + MIS and counts nothing (the reference's gate).
+OUTSIDE_THE_KERNEL = [("rng", "threefry"), ("rng", "tea"),
+                      ("estimator", "book"), ("bounce_stats", True)]
+
+
+@pytest.mark.parametrize("field,value", [*OUTSIDE_THE_KERNEL,
+                                         ("differentiable", True)])
+def test_gate_refuses_unported_options(field, value):
+    """A forced megakernel (backend="mega", scheduler "mega" or "qmega",
+    `mega_params`) refuses each option with ValueError naming it, as
+    the reference's `_validate_mega` does, and "auto" renders it on the
+    plain path; `differentiable` is not ported: NotImplementedError."""
     ts = rtt.build_scene(0, 8, 8, device="cpu")
     cfg = dataclasses.replace(rtt.RenderConfig(nx=8, ny=8, spp=1), **{
         field: value})
-    with pytest.raises(NotImplementedError, match=item):
-        rtt.render(ts, cfg)
+    if field == "differentiable":
+        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+            rtt.render(ts, cfg)
+        return
+    forced = [dataclasses.replace(cfg, backend="mega"),
+              dataclasses.replace(cfg, scheduler="mega"),
+              dataclasses.replace(cfg, scheduler="qmega")]
+    for c in forced:
+        with pytest.raises(ValueError, match=field):
+            rtt.render(ts, c)
+    with pytest.raises(ValueError, match=field):
+        TMK.mega_params(ts, 0, cfg, 1)
+    img = rtt.render(ts, cfg)
+    assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 
 
 def test_gate_selection_on_cpu():
@@ -302,10 +331,25 @@ def test_forced_mega_still_refuses_outside_the_envelope(name, match,
 
 @pytest.mark.parametrize("name", ["cornell", "cavity", "marble"])
 def test_auto_gate_still_raises_on_unported_options(name, on_cuda):
+    """On a CUDA scene below the split tier "auto" keeps every option
+    outside the kernel's envelope off the megakernel (the regen sweep),
+    forced mega and qmega raise ValueError naming it, and the one option
+    still unported, `differentiable`, raises NotImplementedError."""
     scene = GATE_SCENES[name]()
-    cfg = rtt.RenderConfig(nx=8, ny=8, spp=1, rng="threefry")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        TI._mega_backend(cfg, scene)
+    base = rtt.RenderConfig(nx=8, ny=8, spp=1)
+    for field, value in OUTSIDE_THE_KERNEL:
+        cfg = dataclasses.replace(base, **{field: value})
+        assert not TI._mega_backend(cfg, scene)
+        assert not TI._split_backend(cfg, scene)
+        with pytest.raises(ValueError, match=field):
+            TI._mega_backend(dataclasses.replace(cfg, backend="mega"), scene)
+        for sched in ("mega", "qmega"):
+            with pytest.raises(ValueError, match=field):
+                TI.trace_wavefront(scene, dataclasses.replace(
+                    cfg, scheduler=sched), torch.arange(64), 0, 0, 1)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        TI._mega_backend(dataclasses.replace(base, differentiable=True),
+                         scene)
 
 
 def test_warp_shared_walk_gives_the_hybrid_step_winner(monkeypatch):

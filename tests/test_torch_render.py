@@ -89,13 +89,6 @@ def test_build_scene_defaults_to_the_card():
             rtt.build_scene(5, 8, 8)
 
 
-def test_render_refuses_checkpointing():
-    cfg = rtt.RenderConfig(nx=8, ny=8, spp=1, scene_id=5)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        rtt.render(rtt.build_scene(5, 8, 8, device="cpu"), cfg,
-                   checkpoint_path="x.npz")
-
-
 def test_tile_permutation_and_srgb_match_reference():
     np.testing.assert_array_equal(tile_permutation(70, 45),
                                   j_tile_permutation(70, 45))
