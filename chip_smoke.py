@@ -36,6 +36,15 @@ the port's paths through `render`:
   4, stopped after its second save and resumed, bit-equal to a whole
   render in two `mega_trace` launches, and the kernel held against its
   plain twin at the first resumed chunk's inputs;
+- the gradient path (rtw_tpu_torch.diff): the demo scene of
+  `python -m rtw_tpu_torch.grad_demo` at 200x200, 8 spp, depth 8 with
+  backend="pallas", one chunked loss-and-grad call on B and C against the
+  same branch on their plain versions and against the plain branch, with
+  the launches per call explained; the demo's 12 descent steps (the loss
+  must fall 10x) and the peak memory of three gradient variants; scene 2
+  at 800x400, 1 spp, depth 20, one gradient step against its plain twin,
+  with its gradient Mrays/s; render(differentiable=True) of scene 2
+  through the queue against differentiable=False;
 
 and checks that each path launched its kernels.  Beside them: the trace
 and occlusion kernels on a scene of tied prims (equal spheres across and
@@ -1194,15 +1203,15 @@ class _Captured(Exception):
     """Ends a render once every wrapped launch has been recorded."""
 
 
-def _capture(cfg, wrappers, call=10, scene=None):
+def _capture(cfg, wrappers, call=10, scene=None, run=None):
     """{name: arguments} of the `call`-th call of each wrapper, one
     (module, attribute) per name, in a full-width render with `cfg` (the
     queue's wavefront is full then) of `scene` (default: the registered
-    scene cfg.scene_id); the render stops there."""
+    scene cfg.scene_id), or in `run()` when given; the run stops there."""
     import rtw_tpu_torch as rtt
     from rtw_tpu_torch.ops.vec import Vec3
 
-    if scene is None:
+    if scene is None and run is None:
         scene = rtt.build_scene(cfg.scene_id, cfg.nx, cfg.ny)
     got = {}
 
@@ -1229,7 +1238,10 @@ def _capture(cfg, wrappers, call=10, scene=None):
     for name, (mod, attr) in wrappers.items():
         setattr(mod, attr, recorder(name, orig[name]))
     try:
-        rtt.render(scene, cfg)
+        if run is None:
+            rtt.render(scene, cfg)
+        else:
+            run()
     except _Captured:
         pass
     finally:
@@ -2033,6 +2045,316 @@ def phase_resume():
                 **{k: twin[k] for k in TWIN_KEYS})
 
 
+# The gradient path (diff.py, integrator.trace_paths): the demo scene of
+# rtw_tpu_torch.grad_demo at its defaults (200x200, 8 spp in chunks of 2,
+# depth 8, remat) with backend="pallas", and scene 2 at 800x400, 1 spp,
+# depth 20, one chunk, remat, under "auto" (at least 128 prims: B and C).
+GRAD_DEMO = (200, 8, 2, 8)            # size, spp, chunk, depth
+GRAD_SCENE2 = (800, 400, 20)          # nx, ny, depth
+GRAD_SEED = 11
+# two branches that pick the same winners give the same gradient leaves
+# to this tolerance (tests/test_torch_diff.py's against the reference)
+GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-5
+# render(differentiable=True) against differentiable=False on the queue:
+# the hit point comes from reeval_hit's t, not B's, which may differ by
+# ulps; a path whose hit moves by an ulp can part at a grazing hit or a
+# Russian-roulette draw on the edge (ROADMAP "Faults found": one path in
+# 1024 at PR 9's book render), so the share of pixels within 1e-4 and the
+# relative gap in rays are held at these
+GRAD_QUEUE_PIXELS = 0.999
+GRAD_QUEUE_RAYS = 1e-4
+
+
+def _grad_leaves(g):
+    """[(name, tensor)] of a gradient dict: tex_color, then the camera's
+    fields."""
+    cam = g["camera"]
+    return [("tex_color", g["tex_color"])] + [
+        (f.name, getattr(cam, f.name)) for f in dataclasses.fields(cam)]
+
+
+def _grad_diff(label, want, got):
+    """(max abs diff, report) of two gradient dicts; raises unless every
+    leaf of `got` is finite and within GRAD_RTOL / GRAD_ATOL of `want`."""
+    worst, max_abs = 0.0, 0.0
+    for (name, a), (_, b) in zip(_grad_leaves(want), _grad_leaves(got)):
+        if not bool(torch.isfinite(b).all()):
+            raise AssertionError(f"{label}: non-finite {name} gradient")
+        diff = (a - b).abs()
+        max_abs = max(max_abs, float(diff.max()))
+        worst = max(worst, float((diff / (GRAD_ATOL + GRAD_RTOL * a.abs()))
+                                 .max()))
+    report = (f"{label}: max abs diff {max_abs:.3e}, {worst:.4f} of the "
+              f"tolerance (rtol {GRAD_RTOL}, atol {GRAD_ATOL})")
+    if worst > 1.0:
+        raise AssertionError(f"{report}: beyond the tolerance")
+    return max_abs, report
+
+
+def _grad_step(scene, cfg, n_samples, chunk, split=None, target=None):
+    """One chunked loss-and-grad call of `scene` at `cfg` on every pixel:
+    {loss, grads, wall (s), trace and occluded launches, peak (MB above
+    the allocation at its start)}; the launch counts set to 0 just before
+    it and read just after."""
+    from rtw_tpu_torch import diff as TD
+    from rtw_tpu_torch.ops import trace_kernel as TK
+
+    fn = TD.make_loss_and_grad_chunked(scene, cfg, n_samples, chunk, split)
+    pix = torch.arange(cfg.num_pixels, device="cuda")
+    if target is None:
+        target = torch.zeros((cfg.num_pixels, 3), device="cuda")
+    params = TD.extract_params(scene)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    TK.trace_launches = TK.occluded_launches = 0
+    t0 = time.perf_counter()
+    loss, grads = fn(params, target, pix, GRAD_SEED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(loss=float(loss), grads=grads, wall=wall,
+               trace=TK.trace_launches, occluded=TK.occluded_launches,
+               peak_mb=(torch.cuda.max_memory_allocated() - before) / 1e6)
+    if not np.isfinite(out["loss"]):
+        raise AssertionError(f"non-finite loss {out['loss']}")
+    return out
+
+
+def _forward_seconds(scene, cfg, n_samples):
+    """(seconds, rays): one forward of every pixel's n_samples samples
+    under torch.no_grad() (pass 1 of the chunked gradient), its rays
+    counted on the device."""
+    from rtw_tpu_torch.integrator import trace_paths_counted
+
+    pix = torch.arange(cfg.num_pixels, device="cuda")
+    rays = torch.zeros(1, dtype=torch.int64, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for s in range(n_samples):
+            rays += trace_paths_counted(scene, cfg, pix, s, GRAD_SEED)[1]
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, int(rays.item())
+
+
+def _reeval_ulps(tag, label, captured, t_max):
+    """The share of hit lanes whose reeval_hit t differs from B's t by
+    more than one ulp of B's t, at B's captured launch inputs."""
+    from rtw_tpu_torch.ops import intersect as I
+    from rtw_tpu_torch.ops import trace_kernel as TK
+
+    (scene, o, d, tmin, tmax, time_, vol_u, tables), _ = captured
+    k_hit, _ = TK.trace(scene, o, d, tmin, tmax, time_, vol_u, tables)
+    re = I.reeval_hit(scene, k_hit.prim_idx, o, d, tmin, t_max, time_,
+                      vol_u, t_hint=k_hit.t)
+    hit = k_hit.prim_idx >= 0
+    ulp = torch.nextafter(k_hit.t, torch.full_like(k_hit.t, I.BIG)) - k_hit.t
+    far = ((re.t - k_hit.t).abs() > ulp) & hit
+    rel = ((re.t - k_hit.t).abs() / k_hit.t.abs().clamp_min(1e-30))[hit]
+    share = float(far.sum()) / max(int(hit.sum()), 1)
+    print(f"[{tag}] {label}: reeval_hit's t beyond one ulp of B's on "
+          f"{int(far.sum())} of {int(hit.sum())} hit lanes ({share:.6f}), "
+          f"max relative diff {float(rel.max()) if rel.numel() else 0.0:.3e}"
+          f" on {card_line()}", flush=True)
+    return share
+
+
+def _grad_kernel_rows(tag, label, cfg, run, launches):
+    """B's and C's rows of the kernels line for a gradient path: each at
+    the inputs of its 10th launch in `run()` (a loss-and-grad call),
+    against plain, timed in turns, with its bound; `launches`: (trace,
+    occluded) of the path's counted call.  Also the reeval ulp share."""
+    from rtw_tpu_torch.ops import trace_kernel as TK
+
+    got = _capture(cfg, {"trace": (TK, "trace"),
+                         "occluded": (TK, "occluded_kernel")}, run=run)
+    rows = {}
+    for name, n in zip(("trace", "occluded"), launches):
+        rows[name] = _split_step(tag, label, name, got[name])
+        rows[name]["launches"] = n
+    _reeval_ulps(tag, label, got["trace"], cfg.t_max)
+    return rows
+
+
+def phase_grad_kernels():
+    """The gradient path's kernels at the demo's full width: the demo
+    scene (grad_demo.demo_scene) at 200x200, 8 spp, depth 8, chunks of 2,
+    remat, backend="pallas" (B and C on 40000 lanes), one chunked
+    loss-and-grad call three ways: the reeval branch on B and C, the same
+    branch on their plain versions (split="plain"), and the plain branch
+    (backend="jnp"); the gradients must agree.  B's and C's launches per
+    call: 3 passes (pass 1, pass 2's forward, its remat recompute) x depth
+    x samples.  Then B and C at their 10th launch against plain, timed,
+    with their bound, and reeval_hit's t against B's.  Also the forward
+    alone (pass 1) and the step without remat, for the forward's share
+    and the recompute's cost.  Returns {name: row}."""
+    import rtw_tpu_torch as rtt
+    from rtw_tpu_torch import diff as TD
+    from rtw_tpu_torch.grad_demo import demo_scene
+
+    size, spp, chunk, depth = GRAD_DEMO
+    cfg = rtt.RenderConfig(nx=size, ny=size, spp=spp, max_depth=depth,
+                           differentiable=True, backend="pallas")
+    scene = demo_scene(1.0)
+    _grad_step(scene, cfg, spp, chunk)                       # warm-up
+    k = _grad_step(scene, cfg, spp, chunk)
+    p = _grad_step(scene, cfg, spp, chunk, split="plain")
+    j = _grad_step(scene, dataclasses.replace(cfg, backend="jnp"), spp,
+                   chunk)
+    expect = 3 * depth * spp
+    if k["trace"] != expect or k["occluded"] != expect:
+        raise AssertionError(f"graddemo: launches trace {k['trace']} "
+                             f"occluded {k['occluded']}, expected {expect}")
+    if p["trace"] or p["occluded"] or j["trace"] or j["occluded"]:
+        raise AssertionError("graddemo: the plain branches launched a "
+                             "kernel")
+    err_p, rep_p = _grad_diff("kernels vs plain twin", p["grads"],
+                              k["grads"])
+    _, rep_j = _grad_diff("kernels vs jnp branch", j["grads"], k["grads"])
+    fwd, rays = _forward_seconds(scene, cfg, spp)
+    nr = _grad_step(scene, dataclasses.replace(cfg, remat=False), spp,
+                    chunk)
+    # the recompute draws the same keyed samples and B picks the same
+    # winners: remat changes no gradient
+    _, rep_r = _grad_diff("remat vs no remat", nr["grads"], k["grads"])
+    print(f"[26 gradient kernels] graddemo {size}x{size} spp {spp} chunk "
+          f"{chunk} depth {depth} remat: loss {k['loss']:.6e} (plain twin "
+          f"{p['loss']:.6e}, jnp {j['loss']:.6e}); launches per "
+          f"loss-and-grad trace {k['trace']} occluded {k['occluded']} = 3 "
+          f"passes (pass 1, pass 2's forward, its remat recompute) x depth "
+          f"{depth} x {spp} samples ({spp // chunk} chunks of {chunk}); "
+          f"{rep_p}; {rep_j}; {rep_r}; wall {k['wall']:.3f} s (plain twin "
+          f"{p['wall']:.3f}, jnp {j['wall']:.3f}, no remat {nr['wall']:.3f});"
+          f" the forward alone (pass 1) {fwd:.3f} s, {rays} rays, "
+          f"{fwd / k['wall']:.3f} of the step; peak {k['peak_mb']:.1f} MB "
+          f"(no remat {nr['peak_mb']:.1f}) on {card_line()}", flush=True)
+    rows = _grad_kernel_rows(
+        "26 gradient kernels", "graddemo", cfg,
+        lambda: TD.make_loss_and_grad_chunked(scene, cfg, spp, chunk)(
+            TD.extract_params(scene),
+            torch.zeros((cfg.num_pixels, 3), device="cuda"),
+            torch.arange(cfg.num_pixels, device="cuda"), GRAD_SEED),
+        (k["trace"], k["occluded"]))
+    for row in rows.values():
+        row["max_abs_err"] = max(row["max_abs_err"], err_p)
+    return rows
+
+
+def phase_grad_demo():
+    """The trainer: `python -m rtw_tpu_torch.grad_demo --backend pallas
+    --mem-variants` in this process, its defaults otherwise (200x200, 8
+    spp in chunks of 2, depth 8, 12 steps, lr 0.6).  The loss must fall at
+    least 10x and every channel of the ball's albedo end nearer the truth
+    than its perturbed start."""
+    from rtw_tpu_torch import grad_demo
+
+    r = grad_demo.run(["--backend", "pallas", "--mem-variants"])
+    start, got, want = (np.asarray(r[k]) for k in (
+        "ball_albedo_start", "ball_albedo_recovered", "ball_albedo_true"))
+    print(f"[27 gradient trainer] grad_demo --backend pallas: loss "
+          f"{r['loss_first']:.4e} -> {r['loss_last']:.4e} "
+          f"({r['loss_first'] / max(r['loss_last'], 1e-30):.1f}x) in "
+          f"{r['steps']} steps, {r['wall_seconds']:.3f} s warm "
+          f"({r['wall_seconds'] / r['steps']:.3f} s a step), albedo "
+          f"{_fmt(got)} (true {_fmt(want)}, start {_fmt(start)}); peak "
+          f"{r['peak_hbm_mb']:.1f} MB over the steps; one loss-and-grad "
+          f"call: chunk 2 + remat {r['peak_hbm_mb_chunk_remat']:.1f} MB "
+          f"{r['seconds_chunk_remat']:.3f} s, full 8 spp + remat "
+          f"{r['peak_hbm_mb_full_remat']:.1f} MB "
+          f"{r['seconds_full_remat']:.3f} s, full 8 spp without remat "
+          f"{r['peak_hbm_mb_full_noremat']:.1f} MB "
+          f"{r['seconds_full_noremat']:.3f} s on {card_line()}", flush=True)
+    if not r["loss_last"] * 10 <= r["loss_first"]:
+        raise AssertionError("grad_demo: the loss fell less than 10x")
+    if not bool((np.abs(got - want) < np.abs(start - want)).all()):
+        raise AssertionError("grad_demo: a channel ended no nearer the "
+                             "truth than its start")
+    return r
+
+
+def phase_grad_scene2():
+    """Scene 2 at 800x400, 1 spp, depth 20 (B and C under "auto"): one
+    chunked loss-and-grad step with remat, its launches (3 x 20), wall,
+    peak memory and gradient Mrays/s (the rays of one forward of the
+    frame over the step's wall); finite loss and gradients, a non-zero
+    tex_color gradient; the same step on the plain twins (split="plain")
+    on the full frame must give the same gradients.  Then B and C at their
+    10th launch.  Returns {name: row}."""
+    import rtw_tpu_torch as rtt
+    from rtw_tpu_torch import diff as TD
+
+    nx, ny, depth = GRAD_SCENE2
+    cfg = rtt.RenderConfig(nx=nx, ny=ny, spp=1, max_depth=depth,
+                           scene_id=2, differentiable=True)
+    scene = rtt.build_scene(2, nx, ny)
+    _grad_step(scene, cfg, 1, 1)                             # warm-up
+    k = _grad_step(scene, cfg, 1, 1)
+    if k["trace"] != 3 * depth or k["occluded"] != 3 * depth:
+        raise AssertionError(f"scene2grad: launches trace {k['trace']} "
+                             f"occluded {k['occluded']}, expected "
+                             f"{3 * depth}")
+    tex_sum = float(k["grads"]["tex_color"].abs().sum())
+    if not tex_sum > 0:
+        raise AssertionError("scene2grad: zero tex_color gradient")
+    fwd, rays = _forward_seconds(scene, cfg, 1)
+    p = _grad_step(scene, cfg, 1, 1, split="plain")
+    err, rep = _grad_diff("kernels vs plain twin, full frame", p["grads"],
+                          k["grads"])
+    print(f"[28 gradient scene 2] {nx}x{ny} spp 1 depth {depth} remat: loss "
+          f"{k['loss']:.6e} (plain twin {p['loss']:.6e}); launches trace "
+          f"{k['trace']} occluded {k['occluded']} (3 passes x depth "
+          f"{depth}); wall {k['wall']:.3f} s (plain twin {p['wall']:.3f}); "
+          f"forward {fwd:.3f} s, {rays} rays ({fwd / k['wall']:.3f} of the "
+          f"step); gradient {rays / k['wall'] / 1e6:.2f} Mrays/s; peak "
+          f"{k['peak_mb']:.1f} MB; every gradient leaf finite, tex_color "
+          f"|g| summed {tex_sum:.6e}; {rep} on {card_line()}", flush=True)
+    rows = _grad_kernel_rows(
+        "28 gradient scene 2", "scene2grad", cfg,
+        lambda: TD.make_loss_and_grad_chunked(scene, cfg, 1, 1)(
+            TD.extract_params(scene),
+            torch.zeros((cfg.num_pixels, 3), device="cuda"),
+            torch.arange(cfg.num_pixels, device="cuda"), GRAD_SEED),
+        (k["trace"], k["occluded"]))
+    for row in rows.values():
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    return rows
+
+
+def phase_grad_queue():
+    """render(differentiable=True) of scene 2 at 128x128, 16 spp, depth 20
+    through the queue (the reeval branch on B and C) against the same
+    render with differentiable=False (B's own hit record): reeval's t can
+    differ from B's by ulps, so a path may part; rays within
+    GRAD_QUEUE_RAYS and pixels within 1e-4 on GRAD_QUEUE_PIXELS of the
+    frame."""
+    import rtw_tpu_torch as rtt
+    from rtw_tpu_torch.ops import trace_kernel as TK
+
+    cfg = rtt.RenderConfig(nx=128, ny=128, spp=16, max_depth=BENCH_DEPTH,
+                           scene_id=2, differentiable=True)
+    scene = rtt.build_scene(2, 128, 128)
+    md, mf = {}, {}
+    n0 = TK.trace_launches
+    img_d = rtt.render(scene, cfg, metrics=md)
+    if TK.trace_launches == n0:
+        raise AssertionError("queue parity: no trace kernel launched")
+    img_f = rtt.render(scene, dataclasses.replace(cfg, differentiable=False),
+                       metrics=mf)
+    close = ((img_d - img_f).abs() <= 1e-4 + 1e-4 * img_f.abs()).all(-1)
+    share = float(close.float().mean())
+    drays = abs(md["rays"] - mf["rays"]) / mf["rays"]
+    print(f"[29 gradient queue parity] scene 2 128x128 spp 16 depth "
+          f"{cfg.max_depth}, queue: rays {md['rays']} (differentiable) vs "
+          f"{mf['rays']} ({drays:.2e} apart), pixels within 1e-4 {share:.5f}"
+          f" ({int((~close).sum())} outside, max abs diff "
+          f"{float((img_d - img_f).abs().max()):.3e}), wall "
+          f"{md['wall_seconds']:.3f} / {mf['wall_seconds']:.3f} s on "
+          f"{card_line()}", flush=True)
+    if (not bool(torch.isfinite(img_d).all()) or share < GRAD_QUEUE_PIXELS
+            or drays > GRAD_QUEUE_RAYS):
+        raise AssertionError("queue parity: beyond the tolerance")
+
+
 # The same figures as read on an NVIDIA H100 80GB HBM3 at 700.00 W while
 # the split kernels and the hybrid step's nearest hit swept each block with
 # one thread a ray (PERF.md), printed beside this run's.
@@ -2101,6 +2423,10 @@ def main(argv=None) -> int:
     option_steps = timed(phase_options)
     timed(phase_options_off_the_megakernel)
     resume = timed(phase_resume)
+    grad_rows = {"graddemo": timed(phase_grad_kernels)}
+    timed(phase_grad_demo)
+    grad_rows["scene2grad"] = timed(phase_grad_scene2)
+    timed(phase_grad_queue)
     if args.profile:
         timed(phase_profiles, args.spp)
 
@@ -2145,8 +2471,10 @@ def main(argv=None) -> int:
     for name, path, v, count, err in split:
         v["launches"] = count[0 if name == "trace" else 1]
         v["max_abs_err"] = max(err, v["max_abs_err"])
+    grad_steps = [(name, path, v) for path, r in grad_rows.items()
+                  for name, v in r.items()]
     for name, path, v, *_ in split + [(name, path, v) for (name, path), v
-                                      in option_steps.items()]:
+                                      in option_steps.items()] + grad_steps:
         rep = ("rtw_tpu/ops/trace_kernel.py:918" if name == "trace" else
                "rtw_tpu/ops/trace_kernel.py:1114")
         rows.append((name, path, "rtw_tpu_torch/csrc/trace_kernel.cu", rep,

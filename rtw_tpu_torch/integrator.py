@@ -24,12 +24,21 @@ plain regen sweep below 128 prims when it is not (the reference's jnp
 sweep there), and the queue with the split kernels at 128 prims and
 above, as the reference does on its TPU; a CPU scene runs the plain regen
 path.  A render outside the megakernel's envelope (`_mega_problems`:
-`rng` other than "fast", `estimator="book"`, `bounce_stats`, or the
-scene) never takes it: "auto" picks regen or the queue, and a forced
-megakernel raises ValueError, as the reference's gate does.  What is not
-ported (`differentiable`) raises NotImplementedError naming its ROADMAP
-item; nothing falls back silently to the plain path on the card in place
-of an unported kernel.
+`rng` other than "fast", `estimator="book"`, `bounce_stats`,
+`differentiable`, or the scene) never takes it: "auto" picks regen or the
+queue, and a forced megakernel raises ValueError, as the reference's gate
+does.  Nothing falls back silently to the plain path on the card in place
+of a kernel.
+
+Gradients (`cfg.differentiable`): `trace_paths` traces one sample per
+pixel through exactly `cfg.max_depth` bounces, for torch autograd
+(diff.py).  On the split tier `bounce_step` takes each ray's winner from
+kernel B, run under torch.no_grad() on detached inputs, and
+`intersect.reeval_hit` recomputes that winner's t and payload with
+gradients; kernel C's visibility is a detached bool.  Below the split tier
+autograd differentiates the plain sweep itself.  Neither kernel is ever
+differentiated: the winner and the visibility are piecewise-constant
+decisions, as in the reference.
 """
 
 from __future__ import annotations
@@ -39,15 +48,17 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from rtw_tpu_torch.models import scene as S
 from rtw_tpu_torch.ops import sampling as sm
 from rtw_tpu_torch.ops import vec as V
 from rtw_tpu_torch.ops.vec import Vec3
 from rtw_tpu_torch.ops import trace_kernel as TK
+from rtw_tpu_torch.ops import intersect as I
 from rtw_tpu_torch.ops.bounce import BounceEnv, bounce_core
 from rtw_tpu_torch.ops.intersect import BIG, fma
-from rtw_tpu_torch.ops.shading import resolve_albedo
+from rtw_tpu_torch.ops.shading import gather_shade, resolve_albedo
 from rtw_tpu_torch.utils import rng as R
 
 # Scenes at or above this many prims run the split-tier kernels (the
@@ -198,25 +209,75 @@ def _pick_light(scene: S.Scene, u_sel, ua, ub):
             V.gather_rows(lights.emission, li))
 
 
-def _occlude(scene: S.Scene, cfg, use_split, tables, time, occ_u,
+# The split tier's two queries as `bounce_step` runs them: "kernels"
+# through the kernel wrappers B and C (`TK.trace`, `TK.occluded_kernel`;
+# their plain versions on CPU tensors), "plain" through the plain versions
+# on any device (`TK.trace_plain`, `TK.occluded_plain`): the twin the
+# card's gradient path is held against, and that path on the CPU.
+SPLIT_MODES = ("kernels", "plain")
+
+
+def _split_mode(cfg, scene, split):
+    """The split tier's mode of a bounce: `split` if given (one of
+    SPLIT_MODES), else "kernels" where `_split_backend` holds and None (the
+    plain sweep, no split tier) where it does not."""
+    if split is None:
+        return "kernels" if _split_backend(cfg, scene) else None
+    if split not in SPLIT_MODES:
+        raise ValueError(f"unknown split mode {split!r}")
+    return split
+
+
+def _split_tables(cfg, scene: S.Scene):
+    """The split kernels' tables.  A gradient render builds them without
+    gradients: the kernels only pick winners and visibility there, so the
+    scene's tensors may require grad."""
+    if cfg.differentiable:
+        with torch.no_grad():
+            return TK.split_tables(scene)
+    return TK.split_tables(scene)
+
+
+def _detached(*args):
+    """The arguments with every tensor and Vec3 detached."""
+    return tuple(Vec3(*(c.detach() for c in a)) if isinstance(a, Vec3)
+                 else a.detach() if torch.is_tensor(a) else a for a in args)
+
+
+def _split_query(kernel, plain, mode, scene, tables, cfg, *args):
+    """One split-tier query: `kernel` (with the tables) in mode "kernels",
+    its `plain` version in mode "plain".  A gradient render runs it under
+    torch.no_grad() on detached inputs (the reference's stop_gradient): its
+    answer is a detached decision."""
+    def run(*a):
+        return kernel(scene, *a, tables) if mode == "kernels" else plain(
+            scene, *a)
+    if not cfg.differentiable:
+        return run(*args)
+    with torch.no_grad():
+        return run(*_detached(*args))
+
+
+def _occlude(scene: S.Scene, cfg, mode, tables, time, occ_u,
              shadow_org, ldir_u, occ_tmax, want):
-    """BounceEnv.occlude: the shadow query through the configured trace
-    backend, with `occ_u`, the volumes' shadow-ray free-flight uniforms.
-    `want` is implied by occ_tmax (-BIG on lanes that do not want the
-    query)."""
+    """BounceEnv.occlude: the shadow query through the split tier's `mode`
+    (None: the plain sweep), with `occ_u`, the volumes' shadow-ray
+    free-flight uniforms.  `want` is implied by occ_tmax (-BIG on lanes
+    that do not want the query).  The visibility is a bool: it carries no
+    gradient."""
     del want
-    if use_split:
-        return TK.occluded_kernel(scene, shadow_org, ldir_u, cfg.shadow_eps,
-                                  occ_tmax, time, occ_u, tables)
-    return TK.occluded_plain(scene, shadow_org, ldir_u, cfg.shadow_eps,
-                             occ_tmax, time, occ_u)
+    args = (shadow_org, ldir_u, cfg.shadow_eps, occ_tmax, time, occ_u)
+    if mode is None:
+        return TK.occluded_plain(scene, *args)
+    return _split_query(TK.occluded_kernel, TK.occluded_plain, mode, scene,
+                        tables, cfg, *args)
 
 
-def bounce_env(scene: S.Scene, cfg, time, occ_u, use_split=False,
+def bounce_env(scene: S.Scene, cfg, time, occ_u, mode=None,
                tables=None) -> BounceEnv:
     """The BounceEnv of `bounce_step` (and of the megakernel's plain twin):
     `time` and `occ_u` are bound into the occlusion query, which goes
-    through the split kernel when `use_split`."""
+    through the split tier in `mode` (None: the plain sweep)."""
     return BounceEnv(
         mat_present=scene.mat_present,
         num_lights=scene.num_lights,
@@ -226,22 +287,23 @@ def bounce_env(scene: S.Scene, cfg, time, occ_u, use_split=False,
         unit_ball=sm.unit_ball,
         light_pdf_at=functools.partial(_light_pdf_at, scene),
         pick_light=functools.partial(_pick_light, scene),
-        occlude=functools.partial(_occlude, scene, cfg, use_split, tables,
-                                  time, occ_u),
+        occlude=functools.partial(_occlude, scene, cfg, mode, tables, time,
+                                  occ_u),
         estimator=cfg.estimator,
         light_pdf_dir=functools.partial(_light_pdf_dir, scene),
     )
 
 
 def bounce_step(scene: S.Scene, cfg, path_keys, state: PathState, bounce,
-                tables=None):
+                tables=None, split=None):
     """One wavefront bounce: trace, shade, NEE, RR.  Returns
     (new state, [N] int32 rays traced per lane).  `tables`: the scene's
-    split-kernel tables (ops/trace_kernel.split_tables), built once per
-    render by the caller; built here when None."""
-    use_split = _split_backend(cfg, scene)
-    if use_split and tables is None:
-        tables = TK.split_tables(scene)
+    split-kernel tables (`_split_tables`), built once per render by the
+    caller; built here when None.  `split`: the split tier's mode
+    (`_split_mode`; None: chosen by `_split_backend`)."""
+    mode = _split_mode(cfg, scene, split)
+    if mode and tables is None:
+        tables = _split_tables(cfg, scene)
     nv = max(scene.n_vol, 1)
     # stochastic texture filtering draws its row uniform from a dedicated
     # trailing slot: slot streams are independent by index, so appending it
@@ -257,16 +319,25 @@ def bounce_step(scene: S.Scene, cfg, path_keys, state: PathState, bounce,
     o, d = state.origin, state.direction
     # dead lanes get tmax = -BIG: a forced miss, masked by alive below
     tmax_lane = torch.where(state.alive, float(np.float32(cfg.t_max)), -BIG)
-    if use_split:
-        hit, shade = TK.trace(scene, o, d, cfg.t_min, tmax_lane, state.time,
-                              vol_u, tables)
+    if mode:
+        hit, shade = _split_query(TK.trace, TK.trace_plain, mode, scene,
+                                  tables, cfg, o, d, cfg.t_min, tmax_lane,
+                                  state.time, vol_u)
+        if cfg.differentiable:
+            # the kernel's winner is a detached decision: its t and payload
+            # are recomputed with gradients, and the shading record is
+            # gathered from the live scene so texture-colour gradients flow
+            # (the kernel's record holds colours copied into its tables)
+            hit = I.reeval_hit(scene, hit.prim_idx, o, d, cfg.t_min,
+                               cfg.t_max, state.time, vol_u, t_hint=hit.t)
+            shade = gather_shade(scene, hit.prim_idx, hit.prim_idx >= 0)
     else:
         hit, shade = TK.trace_plain(scene, o, d, cfg.t_min, tmax_lane,
                                     state.time, vol_u)
     albedo = resolve_albedo(scene, shade, hit.point, hit.u, hit.v,
                             cfg.tex_filter, cfg.tex_tile_gate, tex_u)
 
-    env = bounce_env(scene, cfg, state.time, occ_u, use_split, tables)
+    env = bounce_env(scene, cfg, state.time, occ_u, mode, tables)
     res = bounce_core(env, U, bounce, state.alive, o, d, state.time,
                       state.throughput, state.radiance, state.prev_pdf,
                       state.prev_diffuse, hit.prim_idx < 0, hit.point,
@@ -343,19 +414,60 @@ def _nan_to_zero(x):
     return torch.where(torch.isfinite(x), x, 0.0)
 
 
+def trace_paths_counted(scene: S.Scene, cfg, pixel_idx, sample_idx,
+                        seed: int, split=None):
+    """Trace sample `sample_idx` (a scalar or [N]) of each pixel in
+    `pixel_idx`.  Returns (radiance Vec3 of [N] planes, NaN and inf
+    scrubbed; rays traced, an int64 [1] tensor on the scene's device).
+
+    With cfg.differentiable the loop runs exactly cfg.max_depth bounces
+    (the reference's lax.scan: a dead lane's bounce changes nothing), for
+    torch autograd; with cfg.remat each bounce is checkpointed
+    (torch.utils.checkpoint, non-reentrant), so the backward keeps only the
+    PathState between bounces and recomputes each bounce once.  The
+    recomputation draws the same samples (every draw is a keyed hash of
+    (pixel, sample, bounce, slot), no generator state) and picks the same
+    winners (the kernels are deterministic).  Without it the loop exits
+    once every path is dead.  `split`: the split tier's mode
+    (`bounce_step`)."""
+    dev = scene.device
+    pixel_idx = torch.as_tensor(pixel_idx, device=dev).to(torch.int64)
+    path_keys = R.make_path_keys(seed, pixel_idx, sample_idx, cfg.rng)
+    state = generate_camera_rays(scene, cfg, pixel_idx, path_keys)
+    tables = (_split_tables(cfg, scene)
+              if _split_mode(cfg, scene, split) else None)
+    rays = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def step(st, bounce):
+        return bounce_step(scene, cfg, path_keys, st, bounce, tables, split)
+
+    for bounce in range(cfg.max_depth):
+        if not cfg.differentiable and not bool(state.alive.any()):
+            break
+        if cfg.differentiable and cfg.remat and torch.is_grad_enabled():
+            state, rays_lane = torch.utils.checkpoint.checkpoint(
+                step, state, bounce, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            state, rays_lane = step(state, bounce)
+        rays += rays_lane.sum(dtype=torch.int64)
+    return Vec3(*(_nan_to_zero(c) for c in state.radiance)), rays
+
+
+def trace_paths(scene: S.Scene, cfg, pixel_idx, sample_idx, seed: int,
+                split=None):
+    """As trace_paths_counted, the radiance as an [N, 3] tensor."""
+    rad, _ = trace_paths_counted(scene, cfg, pixel_idx, sample_idx, seed,
+                                 split)
+    return rad.stack()
+
+
 def unported(cfg) -> list[str]:
     """What this render needs that the port does not have yet, each with
-    its ROADMAP item; empty when every piece of the render is ported."""
-    out = []
-    if cfg.differentiable:
-        out.append("differentiable=True (ROADMAP item 12)")
-    return out
-
-
-def _raise_unported(cfg) -> None:
-    todo = unported(cfg)
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+    its ROADMAP item: nothing since gradients landed (item 12), so every
+    RenderConfig option renders."""
+    del cfg
+    return []
 
 
 def _mega_problems(cfg, scene) -> list[str]:
@@ -385,10 +497,8 @@ def _mega_problems(cfg, scene) -> list[str]:
 
 
 def _validate_mega(cfg, scene):
-    """The megakernel's feature envelope, checked loudly: what the port has
-    not ported raises NotImplementedError, and a render the kernel does
-    not compute (`_mega_problems`) raises ValueError."""
-    _raise_unported(cfg)
+    """The megakernel's feature envelope, checked loudly: a render the
+    kernel does not compute (`_mega_problems`) raises ValueError."""
     problems = _mega_problems(cfg, scene)
     if problems:
         raise ValueError("backend='mega' unsupported for this render: "
@@ -406,9 +516,8 @@ def _mega_backend(cfg, scene) -> bool:
     the reference's predicate chooses it.  Under "auto" a render the kernel
     does not compute (`_mega_problems`: a config option or the scene) runs
     `_split_backend`'s choice, the regen sweep below 128 prims, as the
-    reference runs its jnp sweep there; an option the port has not ported
-    still raises NotImplementedError.  CPU scenes run the plain regen path
-    under "auto", as the reference does on its CPU."""
+    reference runs its jnp sweep there.  CPU scenes run the plain regen
+    path under "auto", as the reference does on its CPU."""
     if cfg.backend == "mega":
         _validate_mega(cfg, scene)
         return True
@@ -416,7 +525,6 @@ def _mega_backend(cfg, scene) -> bool:
         return False
     if scene.device.type != "cuda" or _n_prims(scene) >= SPLIT_TIER_PRIMS:
         return False
-    _raise_unported(cfg)
     return not _mega_problems(cfg, scene)
 
 
@@ -494,8 +602,7 @@ def trace_wavefront_regen(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
     tail compaction is compiled out on its plain path too, and is not
     ported.  Returns (accum Vec3 of [N], rays int64 [1], stats: a
     WavefrontStats with cfg.bounce_stats, else ())."""
-    _raise_unported(cfg)
-    tables = (TK.split_tables(scene) if _split_backend(cfg, scene)
+    tables = (_split_tables(cfg, scene) if _split_backend(cfg, scene)
               else None)
     n = pixel_idx.shape[0]
     dev = pixel_idx.device
@@ -570,9 +677,8 @@ def trace_wavefront_queue(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
 
     Returns (accum Vec3 of [N] positional sums, rays int64 [1], stats: a
     WavefrontStats with cfg.bounce_stats, else ())."""
-    _raise_unported(cfg)
     use_split = _split_backend(cfg, scene)
-    tables = TK.split_tables(scene) if use_split else None
+    tables = _split_tables(cfg, scene) if use_split else None
     n = pixel_idx.shape[0]
     dev = pixel_idx.device
     i64 = torch.int64

@@ -52,7 +52,11 @@ class Hit(NamedTuple):
 
 
 def _col(params, i):
-    """[C, 9] chunk param table -> [C, 1] broadcast column."""
+    """[C, 9] chunk param table -> [C, 1] broadcast column.  A list of 9
+    per-ray [N] planes (the winner re-evaluation, `reeval_hit`) passes
+    plane i through: the same test then runs one prim per ray."""
+    if isinstance(params, (list, tuple)):
+        return params[i]
     return params[:, i:i + 1]
 
 
@@ -242,7 +246,15 @@ def _box_payload(p9, o: Vec3, d: Vec3, t, tmin):
 
 def _sphere_uv(n: Vec3):
     """Spherical uv from the unit normal (the reference's _sphere_uv, with
-    the exact atan2 and asin)."""
+    the exact atan2 and asin).
+
+    Detached from autograd, as the reference detaches it: at a pole
+    (n = (0, +-1, 0)) the backward of asin is inf and that of atan2(0, 0)
+    NaN, and a NaN reaches every shared gradient (the camera's) through
+    the lane sum even where the cotangent arriving here is zero.  Texture
+    coordinates carry no gradient in the reference's scope (its diff.py);
+    gradients through the hit point still flow."""
+    n = Vec3(*(c.detach() for c in n))
     phi = torch.atan2(n.z, n.x)
     theta = torch.asin(torch.clamp(n.y, -1.0, 1.0))
     u = 1.0 - (phi + np.pi) / (2.0 * np.pi)
@@ -356,17 +368,23 @@ def intersect_scene(scene, o: Vec3, d: Vec3, tmin, tmax, time,
                normal=normal, u=u, v=v)
 
 
+def _gather_xform(prims, idx):
+    """The world->object and object->world transforms of each ray's
+    winning prim, as nested [3][4] lists of [N] planes."""
+    w2o = [[prims.w2o[:, i, j][idx] for j in range(4)] for i in range(3)]
+    o2w = [[prims.o2w[:, i, j][idx] for j in range(4)] for i in range(3)]
+    return w2o, o2w
+
+
 def _winner_payload(scene, safe_prim, hit_mask, p9, o: Vec3, d: Vec3, t_pay,
                     time, tmin):
     """(point, unit normal, u, v) for per-ray winners: one statically typed
-    payload per chunk-plan group, selected by the group owning the winner."""
+    payload per chunk-plan group, selected by the group owning the winner.
+    Shared by intersect_scene and reeval_hit."""
     n = t_pay.shape[0]
     prims = scene.prims
     if any(e[5] for e in scene.chunk_plan):
-        w2o_g = [[prims.w2o[:, i, j][safe_prim] for j in range(4)]
-                 for i in range(3)]
-        o2w_g = [[prims.o2w[:, i, j][safe_prim] for j in range(4)]
-                 for i in range(3)]
+        w2o_g, o2w_g = _gather_xform(prims, safe_prim)
         o_x, d_x = V.affine_point(w2o_g, o), V.affine_vec(w2o_g, d)
 
     zero = torch.zeros(n, dtype=torch.float32, device=t_pay.device)
@@ -394,6 +412,66 @@ def _winner_payload(scene, safe_prim, hit_mask, p9, o: Vec3, d: Vec3, t_pay,
         uu = torch.where(in_group, g_u, uu)
         vv = torch.where(in_group, g_v, vv)
     return point, normal.normalized(), uu, vv
+
+
+def reeval_hit(scene, prim_idx, o: Vec3, d: Vec3, tmin, tmax, time, vol_u,
+               t_hint=None) -> Hit:
+    """The hit record of a detached winner, recomputed with gradients (the
+    reference's reeval_hit).
+
+    The gradient path takes each ray's winner `prim_idx` from the split
+    kernel, run without gradients: the winner is a piecewise-constant
+    decision, as intersect_scene's argmin is.  This recomputes t and the
+    payload of just that prim per ray in plain torch, so t carries the
+    gradients of the ray and the payload those of t, as through
+    intersect_scene.
+
+    `t_hint`: the kernel's t, used detached only where the re-evaluation
+    misses a winner the kernel accepted (a root within an ulp of the
+    window's edge), so the payload never sees BIG."""
+    n = o.x.shape[0]
+    prims = scene.prims
+    hit_mask = prim_idx >= 0
+    sp = torch.clamp_min(prim_idx, 0)
+    p9 = [prims.params[:, k][sp] for k in range(S.NUM_PRIM_PARAMS)]
+    if scene.n_vol > 0:
+        slots = torch.clamp_min(prims.vol_slot[sp], 0).long()
+        u_sel = vol_u.gather(0, slots[None, :])[0]
+    else:
+        u_sel = torch.zeros(n, dtype=torch.float32, device=o.x.device)
+    if any(e[5] for e in scene.chunk_plan):
+        w2o_g, _ = _gather_xform(prims, sp)
+        o_t, d_t = V.affine_point(w2o_g, o), V.affine_vec(w2o_g, d)
+
+    tmax = torch.as_tensor(tmax, dtype=torch.float32,
+                           device=o.x.device).expand(n)
+    t_re = torch.zeros(n, dtype=torch.float32, device=o.x.device)
+    for start, count, size, ptype, axis, has_xform, _ in scene.chunk_plan:
+        check_prim_type(ptype)
+        in_group = hit_mask & (sp >= start) & (sp < start + size)
+        o_sel, d_sel = (o_t, d_t) if has_xform else (o, d)
+        if ptype == S.PRIM_SPHERE:
+            t_g = sphere_t(p9, o_sel, d_sel, tmin, tmax)
+        elif ptype == S.PRIM_MOVING_SPHERE:
+            t_g = moving_sphere_t(p9, o_sel, d_sel, tmin, tmax, time)
+        elif ptype == S.PRIM_RECT:
+            t_g = rect_t(p9, o_sel, d_sel, tmin, tmax, axis)
+        elif ptype == S.PRIM_BOX:
+            t_g = box_t(p9, o_sel, d_sel, tmin, tmax)
+        else:
+            fn = (volume_sphere_t if ptype == S.PRIM_VOLUME_SPHERE
+                  else volume_box_t)
+            t_g = fn(p9, o_sel, d_sel, tmin, tmax, u_sel)
+        t_re = torch.where(in_group, t_g, t_re)
+
+    if t_hint is not None:
+        t_re = torch.where(t_re < BIG * 0.5, t_re, t_hint.detach())
+    t_pay = torch.where(hit_mask, t_re, 0.0)
+    point, normal, u, v = _winner_payload(scene, sp, hit_mask, p9, o, d,
+                                          t_pay, time, tmin)
+    mat_id = torch.where(hit_mask, prims.material_id[sp], 0)
+    return Hit(t=torch.where(hit_mask, t_re, BIG), prim_idx=prim_idx,
+               mat_id=mat_id, point=point, normal=normal, u=u, v=v)
 
 
 def occluded(scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u):

@@ -250,7 +250,36 @@ def check_tables(scene: S.Scene, tables: SplitTables) -> None:
                          f"of shared memory, the kernels have {SMEM_MAX}")
 
 
+def refuse_grad(who: str, **tensors) -> None:
+    """Raise ValueError if grad mode is on and one of `tensors` (tensors or
+    Vec3s) requires grad: a kernel reads raw pointers, so it would drop
+    that gradient silently.  The gradient path runs the kernels under
+    torch.no_grad() on detached inputs (integrator.bounce_step)."""
+    if not torch.is_grad_enabled():
+        return
+    for name, t in tensors.items():
+        for c in (t if isinstance(t, Vec3) else (t,)):
+            if torch.is_tensor(c) and c.requires_grad:
+                raise ValueError(
+                    f"{who}: {name} requires grad; the kernel would drop "
+                    "its gradient (call it under torch.no_grad() on "
+                    "detached inputs)")
+
+
+def _scene_tensors(scene: S.Scene) -> dict:
+    """The scene's tensors that the tables are built from."""
+    pr = scene.prims
+    return {**{f"prims.{f.name}": getattr(pr, f.name)
+               for f in dataclasses.fields(pr)},
+            "textures.color": scene.textures.color,
+            "block_aabbs": scene.block_aabbs}
+
+
 def split_tables(scene: S.Scene) -> SplitTables:
+    """The tables of both kernels (SplitTables), built from the scene; a
+    scene tensor that requires grad under grad mode is refused
+    (`refuse_grad`)."""
+    refuse_grad("split_tables", **_scene_tensors(scene))
     check_plan(scene)
     props = build_props(scene, any(e[5] for e in scene.chunk_plan))
     aabbs, layout = augment_aabbs(scene)
@@ -363,6 +392,15 @@ def _launch_inputs(scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u,
     return rays, tables, p
 
 
+def _refuse_grad_inputs(who, scene, o, d, tmax, time, vol_u, tables):
+    """`refuse_grad` over a query's rays, uniforms and tables (the scene's
+    tensors when the tables are still to be built), on either device: the
+    plain version a CPU tensor runs takes what the kernel would take."""
+    tabs = ({"tables.props": tables.props, "tables.aabbs": tables.aabbs}
+            if tables is not None else _scene_tensors(scene))
+    refuse_grad(who, o=o, d=d, tmax=tmax, time=time, vol_u=vol_u, **tabs)
+
+
 def _call(fn, dev, *args):
     lib = library()
     with torch.cuda.device(dev):
@@ -381,6 +419,7 @@ def trace(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u,
     CUDA tensors launch the kernel or raise."""
     global trace_launches
     check_plan(scene)
+    _refuse_grad_inputs("trace", scene, o, d, tmax, time, vol_u, tables)
     if o.x.device.type == "cpu":
         return trace_plain(scene, o, d, tmin, tmax, time, vol_u)
     rays, tables, p = _launch_inputs(scene, o, d, tmin, tmax, time, vol_u,
@@ -417,6 +456,8 @@ def occluded_kernel(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time,
     kernel or raise."""
     global occluded_launches
     check_plan(scene)
+    _refuse_grad_inputs("occluded_kernel", scene, o, d, tmax, time, vol_u,
+                        tables)
     if o.x.device.type == "cpu":
         return occluded_plain(scene, o, d, tmin, tmax, time, vol_u)
     rays, tables, p = _launch_inputs(scene, o, d, tmin, tmax, time, vol_u,

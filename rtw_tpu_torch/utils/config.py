@@ -4,8 +4,7 @@ Copied, not imported: importing anything under `rtw_tpu` runs its package
 `__init__`, which imports JAX, and the port must run where JAX is absent.
 Fields, defaults and checks are the reference's, so one config value means
 the same render in both packages.  The reference file carries the history
-of each option; `differentiable`, which the port does not implement yet,
-raises where it is consumed (integrator.py), naming its ROADMAP item.
+of each option.
 """
 
 from __future__ import annotations
@@ -64,7 +63,10 @@ class RenderConfig:
     bounce_stats: bool = False
     occupancy_trace: bool = False
 
-    # Differentiability (ROADMAP item 12).
+    # Differentiability: trace_paths runs exactly max_depth bounces for
+    # autograd, the split kernels pick winners without gradients (diff.py);
+    # remat checkpoints each bounce.  A render with it takes regen or the
+    # queue, never the megakernel.
     differentiable: bool = False
     remat: bool = True
 

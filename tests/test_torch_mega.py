@@ -209,14 +209,11 @@ def test_gate_refuses_unported_options(field, value):
     """A forced megakernel (backend="mega", scheduler "mega" or "qmega",
     `mega_params`) refuses each option with ValueError naming it, as
     the reference's `_validate_mega` does, and "auto" renders it on the
-    plain path; `differentiable` is not ported: NotImplementedError."""
+    plain path; `differentiable` (ported: gradients) stays outside the
+    kernel's envelope, as in the reference."""
     ts = rtt.build_scene(0, 8, 8, device="cpu")
     cfg = dataclasses.replace(rtt.RenderConfig(nx=8, ny=8, spp=1), **{
         field: value})
-    if field == "differentiable":
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-            rtt.render(ts, cfg)
-        return
     forced = [dataclasses.replace(cfg, backend="mega"),
               dataclasses.replace(cfg, scheduler="mega"),
               dataclasses.replace(cfg, scheduler="qmega")]
@@ -333,11 +330,12 @@ def test_forced_mega_still_refuses_outside_the_envelope(name, match,
 def test_auto_gate_still_raises_on_unported_options(name, on_cuda):
     """On a CUDA scene below the split tier "auto" keeps every option
     outside the kernel's envelope off the megakernel (the regen sweep),
-    forced mega and qmega raise ValueError naming it, and the one option
-    still unported, `differentiable`, raises NotImplementedError."""
+    and forced mega and qmega raise ValueError naming it; since gradients
+    are ported, `differentiable` is one of them, and nothing raises
+    NotImplementedError."""
     scene = GATE_SCENES[name]()
     base = rtt.RenderConfig(nx=8, ny=8, spp=1)
-    for field, value in OUTSIDE_THE_KERNEL:
+    for field, value in [*OUTSIDE_THE_KERNEL, ("differentiable", True)]:
         cfg = dataclasses.replace(base, **{field: value})
         assert not TI._mega_backend(cfg, scene)
         assert not TI._split_backend(cfg, scene)
@@ -347,9 +345,6 @@ def test_auto_gate_still_raises_on_unported_options(name, on_cuda):
             with pytest.raises(ValueError, match=field):
                 TI.trace_wavefront(scene, dataclasses.replace(
                     cfg, scheduler=sched), torch.arange(64), 0, 0, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        TI._mega_backend(dataclasses.replace(base, differentiable=True),
-                         scene)
 
 
 def test_warp_shared_walk_gives_the_hybrid_step_winner(monkeypatch):
