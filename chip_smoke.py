@@ -45,6 +45,22 @@ the port's paths through `render`:
   at 800x400, 1 spp, depth 20, one gradient step against its plain twin,
   with its gradient Mrays/s; render(differentiable=True) of scene 2
   through the queue against differentiable=False;
+- sharding (rtw_tpu_torch.parallel): Cornell at 800x800, 64 spp, depth 20
+  through `render_sharded` on one NCCL rank in this process, pixel mode
+  bit-equal to `render` and sample mode within 1e-5; two ranks sharing
+  the card on gloo (rtw_tpu_torch.parallel.worker, one process each):
+  scene 2 at 800x400, 16 spp on the queue with B and C in each rank,
+  within 1e-5 of the one-rank render, Cornell in sample mode, and a
+  Cornell render killed after its first checkpoint and resumed bit-equal;
+  `grad_sharded` of the demo scene on two ranks with B and C against one
+  rank's `make_loss_and_grad`;
+- the denoiser and the command line: `primary_features` on scene 4 at
+  800x400 (one launch of B) against the same G-buffer through
+  `trace_plain`, `denoise` in ldr and hdr, and `cli.main` on scene 0 at
+  800x800, 16 spp: with its defaults (one `mega_trace` launch, the PNG
+  equal to `render`'s) and with --denoise, --metrics-json and
+  --profile-dir (the regen sweep and one launch of B);
+  `entry()` and `dryrun_multichip(2)`;
 
 and checks that each path launched its kernels.  Beside them: the trace
 and occlusion kernels on a scene of tied prims (equal spheres across and
@@ -1269,20 +1285,25 @@ def _without_volumes(scene):
                                block_aabbs=scene.block_aabbs[rows])
 
 
-def _split_step(tag, label, name, captured, **check):
-    """One split kernel (`name`: "trace" or "occluded") at captured launch
-    inputs: kernel against plain (`check`: _compare_trace's or
-    _compare_occluded's limits), CUDA-event times in turns, and the bound.
-    Returns the kernel's row of the kernels line, without its launches."""
+def _split_step(tag, label, name, captured, call=10, **check):
+    """One split kernel (`name`: "trace" or "occluded") at the inputs of
+    its `call`-th launch (`captured`; the tables the wrapper builds when
+    the call passed none): kernel against plain (`check`: _compare_trace's
+    or _compare_occluded's limits), CUDA-event times in turns, and the
+    bound.  Returns the kernel's row of the kernels line, without its
+    launches."""
     from rtw_tpu_torch.ops import trace_kernel as TK
 
     nearest = name == "trace"
     kern, plain = ((TK.trace, TK.trace_plain) if nearest else
                    (TK.occluded_kernel, TK.occluded_plain))
-    (scene, *args, tables), _ = captured
-    args = tuple(args)
+    (scene, *args), kw = captured
+    tables = (args[6:] or [kw.get("tables")])[0]
+    if tables is None:
+        tables = TK.split_tables(scene)
+    args = tuple(args[:6])
     cmp = _compare_trace if nearest else _compare_occluded
-    err, rep = cmp(f"{name} {label} at launch 10", scene, tables, args,
+    err, rep = cmp(f"{name} {label} at launch {call}", scene, tables, args,
                    **check)
     print(f"[{tag} step check] {rep}", flush=True)
     slow = tables.n_blocks > 64           # a plain sweep of seconds
@@ -2355,6 +2376,501 @@ def phase_grad_queue():
         raise AssertionError("queue parity: beyond the tolerance")
 
 
+# Sharding, the denoiser and the CLI (rtw_tpu_torch.parallel, denoise.py,
+# cli.py, entry.py).  One rank renders on NCCL in this process; two ranks
+# (rtw_tpu_torch.parallel.worker, one process each) share the one card
+# through gloo with host-staged collectives: NCCL refuses two ranks on one
+# device.  Their kernels time-slice the card, so a two-rank time is no
+# speed figure.
+SHARD_SPP = 64                          # Cornell 800x800, depth 20
+SHARD_SCENE2 = (800, 400, 16)           # scene 2's split workload
+SHARD_RESUME = (800, 800, 16, 4)        # Cornell: nx, ny, spp, spp_chunk
+SHARD_GRAD = (200, 2, 8)                # the demo scene: size, spp, depth
+# a sharded gradient against one rank's (tests/test_parallel.py's)
+GRAD_SHARD_RTOL, GRAD_SHARD_ATOL = 1e-4, 1e-6
+DENOISE_SCENE4 = (800, 400)
+CLI_WORKLOAD = (0, 800, 800, 16)        # scene, dx, dy, ns
+
+
+def _build_folder(name):
+    """An empty folder of this name under build/ (which git ignores)."""
+    import os
+
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", name)
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    return folder
+
+
+def _timed_mega_trace(fn):
+    """(fn(), [ms of each mega_trace call in it]): CUDA events around each
+    call of the wrapper."""
+    from rtw_tpu_torch.ops import mega_kernel as MK
+
+    real, times = MK.mega_trace, []
+
+    def timed(*a):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*a)
+        end.record()
+        times.append((start, end))
+        return out
+    MK.mega_trace = timed
+    try:
+        out = fn()
+    finally:
+        MK.mega_trace = real
+    torch.cuda.synchronize()
+    return out, [s.elapsed_time(e) for s, e in times]
+
+
+def phase_sharded_one_rank(mega, main_spp):
+    """render_sharded on one rank over NCCL (a process group of world 1 in
+    this process, so every collective runs): Cornell 800x800, SHARD_SPP
+    spp, depth 20.  Pixel mode bit-equal to `render` with equal rays, in
+    one `mega_trace` launch (timed with CUDA events); sample mode within
+    1e-5.  The row's plain time, bound and error are phase 5's twin when
+    it ran at SHARD_SPP (the slab is the same lanes, the launch the same
+    inputs), else measured here.  Returns (row, (image, scene, cfg))."""
+    import torch.distributed as dist
+
+    import rtw_tpu_torch as rtt
+    from rtw_tpu_torch.ops import mega_kernel as MK
+    from rtw_tpu_torch.parallel import mesh as PM
+    from rtw_tpu_torch.parallel import worker
+    from rtw_tpu_torch.render import tile_permutation
+
+    cfg = rtt.RenderConfig(nx=BENCH_NX, ny=BENCH_NY, spp=SHARD_SPP,
+                           max_depth=BENCH_DEPTH, scene_id=0)
+    scene = rtt.build_scene(0, cfg.nx, cfg.ny)
+    ref, m_ref, _ = _render_counted(scene, cfg)
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{worker.free_port()}",
+        world_size=1, rank=0, timeout=PM.COLLECTIVE_TIMEOUT)
+    try:
+        mesh = PM.make_mesh()
+        if (mesh.backend, mesh.world, mesh.group is None) != ("nccl", 1,
+                                                             False):
+            raise AssertionError(f"not a one-rank NCCL mesh: {mesh}")
+        PM.render_sharded(scene, cfg, mesh)                  # warm-up
+        m, m_s = {}, {}
+        (img, launches), ms = _timed_mega_trace(lambda: worker.counted(
+            lambda: PM.render_sharded(scene, cfg, mesh, metrics=m)))
+        img_s, launches_s = worker.counted(lambda: PM.render_sharded(
+            scene, cfg, mesh, mode="samples", metrics=m_s))
+    finally:
+        dist.destroy_process_group()
+    same = bool(torch.equal(img, ref))
+    diff_s = float((img_s - ref).abs().max())
+    close_s = bool(torch.allclose(img_s, ref, atol=1e-5, rtol=1e-5))
+    report = (f"Cornell {cfg.nx}x{cfg.ny} spp {cfg.spp} depth "
+              f"{cfg.max_depth} on one NCCL rank: pixels {m['wall_seconds']:.4f}"
+              f" s, {m['rays']} rays, {m['mrays_per_sec']:.2f} Mrays/s, "
+              f"{launches['mega_trace']} mega_trace launches "
+              f"({', '.join(f'{t:.3f}' for t in ms)} ms), bit-equal to "
+              f"render {same} (render {m_ref['wall_seconds']:.4f} s, "
+              f"{m_ref['rays']} rays, {m_ref['mrays_per_sec']:.2f} Mrays/s);"
+              f" samples {m_s['wall_seconds']:.4f} s, {m_s['mrays_per_sec']:.2f}"
+              f" Mrays/s, {launches_s['mega_trace']} launches, max abs diff "
+              f"{diff_s:.3e}")
+    print(f"[30 sharded, one rank] {report} on {card_line()}", flush=True)
+    if (not same or not close_s or m["rays"] != m_ref["rays"]
+            or launches["mega_trace"] != 1 or launches_s["mega_trace"] != 1
+            or m["devices"] != 1):
+        raise AssertionError(report)
+    pix = torch.as_tensor(tile_permutation(cfg.nx, cfg.ny), device="cuda")
+    if not np.array_equal(PM.shard_pixels(cfg, 1, 0), pix.cpu().numpy()):
+        raise AssertionError("the one-rank slab is not render's lanes")
+    if main_spp == SHARD_SPP:
+        twin = mega["mega_trace"]
+    else:
+        twin = _against_twin(scene, cfg, pix,
+                             MK.mega_params(scene, cfg.seed, cfg, cfg.spp),
+                             0, cfg.spp)
+        print(f"[30 sharded, one rank check] {twin['report']}", flush=True)
+    row = dict(launches=launches["mega_trace"], ms=sum(ms) / len(ms),
+               library_ms=None, **{k: twin[k] for k in TWIN_KEYS})
+    return row, (ref, scene, cfg)
+
+
+def _rank_launches(results, step, names):
+    """{name: [launches of each rank]} of one step of a job."""
+    return {n: [r["steps"][step]["launches"][n] for r in results]
+            for n in names}
+
+
+def _preempted(step, path):
+    """Start a checkpointing job of two ranks whose rank 0 pauses after
+    each save, and kill every rank as soon as the first checkpoint
+    exists."""
+    import os
+
+    from rtw_tpu_torch.parallel import worker
+
+    procs = worker.spawn([dict(step, pause_after_save=60.0)], 2,
+                         backend="gloo")
+    try:
+        deadline = time.monotonic() + 300
+        while not os.path.exists(path):
+            if any(p.poll() is not None for p, _ in procs):
+                raise AssertionError("a rank ended before the first "
+                                     "checkpoint")
+            if time.monotonic() > deadline:
+                raise AssertionError("no checkpoint within 300 s")
+            time.sleep(0.05)
+    finally:
+        worker.stop(procs)
+
+
+def phase_sharded_two_ranks(cornell):
+    """Two ranks sharing the card on gloo (worker.launch): scene 2 at
+    800x400, 16 spp, depth 20 in pixel mode on the queue with B and C,
+    within 1e-5 of the one-rank render, with B and C launched in each rank
+    (the timed render after a warm-up in each rank); Cornell in sample
+    mode within 1e-5 of `render`'s image; then a two-rank Cornell render at
+    16 spp in chunks of 4 killed after its first checkpoint and relaunched:
+    bit-equal to an uninterrupted render.  Then B and C at the inputs of
+    their 10th launch in rank 0's slab.  Returns {name: row}."""
+    import os
+
+    import rtw_tpu_torch as rtt
+    from rtw_tpu_torch.integrator import trace_wavefront
+    from rtw_tpu_torch.ops import trace_kernel as TK
+    from rtw_tpu_torch.parallel import mesh as PM
+    from rtw_tpu_torch.parallel import worker
+    from rtw_tpu_torch.utils import checkpoint as ckpt
+
+    folder = _build_folder("chip_smoke_sharded")
+    nx, ny, spp = SHARD_SCENE2
+    kw2 = dict(nx=nx, ny=ny, spp=spp, max_depth=BENCH_DEPTH, scene_id=2)
+    ref, _, cfg0 = cornell
+    kw0 = dict(nx=cfg0.nx, ny=cfg0.ny, spp=cfg0.spp,
+               max_depth=cfg0.max_depth, scene_id=0)
+    out2, out0 = (os.path.join(folder, f) for f in ("scene2.npy",
+                                                    "cornell.npy"))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = worker.launch([{"kind": "render", "cfg": kw2},
+                         {"kind": "render", "cfg": kw2, "out": out2},
+                         {"kind": "render", "cfg": kw0, "mode": "samples",
+                          "out": out0}], 2, backend="gloo")
+    job_s = time.perf_counter() - t0
+    split = _rank_launches(res, 1, ("trace", "occluded"))
+    mega = _rank_launches(res, 2, ("mega_trace",))["mega_trace"]
+    walls = [r["steps"][1]["metrics"]["wall_seconds"] for r in res]
+
+    cfg = rtt.RenderConfig(**kw2)
+    scene = rtt.build_scene(2, nx, ny)
+    rtt.render(scene, cfg)                               # warm-up
+    m_one = {}
+    one = rtt.render(scene, cfg, metrics=m_one)
+    img2 = torch.as_tensor(np.load(out2), device="cuda")
+    close = ((img2 - one).abs() <= 1e-5 + 1e-5 * one.abs()).all(-1)
+    img0 = torch.as_tensor(np.load(out0), device="cuda")
+    close0 = bool(torch.allclose(img0, ref, atol=1e-5, rtol=1e-5))
+    m2 = res[0]["steps"][1]["metrics"]
+    report = (f"scene 2 {nx}x{ny} spp {spp}: two ranks (gloo, one card) "
+              f"{', '.join(f'{w:.3f}' for w in walls)} s each, {m2['rays']} "
+              f"rays, one rank {m_one['wall_seconds']:.3f} s, {m_one['rays']} "
+              f"rays; launches per rank trace {split['trace']} occluded "
+              f"{split['occluded']}; pixels within 1e-5 "
+              f"{float(close.float().mean()):.6f} (max abs diff "
+              f"{float((img2 - one).abs().max()):.3e}); Cornell samples: "
+              f"mega_trace per rank {mega}, max abs diff "
+              f"{float((img0 - ref).abs().max()):.3e}; job {job_s:.1f} s")
+    print(f"[31 sharded, two ranks] {report} on {card_line()}", flush=True)
+    if (not bool(close.all()) or not close0
+            or min(split["trace"] + split["occluded"] + mega) <= 0
+            or any(r["device"] != "cuda:0" or r["backend"] != "gloo"
+                   for r in res)):
+        raise AssertionError(report)
+
+    rnx, rny, rspp, rchunk = SHARD_RESUME
+    kwr = dict(nx=rnx, ny=rny, spp=rspp, max_depth=BENCH_DEPTH, scene_id=0,
+               spp_chunk=rchunk)
+    path, out = (os.path.join(folder, f) for f in ("resume.npz",
+                                                   "resumed.npy"))
+    step = {"kind": "render", "cfg": kwr, "checkpoint": path,
+            "checkpoint_every": rchunk, "out": out}
+    _preempted(step, path)
+    state = ckpt.load(path, rtt.RenderConfig(**kwr))
+    if state is None or not 0 < state[2] < rspp or os.path.exists(out):
+        raise AssertionError(f"preempted job: state {state and state[1:]}")
+    resumed = worker.launch([step], 2, backend="gloo")
+    whole = rtt.render(rtt.build_scene(0, rnx, rny), rtt.RenderConfig(**kwr))
+    same = bool(np.array_equal(np.load(out), whole.cpu().numpy()))
+    r0 = resumed[0]["steps"][0]
+    report = (f"Cornell {rnx}x{rny} spp {rspp} in chunks of {rchunk} on two "
+              f"ranks, killed after the checkpoint at {state[2]} spp, "
+              f"resumed: paths {r0['metrics']['paths']}, saves {r0['saves']},"
+              f" mega_trace per rank "
+              f"{_rank_launches(resumed, 0, ('mega_trace',))['mega_trace']}, "
+              f"bit-equal to an uninterrupted render {same}")
+    print(f"[31 sharded resume] {report}", flush=True)
+    if not same or r0["metrics"]["paths"] != rnx * rny * (rspp - state[2]):
+        raise AssertionError(report)
+    shutil.rmtree(folder)
+
+    slab = torch.as_tensor(PM.shard_pixels(cfg, 2, 0), device="cuda")
+    got = _capture(cfg, {"trace": (TK, "trace"),
+                         "occluded": (TK, "occluded_kernel")},
+                   run=lambda: trace_wavefront(scene, cfg, slab, cfg.seed, 0,
+                                               cfg.spp))
+    rows = {}
+    for name in ("trace", "occluded"):
+        rows[name] = _split_step("31 sharded", "scene 2 rank 0 slab", name,
+                                 got[name])
+        rows[name]["launches"] = sum(split[name])
+        rows[name]["launches_by_rank"] = split[name]
+    return rows
+
+
+def phase_sharded_grad():
+    """grad_sharded on two ranks sharing the card (gloo) on grad_demo's
+    scene at 200x200, 2 spp, depth 8 with backend="pallas" (B and C),
+    against one rank's diff.make_loss_and_grad: the loss within rtol
+    1e-5, each leaf within GRAD_SHARD_RTOL / GRAD_SHARD_ATOL.  Then B and
+    C at their 10th launch in rank 0's slab (`mesh.grad_local`).  Returns
+    {name: row}."""
+    import os
+
+    import rtw_tpu_torch as rtt
+    from rtw_tpu_torch import diff as TD
+    from rtw_tpu_torch.grad_demo import demo_scene
+    from rtw_tpu_torch.parallel import mesh as PM
+    from rtw_tpu_torch.parallel import worker
+
+    folder = _build_folder("chip_smoke_grad")
+    size, spp, depth = SHARD_GRAD
+    kw = dict(nx=size, ny=size, spp=spp, max_depth=depth,
+              differentiable=True, backend="pallas")
+    out = os.path.join(folder, "grad.npz")
+    step = {"kind": "grad", "scene": "demo", "cfg": kw, "n_samples": spp,
+            "seed": GRAD_SEED}
+    res = worker.launch([step, dict(step, out=out)], 2,   # warm-up, counted
+                        backend="gloo")
+    split = _rank_launches(res, 1, ("trace", "occluded"))
+    cfg = rtt.RenderConfig(**kw)
+    scene = demo_scene(1.0)
+    params = TD.extract_params(scene)
+    npix = cfg.num_pixels
+    target = torch.zeros((npix, 3), device="cuda")
+    fn = TD.make_loss_and_grad(scene, cfg, spp)
+    pix = torch.arange(npix, device="cuda")
+    fn(params, target, pix, GRAD_SEED)                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = fn(params, target, pix, GRAD_SEED)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    worst, max_abs = 0.0, 0.0
+    with np.load(out) as z:
+        loss2 = float(z["loss"])
+        for i, (name, a) in enumerate(_grad_leaves(grads)):
+            a = a.cpu().numpy()
+            b = z[f"g{i}"]
+            if not np.isfinite(b).all():
+                raise AssertionError(f"non-finite sharded {name} gradient")
+            diff = np.abs(a - b)
+            max_abs = max(max_abs, float(diff.max()))
+            worst = max(worst, float((diff / (GRAD_SHARD_ATOL
+                                              + GRAD_SHARD_RTOL * np.abs(a)))
+                                     .max()))
+    shutil.rmtree(folder)
+    rel = abs(loss2 - float(loss)) / abs(float(loss))
+    secs = ", ".join(f"{r['steps'][1]['seconds']:.3f}" for r in res)
+    report = (f"graddemo {size}x{size} spp {spp} depth {depth}, "
+              f"backend=pallas: two ranks (gloo, one card) loss {loss2:.6e} "
+              f"in {secs} s, one rank {float(loss):.6e} in {one_s:.3f} s (relative "
+              f"diff {rel:.2e}); leaves max abs diff {max_abs:.3e}, {worst:.4f}"
+              f" of the tolerance (rtol {GRAD_SHARD_RTOL}, atol "
+              f"{GRAD_SHARD_ATOL}); launches per rank trace {split['trace']} "
+              f"occluded {split['occluded']}")
+    print(f"[32 sharded gradient] {report} on {card_line()}", flush=True)
+    if (rel > 1e-5 or worst > 1.0
+            or min(split["trace"] + split["occluded"]) <= 0):
+        raise AssertionError(report)
+    slab = PM.grad_slab(cfg, 2, 0, target, "cuda")
+    rows = _grad_kernel_rows(
+        "32 sharded gradient", "graddemo rank 0 slab", cfg,
+        lambda: PM.grad_local(scene, cfg, params, *slab, npix, GRAD_SEED,
+                              spp),
+        (sum(split["trace"]), sum(split["occluded"])))
+    for name in rows:
+        rows[name]["launches_by_rank"] = split[name]
+    return rows
+
+
+def _launched_once(counts, name):
+    """True when kernel `name` launched once and no other kernel did."""
+    return counts[name] == 1 and not any(
+        v for k, v in counts.items() if k != name)
+
+
+def phase_denoise_cli(cornell):
+    """The denoiser and the CLI.  `primary_features` on scene 4 at 800x400
+    (one launch of B) against the same G-buffer through `trace_plain` on
+    the card: the hit mask equal, albedo and normal within 1e-4 on every
+    lane; B at that launch's inputs against plain on every lane, timed.
+    `denoise` of the Cornell image in ldr and hdr, timed.  Then `cli.main`
+    in this process twice on scene 0 at 800x800, 16 spp.  With its
+    defaults (-o plain.png): one `mega_trace` launch and no other, timed
+    with CUDA events; the PNG equal to `to_srgb8(render(...))` at the same
+    settings; A at that launch's inputs against its plain twin.  With
+    --denoise --metrics-json --profile-dir -o out.png: the render is the
+    regen sweep (the sidecar's counters are outside A's envelope) and the
+    G-buffer one launch of B, and no other; the PNG decodes, the metrics
+    hold mrays_per_sec and device_memory, the trace exists; B at the
+    G-buffer's inputs against plain on every lane.  Returns {path:
+    {kernel: row}}."""
+    import os
+
+    import rtw_tpu_torch as rtt
+    from rtw_tpu_torch import cli
+    from rtw_tpu_torch import denoise as DN
+    from rtw_tpu_torch.ops import mega_kernel as MK
+    from rtw_tpu_torch.ops import trace_kernel as TK
+    from rtw_tpu_torch.parallel import worker
+    from rtw_tpu_torch.render import tile_permutation, to_srgb8
+    from PIL import Image
+
+    nx, ny = DENOISE_SCENE4
+    cfg4 = rtt.RenderConfig(nx=nx, ny=ny, scene_id=4)
+    scene4 = rtt.build_scene(4, nx, ny)
+    DN.primary_features(scene4, cfg4)                       # warm-up
+    feats, launches = worker.counted(lambda: DN.primary_features(scene4,
+                                                                 cfg4))
+    real = TK.trace
+    TK.trace = lambda scene, *a: TK.trace_plain(scene, *a[:6])
+    try:
+        plain = DN.primary_features(scene4, cfg4)
+    finally:
+        TK.trace = real
+    errs = [float((a - b).abs().max()) for a, b in zip(feats[:2], plain[:2])]
+    within = all(bool((a - b).abs().le(1e-4 + 1e-4 * b.abs()).all())
+                 for a, b in zip(feats[:2], plain[:2]))
+    same_mask = bool(torch.equal(feats[2], plain[2]))
+    report = (f"primary_features scene 4 {nx}x{ny}: {launches['trace']} "
+              f"trace launch, hit share {float(feats[2].float().mean()):.4f};"
+              f" against trace_plain: mask equal {same_mask}, albedo / "
+              f"normal max abs diff {errs[0]:.3e} / {errs[1]:.3e}")
+    print(f"[33 denoiser] {report} on {card_line()}", flush=True)
+    if launches["trace"] != 1 or not same_mask or not within:
+        raise AssertionError(report)
+    got = _capture(cfg4, {"trace": (TK, "trace")}, call=1,
+                   run=lambda: DN.primary_features(scene4, cfg4))
+    row = _split_step("33 denoiser", "scene 4 G-buffer", "trace",
+                      got["trace"], call=1, min_equal=1.0)
+    row["launches"] = launches["trace"]
+
+    img, scene0, cfg0 = cornell
+    times = {}
+    for mode in ("ldr", "hdr"):
+        DN.denoise(img, scene0, cfg0, mode=mode)            # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = DN.denoise(img, scene0, cfg0, mode=mode)
+        torch.cuda.synchronize()
+        times[mode] = 1e3 * (time.perf_counter() - t0)
+        if tuple(out.shape) != tuple(img.shape) or not bool(
+                torch.isfinite(out).all()):
+            raise AssertionError(f"denoise {mode}: bad output")
+    print(f"[33 denoiser] denoise Cornell {cfg0.nx}x{cfg0.ny} (G-buffer + 5 "
+          f"a-trous iterations): ldr {times['ldr']:.2f} ms, hdr "
+          f"{times['hdr']:.2f} ms", flush=True)
+
+    folder = _build_folder("chip_smoke_cli")
+    sid, dx, dy, ns = CLI_WORKLOAD
+    base = ["-s", str(sid), "-dx", str(dx), "-dy", str(dy), "-ns", str(ns)]
+    # the CLI's RenderConfig and scene at its defaults
+    cfg = rtt.RenderConfig(nx=dx, ny=dy, spp=ns, max_depth=20, seed=0,
+                           scene_id=sid, scheduler="auto", estimator="mis",
+                           mis_bsdf_weight=True)
+    scene = rtt.build_scene(sid, dx, dy, dof="reference")
+
+    png0 = os.path.join(folder, "plain.png")
+    (rc0, mega_launches), ms = _timed_mega_trace(lambda: worker.counted(
+        lambda: cli.main(base + ["-o", png0])))
+    with Image.open(png0) as im:
+        got0 = np.asarray(im)
+    want0 = to_srgb8(rtt.render(scene, cfg), cfg.gamma)
+    same0 = bool(np.array_equal(got0, want0))
+    report = (f"cli.main({' '.join(base)} -o plain.png): exit {rc0}, "
+              f"launches {mega_launches} ({', '.join(f'{t:.3f}' for t in ms)}"
+              f" ms), png equal to to_srgb8(render) {same0}")
+    print(f"[33 cli] {report}", flush=True)
+    if (rc0 != 0 or not _launched_once(mega_launches, "mega_trace")
+            or not same0):
+        raise AssertionError(report)
+    pix = torch.as_tensor(tile_permutation(dx, dy), device="cuda")
+    twin = _against_twin(scene, cfg, pix,
+                         MK.mega_params(scene, cfg.seed, cfg, cfg.spp), 0,
+                         cfg.spp)
+    print(f"[33 cli check] {twin['report']}", flush=True)
+    rows = {"cornellcli": {"mega_trace": dict(
+        launches=mega_launches["mega_trace"], ms=sum(ms) / len(ms),
+        library_ms=None, **{k: twin[k] for k in TWIN_KEYS})}}
+
+    png, mj, prof = (os.path.join(folder, f) for f in ("out.png", "m.json",
+                                                       "prof"))
+    argv = base + ["--denoise", "--metrics-json", mj, "--profile-dir", prof,
+                   "-o", png]
+    t0 = time.perf_counter()
+    rc, cli_launches = worker.counted(lambda: cli.main(argv))
+    wall = time.perf_counter() - t0
+    with Image.open(png) as im:
+        pixels = np.asarray(im)
+    with open(mj) as f:
+        doc = json.load(f)
+    traces = [os.path.join(prof, f) for f in os.listdir(prof)]
+    report = (f"cli.main({' '.join(base)} --denoise --metrics-json "
+              f"--profile-dir -o out.png): exit {rc} in {wall:.1f} s, png "
+              f"{pixels.shape} {pixels.dtype}, render {doc.get('render_s')} s"
+              f" under the profiler, {doc.get('mrays_per_sec', 0):.2f} "
+              f"Mrays/s, device_memory {doc.get('device_memory')}, traces "
+              f"{[os.path.getsize(t) for t in traces]} B, launches "
+              f"{cli_launches}")
+    print(f"[33 cli] {report}", flush=True)
+    shutil.rmtree(folder)
+    if (rc != 0 or pixels.shape != (dy, dx, 3) or "mrays_per_sec" not in doc
+            or not doc.get("device_memory") or len(traces) != 1
+            or not _launched_once(cli_launches, "trace")):
+        raise AssertionError(report)
+    got = _capture(cfg, {"trace": (TK, "trace")}, call=1,
+                   run=lambda: DN.primary_features(scene, cfg))
+    b_row = _split_step("33 cli", "Cornell G-buffer", "trace", got["trace"],
+                        call=1, min_equal=1.0)
+    b_row["launches"] = cli_launches["trace"]
+    rows["cornellclidenoise"] = {"trace": b_row}
+    rows["scene4denoise"] = {"trace": row}
+    return rows
+
+
+def phase_entry():
+    """entry() on the card (Cornell 64x64, 1 spp, depth 6: finite radiance
+    of every pixel), then dryrun_multichip(2): two ranks sharing the card
+    (gloo), both sharding modes, the sharded gradient and the queue on B
+    and C, every result finite."""
+    from rtw_tpu_torch import entry as E
+
+    fn, args = E.entry()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    if tuple(out.shape) != (64 * 64, 3) or not bool(
+            torch.isfinite(out).all()):
+        raise AssertionError(f"entry: bad output {tuple(out.shape)}")
+    t0 = time.perf_counter()
+    res = E.dryrun_multichip(2)
+    print(f"[34 entry] entry(): {tuple(out.shape)} on {out.device}, mean "
+          f"{_fmt(out.mean(0).cpu().numpy())}; dryrun_multichip(2): "
+          f"{[r['steps'][0] for r in res]} on {[r['device'] for r in res]} "
+          f"({res[0]['backend']}) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
 # The same figures as read on an NVIDIA H100 80GB HBM3 at 700.00 W while
 # the split kernels and the hybrid step's nearest hit swept each block with
 # one thread a ray (PERF.md), printed beside this run's.
@@ -2427,6 +2943,11 @@ def main(argv=None) -> int:
     timed(phase_grad_demo)
     grad_rows["scene2grad"] = timed(phase_grad_scene2)
     timed(phase_grad_queue)
+    sharded, cornell = timed(phase_sharded_one_rank, mega, args.spp)
+    sharded2 = timed(phase_sharded_two_ranks, cornell)
+    grad_rows["graddemosharded2"] = timed(phase_sharded_grad)
+    cli_rows = timed(phase_denoise_cli, cornell)
+    timed(phase_entry)
     if args.profile:
         timed(phase_profiles, args.spp)
 
@@ -2456,7 +2977,9 @@ def main(argv=None) -> int:
             for path, v in (("cornell", mega), ("scene5", scene5),
                             ("scene3", scene3),
                             (f"field{MEGA_FIELD}", mega_scale),
-                            ("cornellresume", {"mega_trace": resume}))]
+                            ("cornellresume", {"mega_trace": resume}),
+                            ("cornellsharded", {"mega_trace": sharded}),
+                            ("cornellcli", cli_rows["cornellcli"]))]
     rows += [("mega_step_hybrid", f"scene{QMEGA_SCENE}", mega_src,
               "rtw_tpu/ops/mega_kernel.py:437", hybrid),
              ("mega_step_hybrid", f"field{MEGA_FIELD}", mega_src,
@@ -2473,6 +2996,9 @@ def main(argv=None) -> int:
         v["max_abs_err"] = max(err, v["max_abs_err"])
     grad_steps = [(name, path, v) for path, r in grad_rows.items()
                   for name, v in r.items()]
+    grad_steps += [(name, "scene2sharded2", v) for name, v in sharded2.items()]
+    grad_steps += [("trace", path, cli_rows[path]["trace"])
+                   for path in ("scene4denoise", "cornellclidenoise")]
     for name, path, v, *_ in split + [(name, path, v) for (name, path), v
                                       in option_steps.items()] + grad_steps:
         rep = ("rtw_tpu/ops/trace_kernel.py:918" if name == "trace" else
@@ -2484,7 +3010,8 @@ def main(argv=None) -> int:
          "replaces": rep,
          **{k: v[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                               "bound_ms", "bound_by", "library_ms",
-                              "loop_ms", "loop_launches") if k in v}}
+                              "loop_ms", "loop_launches",
+                              "launches_by_rank") if k in v}}
         for name, path, src, rep, v in rows]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

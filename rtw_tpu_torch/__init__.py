@@ -16,7 +16,13 @@ Package layout:
   ops/      vectors, sampling, intersection, textures, shading, the bounce
             estimator, the kernel wrappers and their props table
   csrc/     CUDA sources, built with nvcc at first use (utils/kernels.py)
-  utils/    config, RNG streams, checkpoint, building the kernels
+  parallel/ sharded renders and gradients over torch.distributed ranks
+            (mesh.py), the local rank launcher (worker.py)
+  utils/    config, RNG streams, checkpoint, building the kernels, image
+            output, profiling
+  denoise.py  the à-trous denoiser and its first-hit G-buffer
+  cli.py      the command line (python -m rtw_tpu_torch.cli)
+  entry.py    the entry points: entry(), dryrun_multichip(n)
 """
 
 from rtw_tpu_torch.utils.config import RenderConfig

@@ -113,7 +113,10 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, rtw_tpu_torch, rtw_tpu_torch.ops.mega_kernel, "
             "rtw_tpu_torch.ops.trace_kernel, rtw_tpu_torch.ops.textures, "
             "rtw_tpu_torch.integrator, rtw_tpu_torch.utils.kernels, "
-            "rtw_tpu_torch.diff, rtw_tpu_torch.grad_demo; "
+            "rtw_tpu_torch.diff, rtw_tpu_torch.grad_demo, "
+            "rtw_tpu_torch.utils.image, rtw_tpu_torch.utils.profiling, "
+            "rtw_tpu_torch.parallel.mesh, rtw_tpu_torch.parallel.worker, "
+            "rtw_tpu_torch.denoise, rtw_tpu_torch.cli, rtw_tpu_torch.entry; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'rtw_tpu.')) or m == 'rtw_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
