@@ -61,6 +61,11 @@ the port's paths through `render`:
   equal to `render`'s) and with --denoise, --metrics-json and
   --profile-dir (the regen sweep and one launch of B);
   `entry()` and `dryrun_multichip(2)`;
+- the tools (tools/*_torch.py) through their functions at reduced sizes:
+  kernel_check's cases (but the 131072 field), bench_scenes on scene 5,
+  profile_scene on scene 2 at 4 spp, occupancy_report on scene 1 at
+  200x100, compare_reference on scene 0 at 400x400, 16 spp,
+  scene2_archaeology at 8 spp and exp_sortcost;
 
 and checks that each path launched its kernels.  Beside them: the trace
 and occlusion kernels on a scene of tied prims (equal spheres across and
@@ -100,6 +105,8 @@ import time
 
 import numpy as np
 import torch
+
+from rtw_tpu_torch.utils.profiling import card_line
 
 BENCH_NX = BENCH_NY = 800
 BENCH_DEPTH = 20
@@ -256,11 +263,6 @@ def _run(cmd: list[str]) -> str:
 
 def _fmt(v) -> str:
     return "[" + ", ".join(f"{x:.5f}" for x in v) + "]"
-
-
-def card_line() -> str:
-    return _run(["nvidia-smi", "--query-gpu=name,power.limit",
-                 "--format=csv,noheader"]).splitlines()[0]
 
 
 def phase_device():
@@ -1312,7 +1314,7 @@ def _split_step(tag, label, name, captured, call=10, **check):
         plain_reps=1 if slow else 5, kernel_reps=20 if slow else 50)
     bound = _split_bound(scene, tables, args, nearest)
     n = args[0].x.shape[0]
-    live = int((args[3] > args[2]).sum())
+    live = int(torch.as_tensor(args[3] > args[2]).expand(n).sum())
     print(f"[{tag} step times] {name} {label}: {n} lanes ({live} live), "
           f"{times}; bound {bound[0]:.4f} ms ({bound[1]}); "
           f"{_divergence_report(bound[2])}", flush=True)
@@ -1576,24 +1578,28 @@ def phase_scale_kernels():
     return worst
 
 
-def _mega_step_row(label, scene, cfg, params, sf, si, hybrid):
+def _mega_step_row(label, scene, cfg, params, sf, si, hybrid,
+                   tag="17 mega at scale", traced=None):
     """One megakernel step against its plain twin at a carry (every lane
-    equal), then its times in turns and its bound: the kernel's row of the
-    kernels line, without its launches."""
+    equal), then its times in turns and its bound on the rays it traces:
+    the carry's alive lanes, or `traced`'s (sf, si) where the step makes
+    them (a regenerating step from dead lanes traces the camera rays it
+    regenerates).  The kernel's row of the kernels line, without its
+    launches."""
     from rtw_tpu_torch.ops import mega_kernel as MK
 
     err, report = _compare_step(label, scene, cfg, params, sf, si,
                                 min_equal=1.0, hybrid=hybrid)
-    print(f"[17 mega at scale] {report}", flush=True)
+    print(f"[{tag}] {report}", flush=True)
     rays = torch.zeros(1, dtype=torch.int64, device="cuda")
     ms, plain_ms, times = _turns(
         lambda: MK.mega_step(scene, cfg, sf, si, params, rays, hybrid),
         lambda: MK.mega_step_plain(scene, cfg, sf, si, params, rays, hybrid),
         plain_reps=1, kernel_reps=20)
-    bound = _mega_bound(scene, sf, si, params)
+    bound = _mega_bound(scene, *(traced or (sf, si)), params)
     spread = ("" if bound[2] is None else
               f"; nearest hit, {_divergence_report(bound[2])}")
-    print(f"[17 mega at scale] {label}: {times}; bound {bound[0]:.4f} ms "
+    print(f"[{tag}] {label}: {times}; bound {bound[0]:.4f} ms "
           f"({bound[1]}); tables "
           f"{'shared' if params.c_params.tables_shared else 'global'}"
           f"{spread}", flush=True)
@@ -2180,19 +2186,27 @@ def _reeval_ulps(tag, label, captured, t_max):
     return share
 
 
-def _grad_kernel_rows(tag, label, cfg, run, launches):
-    """B's and C's rows of the kernels line for a gradient path: each at
-    the inputs of its 10th launch in `run()` (a loss-and-grad call),
-    against plain, timed in turns, with its bound; `launches`: (trace,
-    occluded) of the path's counted call.  Also the reeval ulp share."""
+def _split_rows(tag, label, run, launches, names=("trace", "occluded"),
+                call=10):
+    """B's and C's rows of the kernels line for a path: each of `names`
+    at the inputs of its `call`-th launch in `run()`, against plain, timed
+    in turns, with its bound; `launches`: {name: the path's counted
+    launches}.  Returns (rows, the captured calls)."""
     from rtw_tpu_torch.ops import trace_kernel as TK
 
-    got = _capture(cfg, {"trace": (TK, "trace"),
-                         "occluded": (TK, "occluded_kernel")}, run=run)
-    rows = {}
-    for name, n in zip(("trace", "occluded"), launches):
-        rows[name] = _split_step(tag, label, name, got[name])
-        rows[name]["launches"] = n
+    wrappers = {"trace": (TK, "trace"), "occluded": (TK, "occluded_kernel")}
+    got = _capture(None, {k: wrappers[k] for k in names}, call=call,
+                   run=run)
+    return {name: dict(_split_step(tag, label, name, got[name], call=call),
+                       launches=launches[name]) for name in names}, got
+
+
+def _grad_kernel_rows(tag, label, cfg, run, launches):
+    """B's and C's rows for a gradient path (`run()`: a loss-and-grad
+    call; `launches`: (trace, occluded) of the path's counted call), and
+    the reeval ulp share."""
+    rows, got = _split_rows(tag, label, run,
+                            dict(zip(("trace", "occluded"), launches)))
     _reeval_ulps(tag, label, got["trace"], cfg.t_max)
     return rows
 
@@ -2871,6 +2885,179 @@ def phase_entry():
           f"({res[0]['backend']}) in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+
+def _tool_mega_row(label, run, launches, ms):
+    """A's row of the kernels line for a tool's path: `mega_trace` at the
+    inputs of its first launch in `run()` against its plain twin
+    (`_against_twin`); `launches` and `ms` (CUDA-event times of each
+    launch) from the path's counted run."""
+    from rtw_tpu_torch.ops import mega_kernel as MK
+
+    got = _capture(None, {"mega_trace": (MK, "mega_trace")}, call=1,
+                   run=run)
+    (scene, cfg, pix, params, _), _ = got["mega_trace"]
+    twin = _against_twin(scene, cfg, pix, params, params.s0,
+                         params.s_end - params.s0)
+    print(f"[35 tools check] {label}: {twin['report']}", flush=True)
+    return {"mega_trace": dict(launches=launches["mega_trace"],
+                               ms=sum(ms) / len(ms), library_ms=None,
+                               **{k: twin[k] for k in TWIN_KEYS})}
+
+
+def phase_tools():
+    """The tools of tools/*_torch.py through their functions, at reduced
+    sizes: kernel_check's cases but the 131072 field (B, C, A's and D's
+    steps against plain; every case must pass), bench_scenes on scene 5
+    with one repeat, profile_scene on scene 2 at 4 spp (its buckets must
+    sum to the device total, B's and C's non-zero), occupancy_report on
+    scene 1 at 200x100, 4 spp, compare_reference on scene 0 at 400x400, 16
+    spp, scene2_archaeology at 8 spp and exp_sortcost once.  Each tool's
+    launches are counted from 0: a tool whose path has a kernel must have
+    launched it.  Then each kernel of each tool's path at that path's own
+    inputs against plain, timed, with its bound: B, C and both steps at
+    kernel_check's 16384-sphere case, A at bench_scenes' and
+    compare_reference's launch, B and C at the 10th launch of
+    profile_scene's render, B at occupancy_report's, and B and C at the
+    phantom-NEE variant's in scene2_archaeology.  Returns {path: {kernel:
+    row}}."""
+    import rtw_tpu_torch as rtt
+    from rtw_tpu_torch.ops import mega_kernel as MK
+    from rtw_tpu_torch.ops import trace_kernel as TK
+    from tools import bench_scenes_torch as BS
+    from tools import compare_reference_torch as CR
+    from tools import exp_sortcost_torch as ES
+    from tools import kernel_check_torch as KC
+    from tools import occupancy_report_torch as OR
+    from tools import profile_scene_torch as PS
+    from tools import scene2_archaeology_torch as SA
+
+    def run(tool, need, fn, *args, **kw):
+        TK.trace_launches = TK.occluded_launches = 0
+        MK.launches = MK.hybrid_launches = MK.trace_launches = 0
+        t0 = time.perf_counter()
+        out, ms = _timed_mega_trace(lambda: fn(*args, **kw))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {"mega_trace": MK.trace_launches, "mega_step": MK.launches,
+                  "mega_step_hybrid": MK.hybrid_launches,
+                  "trace": TK.trace_launches,
+                  "occluded": TK.occluded_launches}
+        missing = [k for k in need if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"{tool}: no launch of {missing} "
+                                 f"({counts})")
+        launched = ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+        return (out, f"{secs:.1f} s, launches: {launched or 'none'}",
+                counts, ms)
+
+    rows = {}
+    cases = [c for c in KC.CASES if c[1] != 131072]
+    reports, how, counts, _ = run(
+        "kernel_check", ("trace", "occluded", "mega_step",
+                         "mega_step_hybrid"), KC.run_cases, cases)
+    bad = [r["scene"] for r in reports if not r["pass"]]
+    if bad:
+        raise AssertionError(f"kernel_check: cases failing {bad}: "
+                             f"{json.dumps(reports)}")
+    print(f"[35 tools] kernel_check ({how}): " + "; ".join(
+        f"{r['scene']} pass, {r['winner_near_tie_flips']} near-tie flips, "
+        f"bit-equal lanes {r['lanes_bit_equal']}" for r in reports),
+        flush=True)
+    label, src, scale, shift, steps = next(c for c in cases
+                                           if c[1] == MEGA_FIELD)
+    field = KC.build_case_scene(src)
+
+    def case():
+        KC.check_case(label, field, scale, shift, steps)
+    kc = _split_rows("35 tools", f"kernel_check {label}", case, counts,
+                     call=1)[0]
+    # the field's steps: the regenerating step is its first launch of
+    # mega_step, from dead lanes, so it traces the camera rays of sample 0
+    # that the hybrid step's carry holds alive; the hybrid step its second
+    camera = KC.step_inputs(field, True)[2:]
+    for key, call in (("mega_step", 1), ("mega_step_hybrid", 2)):
+        got = _capture(None, {key: (MK, "mega_step")}, call=call, run=case)
+        (scene, cfg, sf, si, params, _, hybrid), _ = got[key]
+        kc[key] = dict(_mega_step_row(
+            f"kernel_check {label} {key}", scene, cfg, params, sf, si,
+            hybrid, tag="35 tools", traced=None if hybrid else camera),
+            launches=counts[key])
+    rows["kernelcheck"] = kc
+
+    m, how, counts, ms = run("bench_scenes", ("mega_trace",),
+                             BS.bench_scene, 5, reps=1)
+    print(f"[35 tools] bench_scenes scene 5 ({how}): "
+          f"{m['mrays_per_sec']:.2f} Mrays/s, {m['wall_seconds']:.4f} s",
+          flush=True)
+    rows["bench5"] = _tool_mega_row(
+        "bench_scenes scene 5", lambda: BS.bench_scene(5, reps=1), counts,
+        ms)
+
+    prof, how, counts, _ = run("profile_scene", ("trace", "occluded"),
+                               PS.profile_scene, 2, spp=4)
+    buckets = prof["device_ms"]
+    if abs(sum(buckets.values()) - prof["device_total_ms"]) > (
+            1e-6 * prof["device_total_ms"]):
+        raise AssertionError(f"profile_scene: buckets {buckets} do not sum "
+                             f"to {prof['device_total_ms']} ms")
+    if not (buckets.get("trace_kernel", 0) > 0
+            and buckets.get("occl_kernel", 0) > 0):
+        raise AssertionError(f"profile_scene: no B or C time in {buckets}")
+    print(f"[35 tools] profile_scene scene 2 {prof['nx']}x{prof['ny']} spp "
+          f"{prof['spp']} ({how}): wall {prof['wall_ms']:.2f} ms, device "
+          f"{prof['device_total_ms']:.2f} ms, idle {prof['idle_ms']:.2f} ms; "
+          + ", ".join(f"{k} {v:.2f}" for k, v in buckets.items()),
+          flush=True)
+    rows["profile2"] = _split_rows(
+        "35 tools", "profile_scene scene 2",
+        lambda: PS.profile_scene(2, spp=4), counts)[0]
+
+    entry, how, counts, _ = run("occupancy_report", ("trace",),
+                                OR.scene_entry, 1, 200, 100, 4)
+    for sched, e in entry.items():
+        if e["rays_by_depth"][0] != 200 * 100 * 4:
+            raise AssertionError(f"occupancy_report {sched}: depth-0 rays "
+                                 f"{e['rays_by_depth'][0]}, not 80000")
+    print(f"[35 tools] occupancy_report scene 1 200x100 spp 4 ({how}): " +
+          "; ".join(f"{k} {e['wavefront_iterations']:.0f} iterations, mean "
+                    f"occupancy {e['mean_occupancy']}"
+                    for k, e in entry.items()), flush=True)
+    rows["occupancy1"] = _split_rows(
+        "35 tools", "occupancy_report scene 1",
+        lambda: OR.scene_entry(1, 200, 100, 4), counts, ("trace",))[0]
+
+    (out, _), how, counts, ms = run("compare_reference", ("mega_trace",),
+                                    CR.compare_scene, 0, spp=16)
+    print(f"[35 tools] compare_reference scene 0 400x400 spp 16 ({how}): "
+          f"ssim {out['ssim']:.4f}, mae {out['mae']:.4f}; against the TPU "
+          f"half: ssim {out['ssim_vs_tpu']:.4f}, mae "
+          f"{out['mae_vs_tpu']:.4f}", flush=True)
+    rows["compare0"] = _tool_mega_row(
+        "compare_reference scene 0", lambda: CR.compare_scene(0, spp=16),
+        counts, ms)
+
+    (scores, _), how, counts, _ = run("scene2_archaeology",
+                                      ("trace", "occluded"),
+                                      SA.archaeology, 8)
+    print(f"[35 tools] scene2_archaeology spp 8 ({how}): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in scores.items()), flush=True)
+    # the phantom-NEE variant as archaeology() renders it
+    ny, nx = CR.reference_image(2, CR.COMMITTED_WIDTH).shape[:2]
+    cfg2 = rtt.RenderConfig(nx=nx, ny=ny, spp=8, max_depth=20, scene_id=2)
+    phantom = SA.variant_scene("phantom_nee", nx / ny, "cuda")
+    rows["archaeology2"] = _split_rows(
+        "35 tools", "scene2_archaeology phantom_nee",
+        lambda: CR.display_render(phantom, cfg2), counts)[0]
+
+    times, how, _, _ = run("exp_sortcost", (), ES.run)
+    if not all(0 < v < float("inf") for v in times.values()):
+        raise AssertionError(f"exp_sortcost: times {times}")
+    print(f"[35 tools] exp_sortcost N {ES.N} ({how}): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in times.items()) + f" on {card_line()}",
+        flush=True)
+    return rows
+
+
 # The same figures as read on an NVIDIA H100 80GB HBM3 at 700.00 W while
 # the split kernels and the hybrid step's nearest hit swept each block with
 # one thread a ray (PERF.md), printed beside this run's.
@@ -2948,6 +3135,7 @@ def main(argv=None) -> int:
     grad_rows["graddemosharded2"] = timed(phase_sharded_grad)
     cli_rows = timed(phase_denoise_cli, cornell)
     timed(phase_entry)
+    tool_rows = timed(phase_tools)
     if args.profile:
         timed(phase_profiles, args.spp)
 
@@ -2979,12 +3167,20 @@ def main(argv=None) -> int:
                             (f"field{MEGA_FIELD}", mega_scale),
                             ("cornellresume", {"mega_trace": resume}),
                             ("cornellsharded", {"mega_trace": sharded}),
-                            ("cornellcli", cli_rows["cornellcli"]))]
+                            ("cornellcli", cli_rows["cornellcli"]),
+                            ("bench5", tool_rows["bench5"]),
+                            ("compare0", tool_rows["compare0"]))]
     rows += [("mega_step_hybrid", f"scene{QMEGA_SCENE}", mega_src,
               "rtw_tpu/ops/mega_kernel.py:437", hybrid),
              ("mega_step_hybrid", f"field{MEGA_FIELD}", mega_src,
               "rtw_tpu/ops/mega_kernel.py:437",
-              mega_scale["mega_step_hybrid"])]
+              mega_scale["mega_step_hybrid"]),
+             ("mega_step", "kernelcheck", mega_src,
+              "rtw_tpu/ops/mega_kernel.py:387",
+              tool_rows["kernelcheck"]["mega_step"]),
+             ("mega_step_hybrid", "kernelcheck", mega_src,
+              "rtw_tpu/ops/mega_kernel.py:437",
+              tool_rows["kernelcheck"]["mega_step_hybrid"])]
     split = [(name, f"scene{sid}", v, counts[sid], split_err[name])
              for (name, sid), v in steps.items()]
     split += [(name, path, v, field_counts[path[len("field"):]
@@ -2999,6 +3195,10 @@ def main(argv=None) -> int:
     grad_steps += [(name, "scene2sharded2", v) for name, v in sharded2.items()]
     grad_steps += [("trace", path, cli_rows[path]["trace"])
                    for path in ("scene4denoise", "cornellclidenoise")]
+    grad_steps += [(name, path, v) for path in ("kernelcheck", "profile2",
+                                                "occupancy1", "archaeology2")
+                   for name, v in tool_rows[path].items()
+                   if name in ("trace", "occluded")]
     for name, path, v, *_ in split + [(name, path, v) for (name, path), v
                                       in option_steps.items()] + grad_steps:
         rep = ("rtw_tpu/ops/trace_kernel.py:918" if name == "trace" else

@@ -777,6 +777,25 @@ def _queue_flush(pending, running, radiance: Vec3, accum: Vec3, item_pos,
     return pend, have, item_pos, s0 + q, claimed, cursor + fin.sum()
 
 
+def qmega_carry(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int):
+    """The hybrid mode's carry (sf, si) before its first launch: every lane
+    of `pixel_idx` (int64 [N]) alive on its camera ray of sample s0."""
+    dev = scene.device
+    n = pixel_idx.shape[0]
+    sample = torch.full((n,), s0, dtype=torch.int64, device=dev)
+    path = generate_camera_rays(
+        scene, cfg, pixel_idx, R.make_path_keys(seed, pixel_idx, sample,
+                                                cfg.rng))
+    zero = torch.zeros(n, dtype=torch.float32, device=dev)
+    sf = torch.stack([*path.origin, *path.direction, *path.throughput,
+                      *path.radiance, zero, zero, zero, path.time,
+                      path.prev_pdf])
+    izero = torch.zeros(n, dtype=torch.int32, device=dev)
+    si = torch.stack([izero + 1, izero, izero, sample.to(torch.int32),
+                      pixel_idx.to(torch.int32)])
+    return sf, si
+
+
 def trace_wavefront_qmega(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
                           n_samples: int):
     """The work queue with the whole bounce in one launch: the megakernel's
@@ -798,17 +817,7 @@ def trace_wavefront_qmega(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
     pixel_idx = pixel_idx.to(device=dev, dtype=i64)
     n = pixel_idx.shape[0]
     n_items = n * n_samples
-    sample = torch.full((n,), s0, dtype=i64, device=dev)
-    path = generate_camera_rays(
-        scene, cfg, pixel_idx, R.make_path_keys(seed, pixel_idx, sample,
-                                                cfg.rng))
-    zero = torch.zeros(n, dtype=torch.float32, device=dev)
-    sf = torch.stack([*path.origin, *path.direction, *path.throughput,
-                      *path.radiance, zero, zero, zero, path.time,
-                      path.prev_pdf])
-    izero = torch.zeros(n, dtype=torch.int32, device=dev)
-    si = torch.stack([izero + 1, izero, izero, sample.to(torch.int32),
-                      pixel_idx.to(torch.int32)])
+    sf, si = qmega_carry(scene, cfg, pixel_idx, seed, s0)
     params = MK.mega_params(scene, seed, cfg, s0 + n_samples)
     pending = torch.zeros(n, dtype=torch.bool, device=dev)
     item_pos = torch.arange(n, dtype=i64, device=dev)

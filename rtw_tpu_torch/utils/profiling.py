@@ -12,6 +12,8 @@ rtw_tpu/utils/profiling.py on torch.profiler).
   time includes the card work it queued.
 - `device_memory()`: live and peak bytes the caching allocator holds on
   each local card, and its capacity; `{}` on the CPU.
+- `card_line()`: the first card's name and power limit, as `nvidia-smi`
+  gives them, the line every measurement is printed beside.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import subprocess
 import time
 
 import torch
@@ -89,6 +92,15 @@ def device_memory() -> dict:
             "bytes_limit": torch.cuda.get_device_properties(i).total_memory,
         }
     return out
+
+
+def card_line() -> str:
+    """`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` of
+    the first card, e.g. "NVIDIA H100 80GB HBM3, 700.00 W"."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def write_metrics(path: str, metrics: dict, phases: "Phases | None" = None):

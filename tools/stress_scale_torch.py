@@ -19,7 +19,6 @@ nvidia-smi gives them.  Needs a CUDA device.
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -45,6 +44,7 @@ def main():
     from rtw_tpu_torch import RenderConfig, render
     from rtw_tpu_torch.models.registry import build_stress_scene
     from rtw_tpu_torch.ops import trace_kernel as TK
+    from rtw_tpu_torch.utils.profiling import card_line
 
     if args.flat:
         TK.TWO_LEVEL_MIN = 10 ** 9     # read when a render builds its tables
@@ -70,10 +70,7 @@ def main():
             "wall_seconds": round(best["wall_seconds"], 3),
             "build_seconds": round(build_s, 1),
         }), flush=True)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0], flush=True)
+    print(card_line(), flush=True)
     return 0
 
 
