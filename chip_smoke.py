@@ -19,7 +19,15 @@ the port's paths through `render`:
   its plain twin once at the same inputs; on Cornell also the card time a
   traced ray beside that of an all-lambertian copy (divergence);
 - the split tier: scenes 1, 2 (800x400, 16 spp, depth 20) and 4 (800x400,
-  8 spp, depth 20) on the work queue with the trace and occlusion kernels;
+  8 spp, depth 20) on the work queue with the trace and occlusion kernels
+  (B, C) and the shading and finishing kernels (E, F) of the bounce step:
+  one E launch per B launch and one F per C launch on every split path;
+  E and F against their plain versions at the 10th launch's inputs of
+  scenes 1, 2 and 4, also under "book", the MIS weight off and the other
+  texture filters, and on the furnace cavity (6 lights); the three
+  scenes rendered with E and F and in the "glue" mode (B and C with the
+  torch glue, the path before E and F) in turns: equal rays, the same
+  image, Mrays/s of both;
 - scheduler="qmega": scene 1 at 800x400, 16 spp, depth 20 on the work
   queue with the megakernel's hybrid mode;
 - the scale tier: the stress fields of tools/stress_scale_torch.py (16384,
@@ -81,7 +89,10 @@ nearest hit, the per-warp spread of the work their lanes need (the
 busiest lane's against the mean lane's, from the replay of the walk that
 gives the bound).
 `--profile` adds a torch.profiler breakdown of one Cornell (at `--spp`),
-one scene-2, one scene-4 and one 65536-sphere field render.  Each phase
+one scene-2, one scene-4 and one 65536-sphere field render (B, C, E and F
+apart from the glue, and the glue's kernels an iteration), and every
+other split path (the fields, the lit field, tea, threefry, book and the
+counters) with E and F beside the glue mode in turns.  Each phase
 prints one line; any failure raises, so the run exits non-zero and
 prints no result.  With no CUDA device it exits 1.
 
@@ -275,21 +286,24 @@ def phase_device():
 
 def phase_build():
     from rtw_tpu_torch.ops import mega_kernel as MK
+    from rtw_tpu_torch.ops import shade_kernel as SK
     from rtw_tpu_torch.ops import trace_kernel as TK
     from rtw_tpu_torch.utils import kernels
 
+    names = ("mega_kernel", "trace_kernel", "shade_kernel")
     t0 = time.perf_counter()
-    kernels.build_all(["mega_kernel", "trace_kernel"])
+    kernels.build_all(list(names))
     MK.library()
     TK.library()
+    SK.library()
     secs = time.perf_counter() - t0
-    for name in ("mega_kernel", "trace_kernel"):
+    for name in names:
         regs = kernels.ptxas_summary(name).replace("\n", " | ")
         print(f"[2 build] {name}.cu (nvcc "
               f"{kernels.build_seconds.get(name, 0.0):.2f} s); ptxas: {regs}",
               flush=True)
-    print(f"[2 build] both built in parallel and loaded in {secs:.2f} s",
-          flush=True)
+    print(f"[2 build] all {len(names)} built in parallel and loaded in "
+          f"{secs:.2f} s", flush=True)
 
 
 def _carry_after(scene, cfg, steps):
@@ -1143,7 +1157,7 @@ def phase_split_small_render():
     import dataclasses
 
     import rtw_tpu_torch as rtt
-    from rtw_tpu_torch.ops import trace_kernel as TK
+    from rtw_tpu_torch.ops import shade_kernel as SK
 
     parts = []
     for sid in (1, 2, 4):
@@ -1151,11 +1165,10 @@ def phase_split_small_render():
                                scene_id=sid)
         scene = rtt.build_scene(sid, cfg.nx, cfg.ny, device="cuda")
         mk, mp = {}, {}
-        n0 = TK.trace_launches
+        _reset_launches()
         img_k = rtt.render(scene, cfg, metrics=mk)
-        if TK.trace_launches == n0:
-            raise AssertionError(f"scene {sid}: auto launched no trace "
-                                 "kernel")
+        _check_shade_launches(f"scene {sid} 128x128", _launch_counts(),
+                              SK.has_nee(scene, cfg))
         img_p = rtt.render(scene, dataclasses.replace(
             cfg, backend="jnp", scheduler="queue"), metrics=mp)
         if not bool(torch.isfinite(img_k).all()):
@@ -1183,10 +1196,11 @@ def phase_split_main():
     """The split tier through `render` at full width: scenes 1, 2 and 4 at
     bench_scenes' workloads, each a path of its own: warm-up with the
     identical config, then the timed render with the launch counts set to
-    0 just before it and read just after.  Returns {scene: (trace
-    launches, occlusion launches, metrics)}."""
+    0 just before it and read just after: one E launch per B launch and
+    one F per C launch.  Returns {scene: (trace launches, occlusion
+    launches, metrics, {kernel: launches})}."""
     import rtw_tpu_torch as rtt
-    from rtw_tpu_torch.ops import trace_kernel as TK
+    from rtw_tpu_torch.ops import shade_kernel as SK
 
     counts = {}
     for sid, (nx, ny, spp) in SPLIT_WORKLOADS.items():
@@ -1195,9 +1209,10 @@ def phase_split_main():
         scene = rtt.build_scene(sid, nx, ny)       # the default: the card
         rtt.render(scene, cfg)                     # warm-up
         m = {}
-        TK.trace_launches = TK.occluded_launches = 0
+        _reset_launches()
         img = rtt.render(scene, cfg, metrics=m)
-        nt, no = TK.trace_launches, TK.occluded_launches
+        launched = _launch_counts()
+        nt, no = launched["trace"], launched["occluded"]
         if nt <= 0:
             raise AssertionError(f"scene {sid}: the split path launched no "
                                  "trace kernel")
@@ -1207,12 +1222,14 @@ def phase_split_main():
         if tuple(img.shape) != (ny, nx, 3) or not bool(
                 torch.isfinite(img).all()):
             raise AssertionError(f"scene {sid}: bad image {tuple(img.shape)}")
-        counts[sid] = (nt, no, m)
+        _check_shade_launches(f"scene {sid}", launched,
+                              SK.has_nee(scene, cfg))
+        counts[sid] = (nt, no, m, launched)
         mean = img.reshape(-1, 3).mean(0).cpu().numpy()
         print(f"[8 split main path] scene {sid} {nx}x{ny} spp {spp} depth "
               f"{cfg.max_depth}: {m['wall_seconds']:.3f} s, {m['rays']} "
               f"rays, {m['mrays_per_sec']:.2f} Mrays/s, {nt} iterations, "
-              f"launches trace {nt} occluded {no}, mean {_fmt(mean)} on "
+              f"launches {launched}, mean {_fmt(mean)} on "
               f"{card_line()}", flush=True)
     return counts
 
@@ -1227,15 +1244,14 @@ def _capture(cfg, wrappers, call=10, scene=None, run=None):
     queue's wavefront is full then) of `scene` (default: the registered
     scene cfg.scene_id), or in `run()` when given; the run stops there."""
     import rtw_tpu_torch as rtt
-    from rtw_tpu_torch.ops.vec import Vec3
 
     if scene is None and run is None:
         scene = rtt.build_scene(cfg.scene_id, cfg.nx, cfg.ny)
     got = {}
 
     def keep(x):
-        if isinstance(x, Vec3):
-            return Vec3(*(c.clone() for c in x))
+        if isinstance(x, tuple) and hasattr(x, "_fields"):   # Vec3, PathState
+            return type(x)(*(keep(c) for c in x))
         return x.clone() if torch.is_tensor(x) else x
 
     def recorder(name, fn):
@@ -1335,7 +1351,7 @@ def phase_split_step_times():
     for sid, (nx, ny, spp) in SPLIT_WORKLOADS.items():
         cfg = rtt.RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=BENCH_DEPTH,
                                scene_id=sid)
-        wrappers = {"trace": (TK, "trace")}
+        wrappers = {"trace": (TK, "trace_rows")}
         if sid != 1:                      # scene 1 has no light: no NEE
             wrappers["occluded"] = (TK, "occluded_kernel")
         got = _capture(cfg, wrappers)
@@ -1360,6 +1376,506 @@ def phase_split_step_times():
                   f"{w1:.4f}/{w2:.4f} ms with its volume groups, "
                   f"{b1:.4f}/{b2:.4f} ms without; the volume tests' "
                   f"share of B {share:.3f}", flush=True)
+    return out
+
+
+# Kernels E and F (csrc/shade_kernel.cu) against their plain versions:
+# the integer and bool planes (alive, rays_lane, prev_diffuse, the shadow
+# query's activity) equal on at least SHADE_MIN_EQUAL of the lanes, every
+# float plane within SHADE_RTOL / SHADE_ATOL on the lanes where those agree
+# (the shadow ray and the NEE term on the lanes whose query is active)
+SHADE_MIN_EQUAL = 0.999
+SHADE_RTOL, SHADE_ATOL = 1e-4, 1e-6
+# f32 operations of E a lane, a lower bound (integer hashing, compares and
+# selects are not counted; a libm call counts one): every alive lane's
+# direction normalisation and sky, a hit lane's scatter, advance and
+# Russian roulette, a lambertian lane's NEE set-up, one light of the book
+# mixture's pdf, the marble (7 octaves x 8 lattice corners of ~30) and an
+# atlas fetch
+SHADE_ALIVE_FLOPS = 20
+SHADE_HIT_FLOPS = 120
+SHADE_NEE_FLOPS = 70
+BOOK_LIGHT_FLOPS = 45
+MARBLE_FLOPS = 7 * 8 * 30 + 20
+IMAGE_FLOPS = 40
+# the split paths' renders with E and F against the "glue" mode (B and C
+# with the torch glue between them): ray totals within SHADE_RAYS_RTOL,
+# SHADE_PIXELS of the linear pixels within SHADE_PIXEL_TOL
+SHADE_RAYS_RTOL = 1e-4
+SHADE_PIXELS = 0.99
+SHADE_PIXEL_TOL = 1e-3
+
+
+def _shade_bound(scene, cfg, tables, args, plain):
+    """E's bound at these inputs (of, oi, state, depth, U): the bytes each
+    lane loads where csrc/shade_kernel.cu loads them, by the lane's branch
+    (every lane: its prim id and the state; a hit lane: B's point, normal,
+    material and texture ids, then its texture's rows, its material's U
+    rows, the estimator's), each output row written once; and the f32
+    operations of this data's lanes (the SHADE_* counts).  `plain`:
+    shade_plain's result at `args`; `tables`: the scene's ShadeTables.  A
+    word a lane may skip is left out, so
+    the bytes are a lower bound: the U rows of NEE are counted on the lanes
+    whose shadow query is active, the depth and RR uniform on the lanes
+    that survive, a dielectric's uniform (unread under total internal
+    reflection) nowhere; the light, light-row and image tables (at most a
+    few hundred bytes) are left out, and the atlas words are counted per
+    image lane up to the atlas's size."""
+    from rtw_tpu_torch.models import scene as TS
+    from rtw_tpu_torch.ops import shade_kernel as SK
+    from rtw_tpu_torch.ops.bounce import scene_env
+    from rtw_tpu_torch.ops.intersect import BIG
+    from rtw_tpu_torch.ops.shading import tex_row
+
+    of, oi, state, depth, U = args
+    env = scene_env(scene, cfg)
+    n = of.shape[1]
+    hit = state.alive & (oi[0] >= 0)
+
+    def lanes(m):
+        return int(m.sum())
+
+    def texture(t):
+        return (hit & (oi[2] == t) if scene.tex_present[t]
+                else torch.zeros_like(hit))
+    checker, marble, image = (texture(t) for t in (
+        TS.TEX_CHECKER, TS.TEX_NOISE, TS.TEX_IMAGE))
+
+    def material(m):
+        return (hit & (oi[1] == m) if env.mat_present[m]
+                else torch.zeros_like(hit))
+    lamb, metal, diel, iso = (material(m) for m in (
+        TS.MAT_LAMBERTIAN, TS.MAT_METAL, TS.MAT_DIELECTRIC,
+        TS.MAT_ISOTROPIC))
+    query = (plain.shadow_tmax > -BIG if env.nee
+             else torch.zeros_like(hit))
+    words = {"stoch565": 1, "nearest565": 1, "rgb565": 2}.get(cfg.tex_filter,
+                                                               4)
+    n_image = lanes(image)
+    n_bytes = (n * (4 + 12 * 4 + 1 + 1 + 4)           # prim id, the state
+               + lanes(hit) * (6 * 4 + 2 * 4)          # point, normal, ids
+               + lanes(hit & ~(checker | marble | image)) * 12   # rgb
+               + lanes(checker) * 12 + lanes(marble) * 4
+               + n_image * (2 * 4 + 4 + 4 * (tex_row(scene, cfg) >= 0))
+               + min(n_image * words, (tables.atlas8 if words == 4 else
+                                       tables.atlas565).numel()) * 4
+               + lanes(lamb) * (2 + 4 * env.book) * 4   # scatter (+ book)
+               + lanes(query) * 3 * 4                   # the light pick
+               + lanes(metal) * (4 + 3 * 4) + lanes(diel) * 4
+               + lanes(iso) * 2 * 4
+               + lanes(plain.alive) * (8 + 4)           # depth, RR uniform
+               + n * ((SK.O_SORG + (SK.OUT_F32 - SK.O_SORG) * env.nee) * 4
+                      + 2 + 4))
+    flops = (lanes(state.alive) * SHADE_ALIVE_FLOPS
+             + lanes(hit) * SHADE_HIT_FLOPS
+             + lanes(lamb) * (SHADE_NEE_FLOPS * env.nee
+                              + BOOK_LIGHT_FLOPS * scene.num_lights
+                              * env.book)
+             + lanes(marble) * MARBLE_FLOPS + n_image * IMAGE_FLOPS)
+    return _bound(n_bytes, flops)
+
+
+def _compare_shade(label, scene, cfg, tables, args,
+                   min_equal=SHADE_MIN_EQUAL, need=None):
+    """Kernel E against shade_plain on the same inputs (SHADE_MIN_EQUAL,
+    SHADE_RTOL, SHADE_ATOL).  Raises where no lane is alive, and where a
+    lane mask of `need(plain result)` ({branch: [N] bool}: the lanes that
+    take a branch the check is there for) holds on no lane.  Returns (max
+    abs diff of the float planes on the agreeing lanes, report: each
+    discrete plane's equal share, the bit-equal share of the lanes, the
+    worst lane)."""
+    from rtw_tpu_torch.ops import shade_kernel as SK
+    from rtw_tpu_torch.ops.intersect import BIG
+
+    k = SK.shade(scene, cfg, tables, *args)
+    p = SK.shade_plain(scene, cfg, *args)
+    torch.cuda.synchronize()
+    alive_in = int(args[2].alive.sum())
+    taken = {name: int(m.sum()) for name, m in (need(p) if need else
+                                                {}).items()}
+    if not alive_in or 0 in taken.values():
+        raise AssertionError(
+            f"{label}: {alive_in} lanes alive, lanes by branch {taken}: "
+            f"nothing to hold E against on a branch")
+    disc = {"alive": (k.alive, p.alive),
+            "rays_lane": (k.rays_lane, p.rays_lane),
+            "prev_diffuse": (k.prev_diffuse, p.prev_diffuse)}
+    nee = p.nee is not None
+    if nee:
+        disc["query"] = (k.shadow_tmax > -BIG, p.shadow_tmax > -BIG)
+    agree = torch.ones_like(p.alive)
+    shares = {}
+    for name, (a, b) in disc.items():
+        shares[name] = float((a == b).float().mean())
+        agree &= a == b
+
+    def rows(o, names):
+        return torch.stack([c for f in names for c in (
+            getattr(o, f) if isinstance(getattr(o, f), tuple)
+            else (getattr(o, f),))])
+    state_f = ("origin", "direction", "throughput", "radiance", "prev_pdf")
+    planes = [(rows(k, state_f), rows(p, state_f), agree)]
+    if nee:
+        active = agree & (p.shadow_tmax > -BIG)
+        nee_f = ("shadow_org", "shadow_dir", "shadow_tmax", "nee")
+        planes.append((rows(k, nee_f), rows(p, nee_f), active))
+    err, bad, bit = 0.0, torch.zeros_like(agree), agree.clone()
+    worst = (0.0, None)
+    for kf, pf, lanes in planes:
+        diff = (kf - pf).abs()
+        ok = torch.isclose(kf, pf, rtol=SHADE_RTOL, atol=SHADE_ATOL,
+                           equal_nan=True) | ~lanes
+        bad |= ~ok.all(0)
+        same = (kf == pf) | (torch.isnan(kf) & torch.isnan(pf)) | ~lanes
+        bit &= same.all(0)
+        d = torch.where(lanes & torch.isfinite(diff), diff, 0.0)
+        if d.numel():
+            err = max(err, float(d.max()))
+            rel = d / (SHADE_ATOL + SHADE_RTOL * pf.abs())
+            if float(rel.max()) > worst[0]:
+                r, lane = divmod(int(rel.argmax()), rel.shape[1])
+                worst = (float(rel.max()),
+                         f"lane {lane} row {r}: {float(kf[r, lane]):.9g} / "
+                         f"{float(pf[r, lane]):.9g}")
+    n = p.alive.numel()
+    report = (f"{label}: {n} lanes ({alive_in} alive"
+              + "".join(f", {v} {k_}" for k_, v in taken.items())
+              + "); equal "
+              + ", ".join(f"{k_} {v:.6f}" for k_, v in shares.items())
+              + f"; bit-equal lanes {float(bit.float().mean()):.6f}; float "
+              f"max abs diff {err:.3e} on the agreeing lanes, worst lane "
+              f"{worst[1] or 'none'} ({worst[0]:.3g} of its tolerance)")
+    if min(shares.values()) < min_equal:
+        raise AssertionError(f"{report}: a discrete plane equal on fewer "
+                             f"than {min_equal} of the lanes")
+    if bool(bad.any()):
+        raise AssertionError(f"{report}: {int(bad.sum())} agreeing lanes "
+                             f"beyond rtol {SHADE_RTOL} / atol {SHADE_ATOL}")
+    return err, report
+
+
+def _compare_finish(label, args):
+    """Kernel F against finish_plain: every lane equal (the same add).
+    Returns (max abs diff, report)."""
+    from rtw_tpu_torch.ops import shade_kernel as SK
+
+    k = torch.stack(list(SK.finish(*args)))
+    p = torch.stack(list(SK.finish_plain(*args)))
+    torch.cuda.synchronize()
+    same = (k == p) | (torch.isnan(k) & torch.isnan(p))
+    err = float(torch.where(same, 0.0, (k - p).abs()).max())
+    report = (f"{label}: {p.shape[1]} lanes, equal "
+              f"{float(same.all(0).float().mean()):.6f}, max abs diff "
+              f"{err:.3e}")
+    if not bool(same.all()):
+        raise AssertionError(f"{report}: F differs from finish_plain")
+    return err, report
+
+
+def _device_ms(fn, kernel, reps=20):
+    """The device time of one launch of `kernel` (a substring of its name)
+    in `fn()`, the mean over `reps` calls under torch.profiler: the
+    kernel's own duration, without the wrapper's host work that CUDA
+    events around back-to-back calls also time when the kernel is shorter
+    than it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for r in prof.key_averages():
+        if kernel in r.key and str(r.device_type).endswith("CUDA"):
+            t = getattr(r, "self_device_time_total", None)
+            us += r.self_cuda_time_total if t is None else t
+    return us / reps / 1e3
+
+
+def _shade_steps(tag, label, got, device=False):
+    """E's (and, where `got` has it, F's) rows of the kernels line at the
+    captured inputs of their launch: against plain, CUDA-event times in
+    turns (plain, kernel, kernel, plain), the bound.  Returns {"shade":
+    row, "shade_finish": row}, without launches."""
+    from rtw_tpu_torch.ops import shade_kernel as SK
+
+    rows = {}
+    (scene, cfg, tables, *args), _ = got["shade"]
+    if tables is None:
+        tables = SK.shade_tables(scene)
+    err, rep = _compare_shade(f"shade {label}", scene, cfg, tables, args)
+    print(f"[{tag} step check] {rep}", flush=True)
+    ms, plain_ms, times = _turns(
+        lambda: SK.shade(scene, cfg, tables, *args),
+        lambda: SK.shade_plain(scene, cfg, *args))
+    bound = _shade_bound(scene, cfg, tables, args,
+                         SK.shade_plain(scene, cfg, *args))
+    rows["shade"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound[0], bound_by=bound[1],
+                         library_ms=None)
+    if device:
+        rows["shade"]["device_ms"] = _device_ms(
+            lambda: SK.shade(scene, cfg, tables, *args), "shade_kernel")
+        times += f", the kernel alone {rows['shade']['device_ms']:.4f} ms"
+    print(f"[{tag} step times] shade {label}: {times}; bound "
+          f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+    if "shade_finish" in got:
+        fargs, _ = got["shade_finish"]
+        err, rep = _compare_finish(f"shade_finish {label}", fargs)
+        print(f"[{tag} step check] {rep}", flush=True)
+        ms, plain_ms, times = _turns(lambda: SK.finish(*fargs),
+                                     lambda: SK.finish_plain(*fargs))
+        n = fargs[2].shape[0]
+        bound = _bound(n * (7 * 4 + 1 + 3 * 4), 3 * n)
+        rows["shade_finish"] = dict(max_abs_err=err, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=bound[0],
+                                    bound_by=bound[1], library_ms=None)
+        if device:
+            rows["shade_finish"]["device_ms"] = _device_ms(
+                lambda: SK.finish(*fargs), "shade_finish_kernel")
+            times += (f", the kernel alone "
+                      f"{rows['shade_finish']['device_ms']:.4f} ms")
+        print(f"[{tag} step times] shade_finish {label}: {times}; bound "
+              f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+    return rows
+
+
+def _shade_wrappers(scene, cfg):
+    """The wrappers of E and, where the render has NEE, F, for `_capture`."""
+    from rtw_tpu_torch.ops import shade_kernel as SK
+
+    wrappers = {"shade": (SK, "shade")}
+    if SK.has_nee(scene, cfg):
+        wrappers["shade_finish"] = (SK, "finish")
+    return wrappers
+
+
+def _cavity_inputs(cfg, bounces):
+    """E's inputs on the furnace cavity (6 lights) at 128x128 after
+    `bounces` plain bounces: (scene, (of, oi, state, depth, U)), B's rows
+    from the trace kernel."""
+    from rtw_tpu_torch import integrator as TI
+    from rtw_tpu_torch.ops import trace_kernel as TK
+    from rtw_tpu_torch.ops.intersect import BIG
+    from rtw_tpu_torch.utils import rng as R
+
+    scene = furnace_cavity().to("cuda")
+    pix = torch.arange(cfg.num_pixels, device="cuda")
+    keys = R.make_path_keys(cfg.seed, pix, 0, cfg.rng)
+    state = TI.generate_camera_rays(scene, cfg, pix, keys)
+    depth = torch.zeros_like(pix)
+    for _ in range(bounces):
+        state, _ = TI.bounce_step(scene, cfg, keys, state, depth,
+                                  split="plain")
+        depth = depth + 1
+    nv = max(scene.n_vol, 1)
+    U = R.bounce_uniforms(keys, depth + 1, R.NUM_FIXED_SLOTS + 2 * nv,
+                          cfg.rng)
+    tmax = torch.where(state.alive, cfg.t_max, -BIG)
+    of, oi = TK.trace_rows(scene, state.origin, state.direction, cfg.t_min,
+                           tmax, state.time, U[R.NUM_FIXED_SLOTS:][:nv])
+    return scene, (of, oi, state, depth, U)
+
+
+def _cavity_branches(scene, cfg, args, bounces):
+    """need(plain result) for `_compare_shade` on the cavity's inputs: the
+    lanes of each multi-light branch.  At the camera rays (0 bounces) the
+    sphere's lanes pick a light among the 6: under "mis" for NEE (and some
+    query is active), under "book" for the mixture's light-sampled
+    direction, whose pdf sums over the 6.  After one bounce the lanes that
+    scattered off the sphere hit a wall with prev_diffuse set: under "mis"
+    the MIS weight's pdf through the wall's light row (light_pdf_at's
+    general branch)."""
+    from rtw_tpu_torch.models import scene as TS
+    from rtw_tpu_torch.ops.intersect import BIG
+    from rtw_tpu_torch.utils import rng as R
+
+    _, oi, state, _, U = args
+    hit = state.alive & (oi[0] >= 0)
+    L = scene.num_lights
+    if bounces:
+        wall = hit & (oi[1] == TS.MAT_DIFFUSE_LIGHT) & state.prev_diffuse
+        return lambda p: {"wall hits after a diffuse bounce": wall}
+    lamb = hit & (oi[1] == TS.MAT_LAMBERTIAN)
+    pick = torch.clamp((U[R.U_LIGHT_SELECT] * L).to(torch.int64), 0, L - 1)
+    if cfg.estimator == "book":
+        lamb = lamb & (U[R.U_DIELECTRIC] < 0.5)
+        return lambda p: {f"aimed at light {li}": lamb & (pick == li)
+                          for li in range(L)}
+    return lambda p: {"shadow queries": p.shadow_tmax > -BIG,
+                      **{f"picks of light {li}": lamb & (pick == li)
+                         for li in range(L)}}
+
+
+def phase_shade_steps():
+    """Kernels E and F at the split paths' shapes: the inputs of the 10th
+    launch of a full-width render of scenes 1, 2 and 4 (320k lanes), E
+    against shade_plain and F against finish_plain (SHADE_MIN_EQUAL,
+    SHADE_RTOL, SHADE_ATOL), both timed in turns, with their bounds.  At
+    the same inputs E also under the options it covers: estimator="book",
+    mis_bsdf_weight=False and, on the atlas scenes, the filters rgb565,
+    nearest565 and rgb8; and on the furnace cavity (6 lights), E under
+    "mis" and "book" at the camera rays and after one bounce, each
+    required to take the multi-light branches (`_cavity_branches`).
+    Returns {scene: {kernel: row}}."""
+    import rtw_tpu_torch as rtt
+    from rtw_tpu_torch.models import scene as TS
+    from rtw_tpu_torch.ops import shade_kernel as SK
+
+    out = {}
+    for sid, (nx, ny, spp) in SPLIT_WORKLOADS.items():
+        cfg = rtt.RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=BENCH_DEPTH,
+                               scene_id=sid)
+        scene = rtt.build_scene(sid, nx, ny)
+        got = _capture(cfg, _shade_wrappers(scene, cfg), scene=scene)
+        out[sid] = _shade_steps("36 shade", f"scene {sid}", got,
+                                device=True)
+        (_, _, tables, *args), _ = got["shade"]
+        variants = [dict(estimator="book"), dict(mis_bsdf_weight=False)]
+        if scene.tex_present[TS.TEX_IMAGE]:
+            variants += [dict(tex_filter=f)
+                         for f in ("rgb565", "nearest565", "rgb8")]
+        for opts in variants:
+            _, rep = _compare_shade(
+                f"shade scene {sid} {opts}", scene,
+                dataclasses.replace(cfg, **opts), tables, args)
+            print(f"[36 shade options] {rep}", flush=True)
+    for est in ("mis", "book"):
+        cfg = rtt.RenderConfig(nx=128, ny=128, spp=1, max_depth=24,
+                               estimator=est)
+        for bounces in (0, 1):
+            scene, args = _cavity_inputs(cfg, bounces)
+            _, rep = _compare_shade(
+                f"shade cavity {est} after {bounces} bounces", scene, cfg,
+                SK.shade_tables(scene), args,
+                need=_cavity_branches(scene, cfg, args, bounces))
+            print(f"[36 shade options] {rep}", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def _split_glue():
+    """Renders inside run the split tier in the "glue" mode: kernels B and
+    C with the torch glue between them (the path before E and F)."""
+    from rtw_tpu_torch import integrator as TI
+
+    queue, regen = TI.trace_wavefront_queue, TI.trace_wavefront_regen
+    TI.trace_wavefront_queue = functools.partial(queue, split="glue")
+    TI.trace_wavefront_regen = functools.partial(regen, split="glue")
+    try:
+        yield
+    finally:
+        TI.trace_wavefront_queue, TI.trace_wavefront_regen = queue, regen
+
+
+def _launch_counts():
+    """{kernel: launches} of the split tier's wrappers."""
+    from rtw_tpu_torch.ops import shade_kernel as SK
+    from rtw_tpu_torch.ops import trace_kernel as TK
+
+    return {"trace": TK.trace_launches, "occluded": TK.occluded_launches,
+            "shade": SK.shade_launches, "shade_finish": SK.finish_launches}
+
+
+def _reset_launches():
+    from rtw_tpu_torch.ops import shade_kernel as SK
+    from rtw_tpu_torch.ops import trace_kernel as TK
+
+    TK.trace_launches = TK.occluded_launches = 0
+    SK.shade_launches = SK.finish_launches = 0
+
+
+def _check_shade_launches(label, counts, nee=None):
+    """One E launch per B launch, one F launch per C launch, and (`nee`
+    given) C, so F, at every B launch where the render has NEE, at none
+    where it has not (no lights, or "book")."""
+    nt, no = counts["trace"], counts["occluded"]
+    ns, nf = counts["shade"], counts["shade_finish"]
+    if ns != nt or nf != no or nt <= 0 or (
+            nee is not None and no != (nt if nee else 0)):
+        raise AssertionError(f"{label}: launches trace {nt} occluded {no} "
+                             f"shade {ns} shade_finish {nf} (NEE {nee}): "
+                             "not one E per B and one F per C")
+
+
+def _shade_turns(tag, label, scene, cfg):
+    """One split path through `render` with E and F (E) and in the "glue"
+    mode (G), in turns E, G, G, E after a warm-up of each, launch counts
+    from 0 for each: one E launch per B launch and one F per C launch, no
+    E or F in G; ray totals within SHADE_RAYS_RTOL; SHADE_PIXELS of the
+    linear pixels within SHADE_PIXEL_TOL.  Returns (E metrics, G
+    metrics)."""
+    import rtw_tpu_torch as rtt
+    from rtw_tpu_torch.ops import shade_kernel as SK
+
+    rtt.render(scene, cfg)
+    with _split_glue():
+        rtt.render(scene, cfg)
+    m = [{} for _ in range(4)]
+    imgs, counts = [], []
+    for i, glue in enumerate((False, True, True, False)):
+        _reset_launches()
+        with _split_glue() if glue else contextlib.nullcontext():
+            imgs.append(rtt.render(scene, cfg, metrics=m[i]))
+        counts.append(_launch_counts())
+    label = f"{label} {cfg.nx}x{cfg.ny} spp {cfg.spp}"
+    _check_shade_launches(label, counts[0], SK.has_nee(scene, cfg))
+    if counts[1]["shade"] or counts[1]["shade_finish"]:
+        raise AssertionError(f"{label}: the glue mode launched E or F "
+                             f"({counts[1]})")
+    e, g = imgs[0], imgs[1]
+    close = ((e - g).abs() <= SHADE_PIXEL_TOL
+             + SHADE_PIXEL_TOL * g.abs()).all(-1)
+    px = float(close.float().mean())
+    gap = abs(m[0]["rays"] - m[1]["rays"]) / m[1]["rays"]
+    report = (f"{label}: E+F {m[0]['mrays_per_sec']:.2f} / "
+              f"{m[3]['mrays_per_sec']:.2f} Mrays/s "
+              f"({m[0]['wall_seconds']:.3f} / {m[3]['wall_seconds']:.3f} s), "
+              f"glue {m[1]['mrays_per_sec']:.2f} / "
+              f"{m[2]['mrays_per_sec']:.2f} Mrays/s "
+              f"({m[1]['wall_seconds']:.3f} / {m[2]['wall_seconds']:.3f} s); "
+              f"rays {m[0]['rays']} vs {m[1]['rays']} (rel gap {gap:.2e}); "
+              f"pixels within {SHADE_PIXEL_TOL} {px:.6f}, max abs diff "
+              f"{float((e - g).abs().max()):.3e}; launches E {counts[0]}, "
+              f"glue {counts[1]}")
+    print(f"[{tag}] {report} on {card_line()}", flush=True)
+    if not bool(torch.isfinite(e).all()) or gap > SHADE_RAYS_RTOL or (
+            px < SHADE_PIXELS):
+        raise AssertionError(report)
+    return m[0], m[1]
+
+
+def phase_shade_renders(every_path=False):
+    """Scenes 1, 2 and 4 at bench_scenes' workloads with E and F and in the
+    "glue" mode in turns (`_shade_turns`); with `every_path` (--profile)
+    also the other split paths of phases 18, 19 and 23: the 16384- and
+    65536-sphere fields, the lit field, and scene 2 with tea, threefry
+    and book and scene 1 with the counters.  Returns {path: (E metrics,
+    G metrics)}."""
+    import rtw_tpu_torch as rtt
+
+    out = {}
+    for sid, (nx, ny, spp) in SPLIT_WORKLOADS.items():
+        cfg = rtt.RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=BENCH_DEPTH,
+                               scene_id=sid)
+        out[f"scene{sid}"] = _shade_turns(
+            "37 shade renders", f"scene {sid}",
+            rtt.build_scene(sid, nx, ny), cfg)
+    if not every_path:
+        return out
+    for n, lit in ((FIELDS[0], False), (FIELDS[1], False), (LIT_FIELD, True)):
+        path = f"field{n}{'lit' if lit else ''}"
+        out[path] = _shade_turns("37 shade renders", path,
+                                 _field(n, lit)[0], _field_cfg())
+    for path, sid, opts in OPTION_PATHS:
+        nx, ny, spp = SPLIT_WORKLOADS[sid]
+        cfg = rtt.RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=BENCH_DEPTH,
+                               scene_id=sid, **opts)
+        out[f"scene{sid}{path}"] = _shade_turns(
+            "37 shade renders", f"scene {sid} {path}",
+            rtt.build_scene(sid, nx, ny), cfg)
     return out
 
 
@@ -1665,18 +2181,21 @@ def phase_mega_scale():
 def _field_render(tag, label, scene, cfg, need_occluded=False):
     """One path through `render`: warm-up with the identical config, then
     the timed render with the split kernels' launch counts set to 0 just
-    before it and read just after.  Returns (trace launches, occlusion
-    launches, metrics)."""
+    before it and read just after (one E launch per B launch, one F per
+    C launch).  Returns (trace launches, occlusion launches, metrics,
+    {kernel: launches})."""
     import rtw_tpu_torch as rtt
-    from rtw_tpu_torch.ops import trace_kernel as TK
+    from rtw_tpu_torch.ops import shade_kernel as SK
 
     rtt.render(scene, cfg)                     # warm-up
     m = {}
-    TK.trace_launches = TK.occluded_launches = 0
+    _reset_launches()
     img = rtt.render(scene, cfg, metrics=m)
-    nt, no = TK.trace_launches, TK.occluded_launches
+    launched = _launch_counts()
+    nt, no = launched["trace"], launched["occluded"]
     if nt <= 0 or (need_occluded and no <= 0):
         raise AssertionError(f"{label}: launches trace {nt} occluded {no}")
+    _check_shade_launches(label, launched, SK.has_nee(scene, cfg))
     if tuple(img.shape) != (cfg.ny, cfg.nx, 3) or not bool(
             torch.isfinite(img).all()):
         raise AssertionError(f"{label}: bad image {tuple(img.shape)}")
@@ -1684,9 +2203,9 @@ def _field_render(tag, label, scene, cfg, need_occluded=False):
     print(f"[{tag}] {label} {cfg.nx}x{cfg.ny} spp {cfg.spp} depth "
           f"{cfg.max_depth}: {m['wall_seconds']:.3f} s, {m['rays']} rays, "
           f"{m['mrays_per_sec']:.2f} Mrays/s, {nt} iterations, launches "
-          f"trace {nt} occluded {no}, mean {_fmt(mean)} on {card_line()}",
+          f"{launched}, mean {_fmt(mean)} on {card_line()}",
           flush=True)
-    return nt, no, m
+    return nt, no, m, launched
 
 
 def _against_plain_queue(tag, label, scene, cfg):
@@ -1772,15 +2291,21 @@ def phase_scale_step_times():
     the 10th launch of their 512x512 renders: kernel against plain (every
     lane equal), times in turns (the plain sweep once a turn), bound; B
     also with the flat block scan (the threshold raised) on the same rays.
+    E (and F on the lit field) at the same launch (`_shade_steps`).
     Returns {(name, path): row}."""
     from rtw_tpu_torch.ops import trace_kernel as TK
 
     out = {}
     for n in FIELDS:
-        got = _capture(_field_cfg(), {"trace": (TK, "trace")},
-                       scene=_field(n)[0])
+        field = _field(n)[0]
+        got = _capture(_field_cfg(), {"trace": (TK, "trace_rows"),
+                                      **_shade_wrappers(field, _field_cfg())},
+                       scene=field)
         out["trace", f"field{n}"] = _split_step(
             "20 scale", f"{n} spheres", "trace", got["trace"], min_equal=1.0)
+        for name, row in _shade_steps("20 scale", f"{n} spheres",
+                                      got).items():
+            out[name, f"field{n}"] = row
         (scene, *args, tables), _ = got["trace"]
         with _threshold(10 ** 9):
             flat_tables = TK.split_tables(scene)
@@ -1800,29 +2325,40 @@ def phase_scale_step_times():
         print(f"[20 scale step times] trace {n} spheres, same rays: "
               f"{w1:.4f}/{w2:.4f} ms walking the hierarchy, "
               f"{f1:.4f}/{f2:.4f} ms with the flat block scan", flush=True)
-    got = _capture(_field_cfg(), {"trace": (TK, "trace"),
-                                  "occluded": (TK, "occluded_kernel")},
-                   scene=_field(LIT_FIELD, True)[0])
-    for name in got:
+    lit = _field(LIT_FIELD, True)[0]
+    got = _capture(_field_cfg(), {"trace": (TK, "trace_rows"),
+                                  "occluded": (TK, "occluded_kernel"),
+                                  **_shade_wrappers(lit, _field_cfg())},
+                   scene=lit)
+    for name in ("trace", "occluded"):
         out[name, f"field{LIT_FIELD}lit"] = _split_step(
             "20 scale", f"{LIT_FIELD} spheres, lit", name, got[name],
             min_equal=1.0)
+    for name, row in _shade_steps("20 scale", f"{LIT_FIELD} spheres, lit",
+                                  got).items():
+        out[name, f"field{LIT_FIELD}lit"] = row
     return out
 
 
 def phase_profile(label, scene, cfg,
-                  kernel_names=("trace_kernel", "occluded_kernel")):
+                  kernel_names=("trace_kernel", "occluded_kernel",
+                                "shade_kernel", "shade_finish_kernel")):
     """torch.profiler over one full-width render: device time of the
-    named kernels (default B and C), of the torch glue (every other
-    kernel), and the idle remainder, as shares of the wall."""
+    named kernels (default B, C, E and F; each name matched as a
+    substring of the kernel's, none of the four inside another), of the
+    torch glue (every other kernel, copy and set) and its launches per
+    wavefront iteration (B's launches), and the idle remainder, as shares
+    of the wall."""
     import rtw_tpu_torch as rtt
     from torch.profiler import ProfilerActivity, profile
 
     rtt.render(scene, cfg)
     m = {}
+    _reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         rtt.render(scene, cfg, metrics=m)
+    iters = _launch_counts()["trace"]
     us = dict.fromkeys((*kernel_names, "glue"), 0.0)
     n_glue = 0
     for r in prof.key_averages():
@@ -1838,11 +2374,14 @@ def phase_profile(label, scene, cfg,
     busy = sum(us.values())
     shares = ", ".join(f"{k} {v / 1e3:.2f} ms ({100 * v / wall_us:.1f}%)"
                        for k, v in us.items())
+    per_iter = (f" ({n_glue / iters:.1f} an iteration over {iters})"
+                if iters else "")
     print(f"[10 profile] {label} {cfg.nx}x{cfg.ny} spp {cfg.spp}: wall "
           f"{wall_us / 1e3:.2f} ms, {m['mrays_per_sec']:.2f} Mrays/s under "
-          f"the profiler; {shares}; glue kernels {n_glue}; idle "
+          f"the profiler; {shares}; glue kernels {n_glue}{per_iter}; idle "
           f"{(wall_us - busy) / 1e3:.2f} ms "
-          f"({100 * (wall_us - busy) / wall_us:.1f}%)", flush=True)
+          f"({100 * (wall_us - busy) / wall_us:.1f}%) on {card_line()}",
+          flush=True)
 
 
 def phase_profiles(spp):
@@ -1870,8 +2409,9 @@ def phase_options():
     warm-ups, then renders in turns, the fast, mis, counter-free render of
     the same scene (F) and the path's (O): F, O, O, F, with B's and C's
     launch counts set to 0 just before the first O and read just after (C
-    runs where NEE does: not under "book", not on scene 1); B and C against
-    plain at the inputs of the path's 10th launch, with times and bound;
+    and F run where NEE does: not under "book", not on scene 1; E at every
+    B launch); B, C, E and F against plain at the inputs of the path's
+    10th launch, with times and bound;
     a 128x128, 8 spp, depth 10 render of the path against the plain queue
     on the card (`_against_plain_queue`).  Returns {(kernel, path): row}."""
     import rtw_tpu_torch as rtt
@@ -1890,14 +2430,13 @@ def phase_options():
         rtt.render(scene, fast)
         f1, o1, o2, f2 = {}, {}, {}, {}
         rtt.render(scene, fast, metrics=f1)
-        TK.trace_launches = TK.occluded_launches = 0
+        _reset_launches()
         img = rtt.render(scene, cfg, metrics=o1)
-        nt, no = TK.trace_launches, TK.occluded_launches
+        launched = _launch_counts()
+        nt, no = launched["trace"], launched["occluded"]
         rtt.render(scene, cfg, metrics=o2)
         rtt.render(scene, fast, metrics=f2)
-        if nt <= 0 or (no > 0) != nee:
-            raise AssertionError(f"{label}: launches trace {nt} occluded "
-                                 f"{no} (NEE {nee})")
+        _check_shade_launches(label, launched, nee)
         if tuple(img.shape) != (ny, nx, 3) or not bool(
                 torch.isfinite(img).all()):
             raise AssertionError(f"{label}: bad image {tuple(img.shape)}")
@@ -1920,16 +2459,19 @@ def phase_options():
               f"Mrays/s ({o1['wall_seconds']:.3f} / {o2['wall_seconds']:.3f}"
               f" s) beside the fast path's {f1['mrays_per_sec']:.2f} / "
               f"{f2['mrays_per_sec']:.2f} ({f1['rays']} rays); launches "
-              f"trace {nt} occluded {no}{counters}, mean {_fmt(mean)} on "
+              f"{launched}{counters}, mean {_fmt(mean)} on "
               f"{card_line()}", flush=True)
-        wrappers = {"trace": (TK, "trace")}
+        wrappers = {"trace": (TK, "trace_rows"),
+                    **_shade_wrappers(scene, cfg)}
         if nee:
             wrappers["occluded"] = (TK, "occluded_kernel")
         got = _capture(cfg, wrappers, scene=scene)
-        for name in got:
-            row = _split_step("23 options", label, name, got[name])
-            row["launches"] = nt if name == "trace" else no
-            out[name, f"scene{sid}{path}"] = row
+        rows = {name: _split_step("23 options", label, name, got[name])
+                for name in ("trace", "occluded") if name in got}
+        rows.update(_shade_steps("23 options", label, got))
+        for name, row in rows.items():
+            out[name, f"scene{sid}{path}"] = dict(row,
+                                                  launches=launched[name])
         small = dataclasses.replace(cfg, nx=128, ny=128, spp=8, max_depth=10)
         _against_plain_queue("23 options small render", label,
                              rtt.build_scene(sid, 128, 128), small)
@@ -2188,17 +2730,25 @@ def _reeval_ulps(tag, label, captured, t_max):
 
 def _split_rows(tag, label, run, launches, names=("trace", "occluded"),
                 call=10):
-    """B's and C's rows of the kernels line for a path: each of `names`
-    at the inputs of its `call`-th launch in `run()`, against plain, timed
-    in turns, with its bound; `launches`: {name: the path's counted
+    """The split tier's rows of the kernels line for a path: each of
+    `names` (B "trace", C "occluded", E "shade", F "shade_finish") at the
+    inputs of its `call`-th launch in `run()`, against plain, timed in
+    turns, with its bound; `launches`: {name: the path's counted
     launches}.  Returns (rows, the captured calls)."""
+    from rtw_tpu_torch.ops import shade_kernel as SK
     from rtw_tpu_torch.ops import trace_kernel as TK
 
-    wrappers = {"trace": (TK, "trace"), "occluded": (TK, "occluded_kernel")}
+    wrappers = {"trace": (TK, "trace_rows"),
+                "occluded": (TK, "occluded_kernel"),
+                "shade": (SK, "shade"), "shade_finish": (SK, "finish")}
     got = _capture(None, {k: wrappers[k] for k in names}, call=call,
                    run=run)
-    return {name: dict(_split_step(tag, label, name, got[name], call=call),
-                       launches=launches[name]) for name in names}, got
+    rows = {name: _split_step(tag, label, name, got[name], call=call)
+            for name in names if name in ("trace", "occluded")}
+    if "shade" in names:
+        rows.update(_shade_steps(tag, label, got))
+    return {name: dict(row, launches=launches[name])
+            for name, row in rows.items()}, got
 
 
 def _grad_kernel_rows(tag, label, cfg, run, launches):
@@ -2547,13 +3097,12 @@ def phase_sharded_two_ranks(cornell):
     (the timed render after a warm-up in each rank); Cornell in sample
     mode within 1e-5 of `render`'s image; then a two-rank Cornell render at
     16 spp in chunks of 4 killed after its first checkpoint and relaunched:
-    bit-equal to an uninterrupted render.  Then B and C at the inputs of
-    their 10th launch in rank 0's slab.  Returns {name: row}."""
+    bit-equal to an uninterrupted render.  Then B, C, E and F at the
+    inputs of their 10th launch in rank 0's slab.  Returns {name: row}."""
     import os
 
     import rtw_tpu_torch as rtt
     from rtw_tpu_torch.integrator import trace_wavefront
-    from rtw_tpu_torch.ops import trace_kernel as TK
     from rtw_tpu_torch.parallel import mesh as PM
     from rtw_tpu_torch.parallel import worker
     from rtw_tpu_torch.utils import checkpoint as ckpt
@@ -2573,9 +3122,13 @@ def phase_sharded_two_ranks(cornell):
                          {"kind": "render", "cfg": kw0, "mode": "samples",
                           "out": out0}], 2, backend="gloo")
     job_s = time.perf_counter() - t0
-    split = _rank_launches(res, 1, ("trace", "occluded"))
+    split = _rank_launches(res, 1, ("trace", "occluded", "shade",
+                                    "shade_finish"))
     mega = _rank_launches(res, 2, ("mega_trace",))["mega_trace"]
     walls = [r["steps"][1]["metrics"]["wall_seconds"] for r in res]
+    for rank in range(2):
+        _check_shade_launches(f"scene 2 rank {rank}",
+                              {k: v[rank] for k, v in split.items()}, True)
 
     cfg = rtt.RenderConfig(**kw2)
     scene = rtt.build_scene(2, nx, ny)
@@ -2591,7 +3144,8 @@ def phase_sharded_two_ranks(cornell):
               f"{', '.join(f'{w:.3f}' for w in walls)} s each, {m2['rays']} "
               f"rays, one rank {m_one['wall_seconds']:.3f} s, {m_one['rays']} "
               f"rays; launches per rank trace {split['trace']} occluded "
-              f"{split['occluded']}; pixels within 1e-5 "
+              f"{split['occluded']} shade {split['shade']} shade_finish "
+              f"{split['shade_finish']}; pixels within 1e-5 "
               f"{float(close.float().mean()):.6f} (max abs diff "
               f"{float((img2 - one).abs().max()):.3e}); Cornell samples: "
               f"mega_trace per rank {mega}, max abs diff "
@@ -2630,16 +3184,13 @@ def phase_sharded_two_ranks(cornell):
     shutil.rmtree(folder)
 
     slab = torch.as_tensor(PM.shard_pixels(cfg, 2, 0), device="cuda")
-    got = _capture(cfg, {"trace": (TK, "trace"),
-                         "occluded": (TK, "occluded_kernel")},
-                   run=lambda: trace_wavefront(scene, cfg, slab, cfg.seed, 0,
-                                               cfg.spp))
-    rows = {}
-    for name in ("trace", "occluded"):
-        rows[name] = _split_step("31 sharded", "scene 2 rank 0 slab", name,
-                                 got[name])
-        rows[name]["launches"] = sum(split[name])
-        rows[name]["launches_by_rank"] = split[name]
+    rows, _ = _split_rows(
+        "31 sharded", "scene 2 rank 0 slab",
+        lambda: trace_wavefront(scene, cfg, slab, cfg.seed, 0, cfg.spp),
+        {name: sum(v) for name, v in split.items()},
+        ("trace", "occluded", "shade", "shade_finish"))
+    for name, row in rows.items():
+        row["launches_by_rank"] = split[name]
     return rows
 
 
@@ -2913,16 +3464,15 @@ def phase_tools():
     scene 1 at 200x100, 4 spp, compare_reference on scene 0 at 400x400, 16
     spp, scene2_archaeology at 8 spp and exp_sortcost once.  Each tool's
     launches are counted from 0: a tool whose path has a kernel must have
-    launched it.  Then each kernel of each tool's path at that path's own
-    inputs against plain, timed, with its bound: B, C and both steps at
-    kernel_check's 16384-sphere case, A at bench_scenes' and
-    compare_reference's launch, B and C at the 10th launch of
-    profile_scene's render, B at occupancy_report's, and B and C at the
-    phantom-NEE variant's in scene2_archaeology.  Returns {path: {kernel:
-    row}}."""
+    launched it, and one E per B and one F per C.  Then each kernel of
+    each tool's path at that path's own inputs against plain, timed, with
+    its bound: B, C and both steps at kernel_check's 16384-sphere case, A
+    at bench_scenes' and compare_reference's launch, B, C, E and F at the
+    10th launch of profile_scene's render, B and E at occupancy_report's,
+    and B, C, E and F at the phantom-NEE variant's in
+    scene2_archaeology.  Returns {path: {kernel: row}}."""
     import rtw_tpu_torch as rtt
     from rtw_tpu_torch.ops import mega_kernel as MK
-    from rtw_tpu_torch.ops import trace_kernel as TK
     from tools import bench_scenes_torch as BS
     from tools import compare_reference_torch as CR
     from tools import exp_sortcost_torch as ES
@@ -2932,7 +3482,7 @@ def phase_tools():
     from tools import scene2_archaeology_torch as SA
 
     def run(tool, need, fn, *args, **kw):
-        TK.trace_launches = TK.occluded_launches = 0
+        _reset_launches()
         MK.launches = MK.hybrid_launches = MK.trace_launches = 0
         t0 = time.perf_counter()
         out, ms = _timed_mega_trace(lambda: fn(*args, **kw))
@@ -2940,8 +3490,7 @@ def phase_tools():
         secs = time.perf_counter() - t0
         counts = {"mega_trace": MK.trace_launches, "mega_step": MK.launches,
                   "mega_step_hybrid": MK.hybrid_launches,
-                  "trace": TK.trace_launches,
-                  "occluded": TK.occluded_launches}
+                  **_launch_counts()}
         missing = [k for k in need if counts[k] <= 0]
         if missing:
             raise AssertionError(f"{tool}: no launch of {missing} "
@@ -3000,17 +3549,21 @@ def phase_tools():
             1e-6 * prof["device_total_ms"]):
         raise AssertionError(f"profile_scene: buckets {buckets} do not sum "
                              f"to {prof['device_total_ms']} ms")
-    if not (buckets.get("trace_kernel", 0) > 0
-            and buckets.get("occl_kernel", 0) > 0):
-        raise AssertionError(f"profile_scene: no B or C time in {buckets}")
+    if not all(buckets.get(b, 0) > 0 for b in ("trace_kernel", "occl_kernel",
+                                                 "shade_kernel",
+                                                 "shade_finish")):
+        raise AssertionError(f"profile_scene: no B, C, E or F time in "
+                             f"{buckets}")
     print(f"[35 tools] profile_scene scene 2 {prof['nx']}x{prof['ny']} spp "
           f"{prof['spp']} ({how}): wall {prof['wall_ms']:.2f} ms, device "
           f"{prof['device_total_ms']:.2f} ms, idle {prof['idle_ms']:.2f} ms; "
           + ", ".join(f"{k} {v:.2f}" for k, v in buckets.items()),
           flush=True)
+    _check_shade_launches("profile_scene", counts, True)
     rows["profile2"] = _split_rows(
         "35 tools", "profile_scene scene 2",
-        lambda: PS.profile_scene(2, spp=4), counts)[0]
+        lambda: PS.profile_scene(2, spp=4), counts,
+        ("trace", "occluded", "shade", "shade_finish"))[0]
 
     entry, how, counts, _ = run("occupancy_report", ("trace",),
                                 OR.scene_entry, 1, 200, 100, 4)
@@ -3022,9 +3575,11 @@ def phase_tools():
           "; ".join(f"{k} {e['wavefront_iterations']:.0f} iterations, mean "
                     f"occupancy {e['mean_occupancy']}"
                     for k, e in entry.items()), flush=True)
+    _check_shade_launches("occupancy_report", counts, False)
     rows["occupancy1"] = _split_rows(
         "35 tools", "occupancy_report scene 1",
-        lambda: OR.scene_entry(1, 200, 100, 4), counts, ("trace",))[0]
+        lambda: OR.scene_entry(1, 200, 100, 4), counts,
+        ("trace", "shade"))[0]
 
     (out, _), how, counts, ms = run("compare_reference", ("mega_trace",),
                                     CR.compare_scene, 0, spp=16)
@@ -3045,9 +3600,11 @@ def phase_tools():
     ny, nx = CR.reference_image(2, CR.COMMITTED_WIDTH).shape[:2]
     cfg2 = rtt.RenderConfig(nx=nx, ny=ny, spp=8, max_depth=20, scene_id=2)
     phantom = SA.variant_scene("phantom_nee", nx / ny, "cuda")
+    _check_shade_launches("scene2_archaeology", counts)
     rows["archaeology2"] = _split_rows(
         "35 tools", "scene2_archaeology phantom_nee",
-        lambda: CR.display_render(phantom, cfg2), counts)[0]
+        lambda: CR.display_render(phantom, cfg2), counts,
+        ("trace", "occluded", "shade", "shade_finish"))[0]
 
     times, how, _, _ = run("exp_sortcost", (), ES.run)
     if not all(0 < v < float("inf") for v in times.values()):
@@ -3081,7 +3638,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="add torch.profiler breakdowns of a Cornell, a "
                          "scene-2, a scene-4 and a 65536-sphere field "
-                         "render")
+                         "render, and every split path with E and F "
+                         "beside the glue mode in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3113,6 +3671,8 @@ def main(argv=None) -> int:
     timed(phase_cavity)
     counts = timed(phase_split_main)
     steps = timed(phase_split_step_times)
+    shade_steps = timed(phase_shade_steps)
+    timed(phase_shade_renders)
     hybrid = timed(phase_hybrid_step)
     timed(phase_qmega_small)
     hybrid["launches"], qmega = timed(phase_qmega_main,
@@ -3138,6 +3698,7 @@ def main(argv=None) -> int:
     tool_rows = timed(phase_tools)
     if args.profile:
         timed(phase_profiles, args.spp)
+        timed(phase_shade_renders, True)
 
     now = {"A cornell ms": mega["mega_step"]["ms"],
            "A scene3 ms": scene3["mega_step"]["ms"],
@@ -3148,9 +3709,11 @@ def main(argv=None) -> int:
            "scene3 Mrays/s": scene3["mega_trace"]["mrays_per_sec"],
            "scene1 qmega Mrays/s": qmega["mrays_per_sec"]}
     for (name, path), v in [*steps.items(), *scale_steps.items()]:
+        if name not in ("trace", "occluded"):
+            continue
         path = f"scene{path}" if isinstance(path, int) else path
         now[f"{'B' if name == 'trace' else 'C'} {path} ms"] = v["ms"]
-    for sid, (_, _, m) in counts.items():
+    for sid, (_, _, m, _) in counts.items():
         now[f"scene{sid} Mrays/s"] = m["mrays_per_sec"]
     print("[21 beside the one-thread sweep] " + "; ".join(
         f"{k} {v:.4f} (before: {BEFORE_SHARED_SWEEP.get(k, 'not read')})"
@@ -3158,7 +3721,8 @@ def main(argv=None) -> int:
 
     # one entry per kernel and path: `launches` is that path's own count; a
     # mega_trace row also carries the per-iteration loop's call time and
-    # launches from the same run (`loop_ms`, `loop_launches`)
+    # launches from the same run (`loop_ms`, `loop_launches`), E's and F's
+    # rows of scenes 1, 2 and 4 the kernel's own device time (`device_ms`)
     mega_src = "rtw_tpu_torch/csrc/mega_kernel.cu"
     rows = [("mega_trace", path, mega_src, "rtw_tpu/ops/mega_kernel.py:387",
              v["mega_trace"])
@@ -3181,15 +3745,22 @@ def main(argv=None) -> int:
              ("mega_step_hybrid", "kernelcheck", mega_src,
               "rtw_tpu/ops/mega_kernel.py:437",
               tool_rows["kernelcheck"]["mega_step_hybrid"])]
+    def field_count(path):
+        key = path[len("field"):]
+        return field_counts[key if key.endswith("lit") else int(key)]
+    bc = ("trace", "occluded")
     split = [(name, f"scene{sid}", v, counts[sid], split_err[name])
              for (name, sid), v in steps.items()]
-    split += [(name, path, v, field_counts[path[len("field"):]
-                                           if path.endswith("lit")
-                                           else int(path[len("field"):])],
-               scale_err[name]) for (name, path), v in scale_steps.items()]
+    split += [(name, path, v, field_count(path), scale_err[name])
+              for (name, path), v in scale_steps.items() if name in bc]
     for name, path, v, count, err in split:
-        v["launches"] = count[0 if name == "trace" else 1]
+        v["launches"] = count[3][name]
         v["max_abs_err"] = max(err, v["max_abs_err"])
+    # E and F: each path's own launches, its row at its own 10th launch
+    shade = [(name, f"scene{sid}", dict(v, launches=counts[sid][3][name]))
+             for sid, r in shade_steps.items() for name, v in r.items()]
+    shade += [(name, path, dict(v, launches=field_count(path)[3][name]))
+              for (name, path), v in scale_steps.items() if name not in bc]
     grad_steps = [(name, path, v) for path, r in grad_rows.items()
                   for name, v in r.items()]
     grad_steps += [(name, "scene2sharded2", v) for name, v in sharded2.items()]
@@ -3198,20 +3769,27 @@ def main(argv=None) -> int:
     grad_steps += [(name, path, v) for path in ("kernelcheck", "profile2",
                                                 "occupancy1", "archaeology2")
                    for name, v in tool_rows[path].items()
-                   if name in ("trace", "occluded")]
+                   if name in (*bc, "shade", "shade_finish")]
     for name, path, v, *_ in split + [(name, path, v) for (name, path), v
-                                      in option_steps.items()] + grad_steps:
-        rep = ("rtw_tpu/ops/trace_kernel.py:918" if name == "trace" else
-               "rtw_tpu/ops/trace_kernel.py:1114")
-        rows.append((name, path, "rtw_tpu_torch/csrc/trace_kernel.cu", rep,
-                     v))
+                                      in option_steps.items()] + grad_steps \
+            + shade:
+        if name in bc:
+            src = "rtw_tpu_torch/csrc/trace_kernel.cu"
+            rep = ("rtw_tpu/ops/trace_kernel.py:918" if name == "trace" else
+                   "rtw_tpu/ops/trace_kernel.py:1114")
+        else:
+            # no pallas_call: E and F stand for the XLA fusion of the
+            # reference's jitted bounce_step
+            src = "rtw_tpu_torch/csrc/shade_kernel.cu"
+            rep = "rtw_tpu/integrator.py:212"
+        rows.append((name, path, src, rep, v))
     print(json.dumps({"kernels": [
         {"name": name, "path": path, "route": "cuda", "source": src,
          "replaces": rep,
          **{k: v[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                               "bound_ms", "bound_by", "library_ms",
                               "loop_ms", "loop_launches",
-                              "launches_by_rank") if k in v}}
+                              "launches_by_rank", "device_ms") if k in v}}
         for name, path, src, rep, v in rows]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

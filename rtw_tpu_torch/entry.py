@@ -66,8 +66,8 @@ def dryrun_rank(mesh) -> dict:
     leaves = D._leaves(grads)
     assert leaves and all(bool(torch.isfinite(g).all()) for g in leaves)
 
-    # the split tier's configuration: the queue, with kernels B and C on
-    # the card (their plain versions on the CPU)
+    # the split tier's configuration: the queue, with kernels B, E, C and
+    # F on the card (their plain versions on the CPU)
     cfg_k = dataclasses.replace(
         cfg, differentiable=False, scheduler="queue",
         backend="pallas" if mesh.device.type == "cuda" else "auto")
@@ -86,7 +86,8 @@ def dryrun_multichip(n_devices: int, device="cuda") -> list[dict]:
     if device == "cuda":
         from rtw_tpu_torch.utils import kernels
 
-        kernels.build_all(["mega_kernel", "trace_kernel"])  # once, here
+        kernels.build_all(["mega_kernel", "trace_kernel",  # once, here
+                           "shade_kernel"])
     return worker.launch([{"kind": "dryrun"}], n_devices, device=device)
 
 

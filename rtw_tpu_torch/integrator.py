@@ -9,9 +9,10 @@ draw the fast chain and run NEE + MIS:
   next sample when its path ends; every bounce is `bounce_step`.
 - `trace_wavefront_queue`: the split tier's global work queue: a lane that
   finishes claims the next unclaimed (pixel, sample) item.  `bounce_step`
-  traces through the split kernels (ops/trace_kernel.trace and
-  occluded_kernel) when `_split_backend` holds: on a CUDA scene of 128 or
-  more prims.
+  runs the bounce as the split tier's kernels when `_split_backend` holds
+  (a CUDA scene of 128 or more prims): the trace kernel B, the shading
+  kernel E, the occlusion kernel C and the finishing kernel F
+  (ops/trace_kernel, ops/shade_kernel).
 - `trace_wavefront_mega`: `mega_kernel.mega_trace`, the whole pixel batch
   and spp chunk in one launch of the hand-written persistent CUDA
   megakernel on a CUDA scene (its plain twin on a CPU scene).
@@ -33,7 +34,8 @@ of a kernel.
 Gradients (`cfg.differentiable`): `trace_paths` traces one sample per
 pixel through exactly `cfg.max_depth` bounces, for torch autograd
 (diff.py).  On the split tier `bounce_step` takes each ray's winner from
-kernel B, run under torch.no_grad() on detached inputs, and
+kernel B, run under torch.no_grad() on detached inputs (E and F have no
+backward: the shading stays torch, for autograd), and
 `intersect.reeval_hit` recomputes that winner's t and payload with
 gradients; kernel C's visibility is a detached bool.  Below the split tier
 autograd differentiates the plain sweep itself.  Neither kernel is ever
@@ -56,9 +58,11 @@ from rtw_tpu_torch.ops import vec as V
 from rtw_tpu_torch.ops.vec import Vec3
 from rtw_tpu_torch.ops import trace_kernel as TK
 from rtw_tpu_torch.ops import intersect as I
-from rtw_tpu_torch.ops.bounce import BounceEnv, bounce_core
+from rtw_tpu_torch.ops import shade_kernel as SK
+from rtw_tpu_torch.ops.bounce import (BounceEnv, PathState, bounce_core,
+                                      scene_env)
 from rtw_tpu_torch.ops.intersect import BIG, fma
-from rtw_tpu_torch.ops.shading import gather_shade, resolve_albedo
+from rtw_tpu_torch.ops.shading import gather_shade, resolve_albedo, tex_row
 from rtw_tpu_torch.utils import rng as R
 
 # Scenes at or above this many prims run the split-tier kernels (the
@@ -77,19 +81,6 @@ def _check_every(device) -> int:
     """Iterations per termination read: `_CHECK_EVERY` on the card, 1 on
     the CPU, where a read costs nothing."""
     return _CHECK_EVERY if device.type == "cuda" else 1
-
-
-class PathState(NamedTuple):
-    """SoA wavefront state."""
-
-    origin: Vec3
-    direction: Vec3
-    throughput: Vec3
-    radiance: Vec3
-    alive: Any         # [N] bool
-    time: Any          # [N] shutter gather time
-    prev_pdf: Any      # [N] bsdf pdf of the previous diffuse bounce
-    prev_diffuse: Any  # [N] bool
 
 
 def generate_camera_rays(scene: S.Scene, cfg, pixel_idx, path_keys) -> PathState:
@@ -129,92 +120,16 @@ def generate_camera_rays(scene: S.Scene, cfg, pixel_idx, path_keys) -> PathState
     )
 
 
-def _light_pdf_at(scene: S.Scene, origin: Vec3, point: Vec3, dir_unit: Vec3,
-                  prim_idx, mask):
-    """Solid-angle pdf of NEE having sampled the direction that hit a light
-    at `point`, for the MIS weight of BSDF-sampled light hits.  One-sided:
-    a hit on a light's back side gets pdf 0 (the reference's 8820107 fix),
-    because NEE never samples it."""
-    lights = scene.lights
-    L = max(scene.num_lights, 1)
-    d = point - origin
-    dist2 = torch.where(mask, d.dot(d), 1.0)
-
-    if L == 1 and not scene.emissives_unregistered:
-        ln = V.v3(lights.normal[0])
-        area = lights.area[0]
-        cos_t = -dir_unit.dot(ln)
-        sel = mask & (cos_t > 1e-6)
-        pdf = dist2 / (area * torch.where(sel, cos_t, 1.0)) / float(L)
-        return torch.where(sel, pdf, 0.0)
-
-    row = scene.prims.light_row_p[torch.clamp_min(prim_idx, 0)]
-    row = torch.where(mask & (prim_idx >= 0), row, -1)
-    r = torch.clamp_min(row, 0)
-    area = lights.area[r]
-    ln = V.gather_rows(lights.normal, r)
-    cos_t = -dir_unit.dot(ln)
-    sel = (row >= 0) & (cos_t > 1e-6)
-    pdf = dist2 / (torch.where(sel, area * cos_t, 1.0) * float(L))
-    return torch.where(sel, pdf, 0.0)
-
-
-def _light_pdf_dir(scene: S.Scene, origin: Vec3, dir_unit: Vec3, mask):
-    """(1/L) * sum over lights of the solid-angle pdf of `dir_unit` from
-    `origin` hitting that light: the books' hittable_pdf::value, a
-    geometric parallelogram test with no scene occlusion, for the "book"
-    mixture's pdf.  L unrolled tests of scalar light rows."""
-    lights = scene.lights
-    L = scene.num_lights
-    total = torch.zeros_like(origin.x)
-    for li in range(L):
-        q = V.v3(lights.position[li])
-        eu = V.v3(lights.vec_u[li])
-        ev = V.v3(lights.vec_v[li])
-        ln = V.v3(lights.normal[li])
-        area = lights.area[li]
-        denom = dir_unit.dot(ln)
-        ok = denom.abs() > 1e-8
-        denom_s = torch.where(ok, denom, 1.0)
-        t = (q - origin).dot(ln) / denom_s
-        ok = ok & (t > 1e-4)
-        w = origin + dir_unit * t - q
-        uu = eu.dot(eu)
-        vv = ev.dot(ev)
-        uv = eu.dot(ev)
-        det = uu * vv - uv * uv
-        wu = w.dot(eu)
-        wv = w.dot(ev)
-        a = (wu * vv - wv * uv) / det
-        b = (wv * uu - wu * uv) / det
-        ok = ok & (a >= 0.0) & (a <= 1.0) & (b >= 0.0) & (b <= 1.0)
-        pdf_l = torch.where(
-            ok & mask,
-            t * t / (area * torch.clamp_min(denom.abs(), 1e-8)), 0.0)
-        total = total + pdf_l
-    return total / float(max(L, 1))
-
-
-def _pick_light(scene: S.Scene, u_sel, ua, ub):
-    """Uniform selection among the scene's Lights rows."""
-    lights = scene.lights
-    L = scene.num_lights
-    li = (torch.zeros_like(u_sel, dtype=torch.int64) if L == 1 else
-          torch.clamp((u_sel * L).to(torch.int64), 0, L - 1))
-    l_area = lights.area[0] if L == 1 else lights.area[li]
-    lpos = (V.gather_rows(lights.position, li)
-            + V.gather_rows(lights.vec_u, li) * ua
-            + V.gather_rows(lights.vec_v, li) * ub)
-    return (lpos, l_area, V.gather_rows(lights.normal, li),
-            V.gather_rows(lights.emission, li))
-
-
-# The split tier's two queries as `bounce_step` runs them: "kernels"
-# through the kernel wrappers B and C (`TK.trace`, `TK.occluded_kernel`;
-# their plain versions on CPU tensors), "plain" through the plain versions
-# on any device (`TK.trace_plain`, `TK.occluded_plain`): the twin the
-# card's gradient path is held against, and that path on the CPU.
-SPLIT_MODES = ("kernels", "plain")
+# The split tier's modes of `bounce_step`: "kernels" runs the bounce as
+# kernels B, E, C and F (`TK.trace_rows`, `SK.shade`, `TK.occluded_kernel`,
+# `SK.finish`; their plain versions on CPU tensors), nothing in torch
+# between them but the uniform draw; a gradient render keeps B and C with
+# the torch glue there, as "glue" does.  "glue" runs B and C with the
+# shading in plain torch between them (the path before E and F, kept for
+# timing the two in turns); "plain" runs the plain versions of B and C on
+# any device (`TK.trace_plain`, `TK.occluded_plain`): the twin the card's
+# gradient path is held against, and that path on the CPU.
+SPLIT_MODES = ("kernels", "glue", "plain")
 
 
 def _split_mode(cfg, scene, split):
@@ -245,12 +160,12 @@ def _detached(*args):
 
 
 def _split_query(kernel, plain, mode, scene, tables, cfg, *args):
-    """One split-tier query: `kernel` (with the tables) in mode "kernels",
-    its `plain` version in mode "plain".  A gradient render runs it under
-    torch.no_grad() on detached inputs (the reference's stop_gradient): its
-    answer is a detached decision."""
+    """One split-tier query: `kernel` (with the tables) in modes "kernels"
+    and "glue", its `plain` version in mode "plain".  A gradient render
+    runs it under torch.no_grad() on detached inputs (the reference's
+    stop_gradient): its answer is a detached decision."""
     def run(*a):
-        return kernel(scene, *a, tables) if mode == "kernels" else plain(
+        return kernel(scene, *a, tables) if mode != "plain" else plain(
             scene, *a)
     if not cfg.differentiable:
         return run(*args)
@@ -278,47 +193,54 @@ def bounce_env(scene: S.Scene, cfg, time, occ_u, mode=None,
     """The BounceEnv of `bounce_step` (and of the megakernel's plain twin):
     `time` and `occ_u` are bound into the occlusion query, which goes
     through the split tier in `mode` (None: the plain sweep)."""
-    return BounceEnv(
-        mat_present=scene.mat_present,
-        num_lights=scene.num_lights,
-        mis_bsdf_weight=cfg.mis_bsdf_weight,
-        rr_start_depth=cfg.rr_start_depth,
-        sky_gate=scene.sky_light,
-        unit_ball=sm.unit_ball,
-        light_pdf_at=functools.partial(_light_pdf_at, scene),
-        pick_light=functools.partial(_pick_light, scene),
-        occlude=functools.partial(_occlude, scene, cfg, mode, tables, time,
-                                  occ_u),
-        estimator=cfg.estimator,
-        light_pdf_dir=functools.partial(_light_pdf_dir, scene),
-    )
+    return scene_env(scene, cfg, functools.partial(
+        _occlude, scene, cfg, mode, tables, time, occ_u))
+
+
+def _shade_mode(cfg, mode) -> bool:
+    """Whether a bounce in split mode `mode` runs kernels E and F: mode
+    "kernels" outside the gradient path (E has no backward)."""
+    return mode == "kernels" and not cfg.differentiable
 
 
 def bounce_step(scene: S.Scene, cfg, path_keys, state: PathState, bounce,
-                tables=None, split=None):
+                tables=None, split=None, shade_tables=None):
     """One wavefront bounce: trace, shade, NEE, RR.  Returns
     (new state, [N] int32 rays traced per lane).  `tables`: the scene's
     split-kernel tables (`_split_tables`), built once per render by the
     caller; built here when None.  `split`: the split tier's mode
-    (`_split_mode`; None: chosen by `_split_backend`)."""
+    (`_split_mode`; None: chosen by `_split_backend`).  `shade_tables`:
+    E's tables (`SK.shade_tables`) where the mode runs E, likewise."""
     mode = _split_mode(cfg, scene, split)
     if mode and tables is None:
         tables = _split_tables(cfg, scene)
     nv = max(scene.n_vol, 1)
-    # stochastic texture filtering draws its row uniform from a dedicated
-    # trailing slot: slot streams are independent by index, so appending it
-    # leaves every estimator draw as it was
-    tex_slot = (cfg.tex_filter == "stoch565"
-                and bool(scene.tex_present[S.TEX_IMAGE]))
-    n_slots = R.NUM_FIXED_SLOTS + 2 * nv + (1 if tex_slot else 0)
+    row = tex_row(scene, cfg)
+    n_slots = R.NUM_FIXED_SLOTS + 2 * nv + (1 if row >= 0 else 0)
     U = R.bounce_uniforms(path_keys, bounce + 1, n_slots, cfg.rng)
     vol_u = U[R.NUM_FIXED_SLOTS: R.NUM_FIXED_SLOTS + nv]
     occ_u = U[R.NUM_FIXED_SLOTS + nv: R.NUM_FIXED_SLOTS + 2 * nv]
-    tex_u = U[R.NUM_FIXED_SLOTS + 2 * nv] if tex_slot else None
+    tex_u = U[row] if row >= 0 else None
 
     o, d = state.origin, state.direction
     # dead lanes get tmax = -BIG: a forced miss, masked by alive below
     tmax_lane = torch.where(state.alive, float(np.float32(cfg.t_max)), -BIG)
+    if _shade_mode(cfg, mode):
+        of, oi = TK.trace_rows(scene, o, d, cfg.t_min, tmax_lane, state.time,
+                               vol_u, tables)
+        out = SK.shade(scene, cfg, shade_tables, of, oi, state, bounce, U)
+        radiance = out.radiance
+        if out.nee is not None:
+            occluded = TK.occluded_kernel(
+                scene, out.shadow_org, out.shadow_dir, cfg.shadow_eps,
+                out.shadow_tmax, state.time, occ_u, tables)
+            radiance = SK.finish(radiance, out.nee, out.shadow_tmax,
+                                 occluded)
+        return PathState(origin=out.origin, direction=out.direction,
+                         throughput=out.throughput, radiance=radiance,
+                         alive=out.alive, time=state.time,
+                         prev_pdf=out.prev_pdf,
+                         prev_diffuse=out.prev_diffuse), out.rays_lane
     if mode:
         hit, shade = _split_query(TK.trace, TK.trace_plain, mode, scene,
                                   tables, cfg, o, d, cfg.t_min, tmax_lane,
@@ -348,6 +270,16 @@ def bounce_step(scene: S.Scene, cfg, path_keys, state: PathState, bounce,
                      alive=res.alive, time=state.time,
                      prev_pdf=res.prev_pdf,
                      prev_diffuse=res.prev_diffuse), res.rays_lane
+
+
+def _render_tables(cfg, scene, split):
+    """(split tables, E's tables) of a render in split mode `split`
+    (`_split_mode`), each None where the mode does not read it."""
+    mode = _split_mode(cfg, scene, split)
+    if not mode:
+        return None, None
+    return (_split_tables(cfg, scene),
+            SK.shade_tables(scene) if _shade_mode(cfg, mode) else None)
 
 
 # Length of the iteration-occupancy trace (cfg.occupancy_trace); later
@@ -434,12 +366,12 @@ def trace_paths_counted(scene: S.Scene, cfg, pixel_idx, sample_idx,
     pixel_idx = torch.as_tensor(pixel_idx, device=dev).to(torch.int64)
     path_keys = R.make_path_keys(seed, pixel_idx, sample_idx, cfg.rng)
     state = generate_camera_rays(scene, cfg, pixel_idx, path_keys)
-    tables = (_split_tables(cfg, scene)
-              if _split_mode(cfg, scene, split) else None)
+    tables, stables = _render_tables(cfg, scene, split)
     rays = torch.zeros(1, dtype=torch.int64, device=dev)
 
     def step(st, bounce):
-        return bounce_step(scene, cfg, path_keys, st, bounce, tables, split)
+        return bounce_step(scene, cfg, path_keys, st, bounce, tables, split,
+                           stables)
 
     for bounce in range(cfg.max_depth):
         if not cfg.differentiable and not bool(state.alive.any()):
@@ -594,16 +526,17 @@ def trace_wavefront_mega(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
 
 
 def trace_wavefront_regen(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
-                          n_samples: int):
+                          n_samples: int, split=None):
     """Persistent wavefront with ray regeneration, plain torch: each lane
     starts its next sample (same pixel, sample cursor + 1) the moment its
     path ends.  Every draw is keyed by (pixel, sample, bounce, slot), so the
     image matches the reference's regen scheduler.  The reference's drain
     tail compaction is compiled out on its plain path too, and is not
-    ported.  Returns (accum Vec3 of [N], rays int64 [1], stats: a
-    WavefrontStats with cfg.bounce_stats, else ())."""
-    tables = (_split_tables(cfg, scene) if _split_backend(cfg, scene)
-              else None)
+    ported.  `split`: the split tier's mode of every bounce (`bounce_step`;
+    "glue" times the path before kernels E and F).  Returns (accum Vec3 of
+    [N], rays int64 [1], stats: a WavefrontStats with cfg.bounce_stats,
+    else ())."""
+    tables, stables = _render_tables(cfg, scene, split)
     n = pixel_idx.shape[0]
     dev = pixel_idx.device
     sample = torch.full((n,), s0, dtype=torch.int64, device=dev)
@@ -620,7 +553,7 @@ def trace_wavefront_regen(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
         if stats:
             _stats_update(stats, path.alive)
         st, rays_lane = bounce_step(scene, cfg, path_keys, path, depth,
-                                    tables)
+                                    tables, split, stables)
         rays += rays_lane.sum(dtype=torch.int64)
         depth = depth + 1
         finished = path.alive & (~st.alive | (depth >= cfg.max_depth))
@@ -650,7 +583,7 @@ def trace_wavefront_regen(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
 
 
 def trace_wavefront_queue(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
-                          n_samples: int):
+                          n_samples: int, split=None):
     """Persistent wavefront with a global work queue.
 
     Items are (pixel, sample) pairs, sample-major: item i is
@@ -675,10 +608,12 @@ def trace_wavefront_queue(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
     by the termination test, so the card's iterations past the end count
     nothing and its counters equal the CPU's.
 
+    `split`: the split tier's mode of every bounce (`bounce_step`; "glue"
+    times the path before kernels E and F).
+
     Returns (accum Vec3 of [N] positional sums, rays int64 [1], stats: a
     WavefrontStats with cfg.bounce_stats, else ())."""
-    use_split = _split_backend(cfg, scene)
-    tables = _split_tables(cfg, scene) if use_split else None
+    tables, stables = _render_tables(cfg, scene, split)
     n = pixel_idx.shape[0]
     dev = pixel_idx.device
     i64 = torch.int64
@@ -706,7 +641,7 @@ def trace_wavefront_queue(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
                 live = (path.alive.any() | pending.any()).reshape(1)
                 _stats_update(stats, path.alive, live)
             st, rays_lane = bounce_step(scene, cfg, path_keys, path, depth,
-                                        tables)
+                                        tables, split, stables)
             rays += rays_lane.sum(dtype=i64)
             # pending lanes keep their final depth
             depth = torch.where(path.alive, depth + 1, depth)

@@ -6,6 +6,10 @@ same steps per lane in the same order.  Every material is evaluated for
 every lane and selected per lane, as in the reference, so each plane rounds
 exactly as the reference's does.
 
+The scene's light helpers and `scene_env` (a scene's BounceEnv, the
+shadow query left to the caller) live here too: the integrator and kernel
+E's wrapper (ops/shade_kernel.py) both build on them.
+
 Two estimators, as in the reference: "mis" (NEE shadow rays +
 power-heuristic MIS) and "book" (the books' 0.5/0.5 cosine/light mixture
 for the next ray, with no shadow rays and no MIS).
@@ -13,6 +17,7 @@ for the next ray, with no shadow rays and no MIS).
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -29,6 +34,19 @@ from rtw_tpu_torch.utils import rng as R
 def check_estimator(estimator: str) -> None:
     if estimator not in ("mis", "book"):
         raise ValueError(f"unknown estimator {estimator!r}")
+
+
+class PathState(NamedTuple):
+    """SoA wavefront state."""
+
+    origin: Vec3
+    direction: Vec3
+    throughput: Vec3
+    radiance: Vec3
+    alive: Any         # [N] bool
+    time: Any          # [N] shutter gather time
+    prev_pdf: Any      # [N] bsdf pdf of the previous diffuse bounce
+    prev_diffuse: Any  # [N] bool
 
 
 class BounceEnv(NamedTuple):
@@ -50,6 +68,24 @@ class BounceEnv(NamedTuple):
     # light pdf ("book" only)
     light_pdf_dir: Optional[Callable[..., Any]] = None
 
+    # The bounce's static branches, decided here once for `bounce_core` and
+    # for kernel E's parameters (ops/shade_kernel.py)
+    @property
+    def book(self) -> bool:
+        """The lambertian scatter is the books' mixture."""
+        return self.estimator == "book" and self.num_lights > 0
+
+    @property
+    def nee(self) -> bool:
+        """The bounce samples a light with a shadow ray."""
+        return (self.num_lights > 0 and not self.book
+                and bool(self.mat_present[S.MAT_LAMBERTIAN]))
+
+    @property
+    def mis_weight(self) -> bool:
+        """A BSDF-sampled light hit is MIS-weighted against NEE."""
+        return self.mis_bsdf_weight and self.num_lights > 0 and not self.book
+
 
 class BounceResult(NamedTuple):
     origin: Vec3
@@ -60,6 +96,129 @@ class BounceResult(NamedTuple):
     prev_pdf: Any
     prev_diffuse: Any     # [N] bool
     rays_lane: Any        # [N] int32: traversal queries this lane issued
+    # The NEE shadow query and its contribution, where the bounce has NEE
+    # (else None): the shadow ray's origin, unit direction and tmax (-BIG
+    # on lanes with no query), and each lane's term thr * nee.  With
+    # `env.occlude` None the query is left to the caller, and `radiance`
+    # is the radiance before NEE: `finish_nee` adds the term.
+    shadow_org: Optional[Vec3] = None
+    shadow_dir: Optional[Vec3] = None
+    shadow_tmax: Any = None
+    nee: Optional[Vec3] = None
+
+
+# ----- the scene's lights (the reference's integrator.py:124,173,298) -----
+
+def single_light(scene: S.Scene) -> bool:
+    """`light_pdf_at`'s shortcut: one light row, and every emissive prim is
+    registered as that light, so a light hit needs no per-prim row."""
+    return max(scene.num_lights, 1) == 1 and not scene.emissives_unregistered
+
+
+def light_pdf_at(scene: S.Scene, origin: Vec3, point: Vec3, dir_unit: Vec3,
+                 prim_idx, mask):
+    """Solid-angle pdf of NEE having sampled the direction that hit a light
+    at `point`, for the MIS weight of BSDF-sampled light hits.  One-sided:
+    a hit on a light's back side gets pdf 0 (the reference's 8820107 fix),
+    because NEE never samples it."""
+    lights = scene.lights
+    L = max(scene.num_lights, 1)
+    d = point - origin
+    dist2 = torch.where(mask, d.dot(d), 1.0)
+
+    if single_light(scene):
+        ln = V.v3(lights.normal[0])
+        area = lights.area[0]
+        cos_t = -dir_unit.dot(ln)
+        sel = mask & (cos_t > 1e-6)
+        pdf = dist2 / (area * torch.where(sel, cos_t, 1.0)) / float(L)
+        return torch.where(sel, pdf, 0.0)
+
+    row = scene.prims.light_row_p[torch.clamp_min(prim_idx, 0)]
+    row = torch.where(mask & (prim_idx >= 0), row, -1)
+    r = torch.clamp_min(row, 0)
+    area = lights.area[r]
+    ln = V.gather_rows(lights.normal, r)
+    cos_t = -dir_unit.dot(ln)
+    sel = (row >= 0) & (cos_t > 1e-6)
+    pdf = dist2 / (torch.where(sel, area * cos_t, 1.0) * float(L))
+    return torch.where(sel, pdf, 0.0)
+
+
+def light_pdf_dir(scene: S.Scene, origin: Vec3, dir_unit: Vec3, mask):
+    """(1/L) * sum over lights of the solid-angle pdf of `dir_unit` from
+    `origin` hitting that light: the books' hittable_pdf::value, a
+    geometric parallelogram test with no scene occlusion, for the "book"
+    mixture's pdf.  L unrolled tests of scalar light rows."""
+    lights = scene.lights
+    L = scene.num_lights
+    total = torch.zeros_like(origin.x)
+    for li in range(L):
+        q = V.v3(lights.position[li])
+        eu = V.v3(lights.vec_u[li])
+        ev = V.v3(lights.vec_v[li])
+        ln = V.v3(lights.normal[li])
+        area = lights.area[li]
+        denom = dir_unit.dot(ln)
+        ok = denom.abs() > 1e-8
+        denom_s = torch.where(ok, denom, 1.0)
+        t = (q - origin).dot(ln) / denom_s
+        ok = ok & (t > 1e-4)
+        w = origin + dir_unit * t - q
+        uu = eu.dot(eu)
+        vv = ev.dot(ev)
+        uv = eu.dot(ev)
+        det = uu * vv - uv * uv
+        wu = w.dot(eu)
+        wv = w.dot(ev)
+        a = (wu * vv - wv * uv) / det
+        b = (wv * uu - wu * uv) / det
+        ok = ok & (a >= 0.0) & (a <= 1.0) & (b >= 0.0) & (b <= 1.0)
+        pdf_l = torch.where(
+            ok & mask,
+            t * t / (area * torch.clamp_min(denom.abs(), 1e-8)), 0.0)
+        total = total + pdf_l
+    return total / float(max(L, 1))
+
+
+def pick_light(scene: S.Scene, u_sel, ua, ub):
+    """Uniform selection among the scene's Lights rows."""
+    lights = scene.lights
+    L = scene.num_lights
+    li = (torch.zeros_like(u_sel, dtype=torch.int64) if L == 1 else
+          torch.clamp((u_sel * L).to(torch.int64), 0, L - 1))
+    l_area = lights.area[0] if L == 1 else lights.area[li]
+    lpos = (V.gather_rows(lights.position, li)
+            + V.gather_rows(lights.vec_u, li) * ua
+            + V.gather_rows(lights.vec_v, li) * ub)
+    return (lpos, l_area, V.gather_rows(lights.normal, li),
+            V.gather_rows(lights.emission, li))
+
+
+def scene_env(scene: S.Scene, cfg, occlude=None) -> BounceEnv:
+    """The BounceEnv of a bounce on `scene` under `cfg`, with the shadow
+    query `occlude` (None: deferred to the caller, see BounceResult)."""
+    return BounceEnv(
+        mat_present=scene.mat_present,
+        num_lights=scene.num_lights,
+        mis_bsdf_weight=cfg.mis_bsdf_weight,
+        rr_start_depth=cfg.rr_start_depth,
+        sky_gate=scene.sky_light,
+        unit_ball=sm.unit_ball,
+        light_pdf_at=functools.partial(light_pdf_at, scene),
+        pick_light=functools.partial(pick_light, scene),
+        occlude=occlude,
+        estimator=cfg.estimator,
+        light_pdf_dir=functools.partial(light_pdf_dir, scene),
+    )
+
+
+def finish_nee(radiance: Vec3, nee: Vec3, shadow_tmax, occluded) -> Vec3:
+    """The radiance after NEE: `radiance + nee` where the lane's shadow
+    query was active (tmax above -BIG) and found no occluder, rounded as
+    `bounce_core`'s own add."""
+    return V.where((shadow_tmax > -BIG) & ~occluded, radiance + nee,
+                   radiance)
 
 
 def bounce_core(env: BounceEnv, U, depth, alive, o: Vec3, d: Vec3, time,
@@ -69,7 +228,9 @@ def bounce_core(env: BounceEnv, U, depth, alive, o: Vec3, d: Vec3, time,
     """One wavefront bounce after the trace: miss shade, material scatter,
     NEE + MIS, advance, Russian roulette.  U: [n_slots, N] uniforms indexed
     by utils.rng slot ids; all other planes [N].  `time` is in the
-    reference's signature; the executors bind it into `env.occlude`."""
+    reference's signature; the executors bind it into `env.occlude`.  With
+    `env.occlude` None the shadow query is deferred: the result carries it
+    and the radiance before NEE (BounceResult)."""
     del time
     check_estimator(env.estimator)
     n = mat_type.shape[0]
@@ -108,8 +269,7 @@ def bounce_core(env: BounceEnv, U, depth, alive, o: Vec3, d: Vec3, time,
     terminate = false_n
 
     # ----- lambertian: cosine-hemisphere scatter --------------------------
-    book = env.estimator == "book" and env.num_lights > 0
-    if mp[S.MAT_LAMBERTIAN] and book:
+    if mp[S.MAT_LAMBERTIAN] and env.book:
         # the books' mixture: the next ray itself from 0.5 cosine + 0.5
         # light-area sampling, the reflectance weighted by
         # scattering_pdf / mixture_pdf
@@ -181,7 +341,7 @@ def bounce_core(env: BounceEnv, U, depth, alive, o: Vec3, d: Vec3, time,
     if mp[S.MAT_DIFFUSE_LIGHT]:
         facing = nrm.dot(d_unit) < 0.0
         emitted = V.where(facing, albedo, zero3)
-        if env.mis_bsdf_weight and env.num_lights > 0 and not book:
+        if env.mis_weight:
             w_mask = hit_alive & is_light & prev_diffuse
             lp = env.light_pdf_at(o, point, d_unit, prim_idx, w_mask)
             prev_safe = torch.where(w_mask, prev_pdf, 1.0)
@@ -205,7 +365,7 @@ def bounce_core(env: BounceEnv, U, depth, alive, o: Vec3, d: Vec3, time,
 
     # ----- next-event estimation (none under "book": light sampling is the
     # scatter) --------------------------------------------------------------
-    if env.num_lights > 0 and mp[S.MAT_LAMBERTIAN] and not book:
+    if env.nee:
         lpos, l_area, l_nrm, l_emission = env.pick_light(
             U[R.U_LIGHT_SELECT], U[R.U_LIGHT_A], U[R.U_LIGHT_B])
         ldir = lpos - point
@@ -227,15 +387,19 @@ def bounce_core(env: BounceEnv, U, depth, alive, o: Vec3, d: Vec3, time,
         shadow_org = sm.offset_point(point, nrm, ldir_u)
         occ_tmax = torch.where(nee_active, ldist * float(np.float32(0.999)),
                                -BIG)
-        shadowed = env.occlude(shadow_org, ldir_u, occ_tmax, nee_active)
         l_pdf_safe = torch.where(nee_active, l_pdf, 1.0)
         bsdf_safe = torch.where(nee_active, bsdf_pdf, 1.0)
         w_nee = sm.power_heuristic(l_pdf_safe, bsdf_safe)
         nee_s = (w_nee * torch.clamp_min(ldir_u.dot(nrm), 0.0) * sm.INV_PI
                  / l_pdf_safe)
-        nee = albedo * l_emission * nee_s
-        radiance = V.where(nee_active & ~shadowed,
-                           radiance + thr * nee, radiance)
+        nee_term = thr * (albedo * l_emission * nee_s)
+        shadow = dict(shadow_org=shadow_org, shadow_dir=ldir_u,
+                      shadow_tmax=occ_tmax, nee=nee_term)
+        if env.occlude is not None:
+            shadowed = env.occlude(shadow_org, ldir_u, occ_tmax, nee_active)
+            radiance = finish_nee(radiance, nee_term, occ_tmax, shadowed)
+    else:
+        shadow = {}
 
     # ----- advance ---------------------------------------------------------
     new_alive = hit_alive & ~terminate
@@ -260,4 +424,5 @@ def bounce_core(env: BounceEnv, U, depth, alive, o: Vec3, d: Vec3, time,
     return BounceResult(origin=origin, direction=direction,
                         throughput=throughput, radiance=radiance,
                         alive=alive_out, prev_pdf=prev_pdf,
-                        prev_diffuse=prev_diffuse, rays_lane=rays_lane)
+                        prev_diffuse=prev_diffuse, rays_lane=rays_lane,
+                        **shadow)

@@ -18,6 +18,7 @@ from rtw_tpu_torch.ops.textures import (_image_bilinear, _image_bilinear_565,
                                         _image_nearest_565, _image_stoch_565,
                                         turbulence)
 from rtw_tpu_torch.ops.vec import Vec3
+from rtw_tpu_torch.utils import rng as R
 
 
 class ShadeRec(NamedTuple):
@@ -73,6 +74,16 @@ def _image_eval(scene: S.Scene, image_id, u, v, tex_filter, tex_u=None):
              "nearest565": _image_nearest_565}.get(tex_filter,
                                                    _image_bilinear)
     return fetch(scene.textures, image_id, u, v)
+
+
+def tex_row(scene: S.Scene, cfg) -> int:
+    """The row of a bounce's uniforms that "stoch565" draws its texel row
+    from, or -1.  Stochastic texture filtering draws from a dedicated
+    trailing slot: slot streams are independent by index, so appending it
+    leaves every estimator draw as it was."""
+    if cfg.tex_filter == "stoch565" and scene.tex_present[S.TEX_IMAGE]:
+        return R.NUM_FIXED_SLOTS + 2 * max(scene.n_vol, 1)
+    return -1
 
 
 def resolve_albedo(scene: S.Scene, shade: ShadeRec, p: Vec3, u, v,

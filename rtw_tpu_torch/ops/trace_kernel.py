@@ -411,17 +411,17 @@ def _call(fn, dev, *args):
                            f"{lib.rtw_error_string(err).decode()} ({err})")
 
 
-def trace(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u,
-          tables: SplitTables | None = None):
-    """Nearest hit of each ray over the whole scene and the winner's
-    shading record: (Hit, ShadeRec), the contract of `trace_plain`.  `tmax`
-    and `time` are scalars or [N] planes.  CPU tensors run `trace_plain`;
-    CUDA tensors launch the kernel or raise."""
+def trace_rows(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u,
+               tables: SplitTables | None = None):
+    """Nearest hit and shading record as the kernel writes them: (of, oi),
+    float32 [HIT_F32, N] and int32 [HIT_I32, N] rows (`_unpack_hit` reads
+    them).  CPU tensors run `trace_plain` and pack its result into the same
+    rows; CUDA tensors launch the kernel or raise."""
     global trace_launches
     check_plan(scene)
     _refuse_grad_inputs("trace", scene, o, d, tmax, time, vol_u, tables)
     if o.x.device.type == "cpu":
-        return trace_plain(scene, o, d, tmin, tmax, time, vol_u)
+        return _pack_hit(*trace_plain(scene, o, d, tmin, tmax, time, vol_u))
     rays, tables, p = _launch_inputs(scene, o, d, tmin, tmax, time, vol_u,
                                      tables)
     n = rays.shape[1]
@@ -432,7 +432,27 @@ def trace(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u,
           tables.aabbs.data_ptr(), tables.hier.data_ptr(),
           tables.vol_slot.data_ptr(), of.data_ptr(), oi.data_ptr(), n, p)
     trace_launches += 1
-    return _unpack_hit(of, oi)
+    return of, oi
+
+
+def trace(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u,
+          tables: SplitTables | None = None):
+    """Nearest hit of each ray over the whole scene and the winner's
+    shading record: (Hit, ShadeRec), the contract of `trace_plain`, read
+    from `trace_rows`.  `tmax` and `time` are scalars or [N] planes."""
+    return _unpack_hit(*trace_rows(scene, o, d, tmin, tmax, time, vol_u,
+                                   tables))
+
+
+def _pack_hit(hit, shade):
+    """The kernel's output rows (of, oi) of a (Hit, ShadeRec)."""
+    of = torch.stack([hit.t, *hit.point, *hit.normal, hit.u, hit.v,
+                      shade.fuzz, shade.eta, shade.scale, *shade.rgb,
+                      *shade.odd, *shade.even]).to(torch.float32)
+    oi = torch.stack([c.to(torch.int32) for c in (
+        hit.prim_idx, shade.mat_type, shade.tex_type, shade.image_id,
+        hit.mat_id)])
+    return of, oi
 
 
 def _unpack_hit(of, oi):

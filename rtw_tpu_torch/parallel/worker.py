@@ -124,12 +124,15 @@ def launch(steps: list, world: int, device: str = "cuda",
 
 def _counters() -> dict:
     from rtw_tpu_torch.ops import mega_kernel as MK
+    from rtw_tpu_torch.ops import shade_kernel as SK
     from rtw_tpu_torch.ops import trace_kernel as TK
 
     return {"mega_trace": (MK, "trace_launches"), "mega_step":
             (MK, "launches"), "hybrid": (MK, "hybrid_launches"),
             "trace": (TK, "trace_launches"),
-            "occluded": (TK, "occluded_launches")}
+            "occluded": (TK, "occluded_launches"),
+            "shade": (SK, "shade_launches"),
+            "shade_finish": (SK, "finish_launches")}
 
 
 def counted(fn):

@@ -112,6 +112,7 @@ def test_render_image_is_the_encoded_render():
 def test_import_pulls_in_no_jax():
     code = ("import sys, rtw_tpu_torch, rtw_tpu_torch.ops.mega_kernel, "
             "rtw_tpu_torch.ops.trace_kernel, rtw_tpu_torch.ops.textures, "
+            "rtw_tpu_torch.ops.shade_kernel, "
             "rtw_tpu_torch.integrator, rtw_tpu_torch.utils.kernels, "
             "rtw_tpu_torch.diff, rtw_tpu_torch.grad_demo, "
             "rtw_tpu_torch.utils.image, rtw_tpu_torch.utils.profiling, "

@@ -233,6 +233,10 @@ SYNTHETIC = (
     ("trace_kernel(float const*, float const*, float const*)",
      "trace_kernel"),
     ("occluded_kernel(float const*, float const*)", "occl_kernel"),
+    ("(anonymous namespace)::shade_kernel(ShadeIO, int, ShadeParams)",
+     "shade_kernel"),
+    ("(anonymous namespace)::shade_finish_kernel(FinishIO, int)",
+     "shade_finish"),
     ("void at::native::_scatter_gather_elementwise_kernel<128, 4>", "scatter"),
     ("void at::native::index_put_kernel_impl<float>", "scatter"),
     ("void at::native::gather_kernel<float>", "gather"),

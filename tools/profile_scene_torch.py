@@ -6,10 +6,10 @@ Captures a torch.profiler trace of a warm render
 reads its device events (complete events of category kernel, gpu_memcpy
 or gpu_memset) and sums their durations by a coarse bucket map keyed on
 the port's kernel names: the megakernel's persistent launch and its step,
-the split tier's trace and occlusion kernels, and torch's own glue
-kernels.  Anything unmatched lands in `other`, so the buckets sum to the
-device total.  The idle time is the render's wall less the time the card
-was busy (the union of its events).
+the split tier's trace, occlusion, shading and finishing kernels (B, C, E,
+F), and torch's own glue kernels.  Anything unmatched lands in `other`,
+so the buckets sum to the device total.  The idle time is the render's
+wall less the time the card was busy (the union of its events).
 
 Run: python tools/profile_scene_torch.py 4 [--spp 8] [--width 800]
      [--overrides k=v ...]
@@ -38,6 +38,8 @@ BUCKETS = (
     ("mega_step", ("mega_kernel",)),
     ("trace_kernel", ("trace_kernel",)),
     ("occl_kernel", ("occluded_kernel",)),
+    ("shade_kernel", ("shade_kernel",)),
+    ("shade_finish", ("shade_finish_kernel",)),
     ("scatter", ("scatter", "index_put")),
     ("gather", ("gather", "index")),
     ("scan", ("scan", "cumsum")),
