@@ -63,6 +63,7 @@ from rtw_tpu_torch.ops.bounce import (BounceEnv, PathState, bounce_core,
                                       scene_env)
 from rtw_tpu_torch.ops.intersect import BIG, fma
 from rtw_tpu_torch.ops.shading import gather_shade, resolve_albedo, tex_row
+from rtw_tpu_torch.utils import profiling as P
 from rtw_tpu_torch.utils import rng as R
 
 # Scenes at or above this many prims run the split-tier kernels (the
@@ -217,7 +218,8 @@ def bounce_step(scene: S.Scene, cfg, path_keys, state: PathState, bounce,
     nv = max(scene.n_vol, 1)
     row = tex_row(scene, cfg)
     n_slots = R.NUM_FIXED_SLOTS + 2 * nv + (1 if row >= 0 else 0)
-    U = R.bounce_uniforms(path_keys, bounce + 1, n_slots, cfg.rng)
+    with P.span("bounce.draw"):
+        U = R.bounce_uniforms(path_keys, bounce + 1, n_slots, cfg.rng)
     vol_u = U[R.NUM_FIXED_SLOTS: R.NUM_FIXED_SLOTS + nv]
     occ_u = U[R.NUM_FIXED_SLOTS + nv: R.NUM_FIXED_SLOTS + 2 * nv]
     tex_u = U[row] if row >= 0 else None
@@ -275,11 +277,12 @@ def bounce_step(scene: S.Scene, cfg, path_keys, state: PathState, bounce,
 def _render_tables(cfg, scene, split):
     """(split tables, E's tables) of a render in split mode `split`
     (`_split_mode`), each None where the mode does not read it."""
-    mode = _split_mode(cfg, scene, split)
-    if not mode:
-        return None, None
-    return (_split_tables(cfg, scene),
-            SK.shade_tables(scene) if _shade_mode(cfg, mode) else None)
+    with P.span("tables"):
+        mode = _split_mode(cfg, scene, split)
+        if not mode:
+            return None, None
+        return (_split_tables(cfg, scene),
+                SK.shade_tables(scene) if _shade_mode(cfg, mode) else None)
 
 
 # Length of the iteration-occupancy trace (cfg.occupancy_trace); later
@@ -497,15 +500,11 @@ def trace_wavefront(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
         raise ValueError(f"unknown scheduler {cfg.scheduler!r}")
     if sched == "qmega":
         _validate_mega(cfg, scene)     # the megakernel's envelope
-        return trace_wavefront_qmega(scene, cfg, pixel_idx, seed, s0,
-                                     n_samples)
-    if sched == "mega":
-        return trace_wavefront_mega(scene, cfg, pixel_idx, seed, s0,
-                                    n_samples)
-    if sched == "queue":
-        return trace_wavefront_queue(scene, cfg, pixel_idx, seed, s0,
-                                     n_samples)
-    return trace_wavefront_regen(scene, cfg, pixel_idx, seed, s0, n_samples)
+    run = {"qmega": trace_wavefront_qmega, "mega": trace_wavefront_mega,
+           "queue": trace_wavefront_queue,
+           "regen": trace_wavefront_regen}[sched]
+    with P.span("sched." + sched):
+        return run(scene, cfg, pixel_idx, seed, s0, n_samples)
 
 
 def trace_wavefront_mega(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
@@ -637,45 +636,55 @@ def trace_wavefront_queue(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
 
     while True:
         for _ in range(check_every):
-            if stats:
-                live = (path.alive.any() | pending.any()).reshape(1)
-                _stats_update(stats, path.alive, live)
-            st, rays_lane = bounce_step(scene, cfg, path_keys, path, depth,
-                                        tables, split, stables)
-            rays += rays_lane.sum(dtype=i64)
-            # pending lanes keep their final depth
-            depth = torch.where(path.alive, depth + 1, depth)
-            finished = path.alive & (~st.alive | (depth >= cfg.max_depth))
-            pending = pending | finished
-            running = st.alive & ~finished
-            path = st._replace(alive=running)
+            with P.span("queue.iteration"):
+                if stats:
+                    live = (path.alive.any() | pending.any()).reshape(1)
+                    _stats_update(stats, path.alive, live)
+                st, rays_lane = bounce_step(scene, cfg, path_keys, path,
+                                            depth, tables, split, stables)
+                rays += rays_lane.sum(dtype=i64)
+                # pending lanes keep their final depth
+                depth = torch.where(path.alive, depth + 1, depth)
+                finished = path.alive & (~st.alive
+                                         | (depth >= cfg.max_depth))
+                pending = pending | finished
+                running = st.alive & ~finished
+                path = st._replace(alive=running)
 
-            pend, have, item_pos, q_sample, q_pixel, cursor = _queue_flush(
-                pending, running, path.radiance, accum, item_pos, cursor,
-                pixel_idx, s0, n_items, cfg.flush_denom)
-            if stats:
-                # a flushed lane's depth froze at its path's length
-                _stats_record_lengths(stats, pend, depth, cfg.max_depth)
-            sample = torch.where(have, q_sample, sample)
-            pixel = torch.where(have, q_pixel, pixel)
-
-            new_keys = R.make_path_keys(seed, pixel, sample, cfg.rng)
-            fresh = generate_camera_rays(scene, cfg, pixel, new_keys)
-            path = PathState(
-                origin=V.where(have, fresh.origin, path.origin),
-                direction=V.where(have, fresh.direction, path.direction),
-                throughput=V.where(have, fresh.throughput, path.throughput),
-                radiance=V.where(pend, fresh.radiance, path.radiance),
-                alive=path.alive | have,
-                time=torch.where(have, fresh.time, path.time),
-                prev_pdf=torch.where(have, fresh.prev_pdf, path.prev_pdf),
-                prev_diffuse=torch.where(have, fresh.prev_diffuse,
-                                         path.prev_diffuse),
-            )
-            path_keys = torch.where(have, new_keys, path_keys)
-            depth = torch.where(have, 0, depth)
-            pending = pending & ~pend
-        if not bool((path.alive.any() | pending.any())):
+                with P.span("queue.flush"):
+                    pend, have, item_pos, q_sample, q_pixel, cursor = (
+                        _queue_flush(pending, running, path.radiance, accum,
+                                     item_pos, cursor, pixel_idx, s0,
+                                     n_items, cfg.flush_denom))
+                if stats:
+                    # a flushed lane's depth froze at its path's length
+                    _stats_record_lengths(stats, pend, depth, cfg.max_depth)
+                with P.span("queue.regen"):
+                    sample = torch.where(have, q_sample, sample)
+                    pixel = torch.where(have, q_pixel, pixel)
+                    new_keys = R.make_path_keys(seed, pixel, sample, cfg.rng)
+                    fresh = generate_camera_rays(scene, cfg, pixel, new_keys)
+                    path = PathState(
+                        origin=V.where(have, fresh.origin, path.origin),
+                        direction=V.where(have, fresh.direction,
+                                          path.direction),
+                        throughput=V.where(have, fresh.throughput,
+                                           path.throughput),
+                        radiance=V.where(pend, fresh.radiance,
+                                         path.radiance),
+                        alive=path.alive | have,
+                        time=torch.where(have, fresh.time, path.time),
+                        prev_pdf=torch.where(have, fresh.prev_pdf,
+                                             path.prev_pdf),
+                        prev_diffuse=torch.where(have, fresh.prev_diffuse,
+                                                 path.prev_diffuse),
+                    )
+                    path_keys = torch.where(have, new_keys, path_keys)
+                    depth = torch.where(have, 0, depth)
+                    pending = pending & ~pend
+        with P.span("queue.wait"):
+            more = bool((path.alive.any() | pending.any()))
+        if not more:
             break
     return accum, rays, stats
 

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -63,6 +64,7 @@ from rtw_tpu_torch.ops.shading import gather_shade, resolve_albedo
 from rtw_tpu_torch.ops import trace_kernel as TK
 from rtw_tpu_torch.ops.vec import Vec3
 from rtw_tpu_torch.utils import kernels
+from rtw_tpu_torch.utils import profiling as P
 from rtw_tpu_torch.utils import rng as R
 
 # --- carry layout (the reference's) ----------------------------------------
@@ -185,49 +187,50 @@ def mega_params(scene: S.Scene, seed: int, cfg, s_end: int,
     the kernel does not compute) and assemble the launch parameters for
     the samples [s0, s_end).  The camera and light rows reach the host in
     one copy."""
-    _validate_mega(cfg, scene)
-    cam = scene.camera
-    lt = scene.lights
+    with P.span("tables"):
+        _validate_mega(cfg, scene)
+        cam = scene.camera
+        lt = scene.lights
 
-    parf = np.zeros(PF, np.float32)
-    parts = [cam.origin, cam.lower_left, cam.horizontal, cam.vertical,
-             cam.u, cam.v, cam.lens_radius, cam.time0, cam.time1,
-             scene.sky_light, lt.position[0], lt.vec_u[0], lt.vec_v[0],
-             lt.emission[0], lt.area[0], lt.normal[0]]
-    vals = torch.cat([p.detach().to(torch.float32).reshape(-1)
-                      for p in parts]).cpu().numpy()
-    parf[:vals.size] = vals
+        parf = np.zeros(PF, np.float32)
+        parts = [cam.origin, cam.lower_left, cam.horizontal, cam.vertical,
+                 cam.u, cam.v, cam.lens_radius, cam.time0, cam.time1,
+                 scene.sky_light, lt.position[0], lt.vec_u[0], lt.vec_v[0],
+                 lt.emission[0], lt.area[0], lt.normal[0]]
+        vals = torch.cat([p.detach().to(torch.float32).reshape(-1)
+                          for p in parts]).cpu().numpy()
+        parf[:vals.size] = vals
 
-    tables = TK.split_tables(scene)
-    h0 = R.path_hash_base(seed)
-    c = _CParams()
-    c.f[:] = parf.tolist()
-    c.inv_nx = float(np.float32(1.0 / cfg.nx))
-    c.inv_ny = float(np.float32(1.0 / cfg.ny))
-    c.tmin = cfg.t_min
-    c.tmax = cfg.t_max
-    c.shadow_eps = cfg.shadow_eps
-    c.h0 = h0
-    c.s_end = s_end
-    c.nx, c.ny = cfg.nx, cfg.ny
-    c.rr_start = cfg.rr_start_depth
-    c.max_depth = cfg.max_depth
-    c.n_entries = len(scene.chunk_plan)
-    c.n_props, c.kdim = tables.props.shape
-    c.num_lights = scene.num_lights
-    c.mat_present = sum(1 << m for m, on in enumerate(scene.mat_present)
-                        if on)
-    c.checker = int(bool(scene.tex_present[S.TEX_CHECKER]))
-    c.mis_bsdf_weight = int(bool(cfg.mis_bsdf_weight))
-    c.n_vol = max(scene.n_vol, 1)
-    c.n_blocks = tables.n_blocks
-    c.n_nodes = tables.aabbs.shape[0] - tables.n_blocks
-    c.walk = int(tables.n_blocks > STRAIGHT_MAX_BLOCKS)
-    always, joined = table_bytes(c)
-    c.tables_shared = int(always + joined <= TABLES_SHARED_MAX)
-    c.s0 = s0
-    return MegaParams(parf=parf, h0=h0, s0=s0, s_end=s_end, n_vol=c.n_vol,
-                      tables=tables, c_params=c)
+        tables = TK.split_tables(scene)
+        h0 = R.path_hash_base(seed)
+        c = _CParams()
+        c.f[:] = parf.tolist()
+        c.inv_nx = float(np.float32(1.0 / cfg.nx))
+        c.inv_ny = float(np.float32(1.0 / cfg.ny))
+        c.tmin = cfg.t_min
+        c.tmax = cfg.t_max
+        c.shadow_eps = cfg.shadow_eps
+        c.h0 = h0
+        c.s_end = s_end
+        c.nx, c.ny = cfg.nx, cfg.ny
+        c.rr_start = cfg.rr_start_depth
+        c.max_depth = cfg.max_depth
+        c.n_entries = len(scene.chunk_plan)
+        c.n_props, c.kdim = tables.props.shape
+        c.num_lights = scene.num_lights
+        c.mat_present = sum(1 << m for m, on in enumerate(scene.mat_present)
+                            if on)
+        c.checker = int(bool(scene.tex_present[S.TEX_CHECKER]))
+        c.mis_bsdf_weight = int(bool(cfg.mis_bsdf_weight))
+        c.n_vol = max(scene.n_vol, 1)
+        c.n_blocks = tables.n_blocks
+        c.n_nodes = tables.aabbs.shape[0] - tables.n_blocks
+        c.walk = int(tables.n_blocks > STRAIGHT_MAX_BLOCKS)
+        always, joined = table_bytes(c)
+        c.tables_shared = int(always + joined <= TABLES_SHARED_MAX)
+        c.s0 = s0
+        return MegaParams(parf=parf, h0=h0, s0=s0, s_end=s_end,
+                          n_vol=c.n_vol, tables=tables, c_params=c)
 
 
 def table_bytes(c: _CParams) -> tuple[int, int]:
@@ -434,35 +437,41 @@ def mega_trace(scene: S.Scene, cfg, pixel_idx, params: MegaParams, rays):
 
     CPU tensors run `mega_trace_plain`; CUDA tensors make one launch of the
     persistent kernel on the current stream (no synchronisation) or
-    raise."""
+    raise.  Under a torch.profiler capture the launch records the span
+    `mega.launch`, whose `tail` value is `trace_tail` of its clock stamps,
+    read by `utils.profiling.spans()`."""
     global trace_launches
     if pixel_idx.device.type == "cpu":
         return mega_trace_plain(scene, cfg, pixel_idx, params, rays)
     if pixel_idx.device.type != "cuda":
         raise ValueError(f"mega_trace runs on CPU or CUDA tensors, not "
                          f"{pixel_idx.device}")
-    n = pixel_idx.shape[0]
-    _check((("pixel_idx", pixel_idx, torch.int32, (n,)),
-            ("rays", rays, torch.int64, (1,))), params, pixel_idx.device)
-    acc = torch.empty((3, n), dtype=torch.float32, device=pixel_idx.device)
-    scratch = torch.zeros(4, dtype=torch.int64, device=pixel_idx.device)
-    info = (ctypes.c_int * len(TRACE_INFO))()
-    lib = library()
-    tb = params.tables
-    with torch.cuda.device(pixel_idx.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rtw_mega_trace(pixel_idx.data_ptr(), tb.props.data_ptr(),
-                                 tb.plan.data_ptr(), tb.aabbs.data_ptr(),
-                                 tb.hier.data_ptr(), tb.vol_slot.data_ptr(),
-                                 acc.data_ptr(), rays.data_ptr(),
-                                 scratch.data_ptr(), n, params.c_params,
-                                 stream, info)
-    if err != 0:
-        raise RuntimeError(f"mega_trace kernel launch failed: "
-                           f"{lib.rtw_error_string(err).decode()} ({err})")
-    trace_launches += 1
-    last_trace.clear()
-    last_trace.update(zip(TRACE_INFO, info), scratch=scratch)
+    with P.span("mega.launch") as sp:
+        n = pixel_idx.shape[0]
+        _check((("pixel_idx", pixel_idx, torch.int32, (n,)),
+                ("rays", rays, torch.int64, (1,))), params, pixel_idx.device)
+        acc = torch.empty((3, n), dtype=torch.float32,
+                          device=pixel_idx.device)
+        scratch = torch.zeros(4, dtype=torch.int64, device=pixel_idx.device)
+        info = (ctypes.c_int * len(TRACE_INFO))()
+        lib = library()
+        tb = params.tables
+        with torch.cuda.device(pixel_idx.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.rtw_mega_trace(
+                pixel_idx.data_ptr(), tb.props.data_ptr(), tb.plan.data_ptr(),
+                tb.aabbs.data_ptr(), tb.hier.data_ptr(),
+                tb.vol_slot.data_ptr(), acc.data_ptr(), rays.data_ptr(),
+                scratch.data_ptr(), n, params.c_params, stream, info)
+        if err != 0:
+            raise RuntimeError(f"mega_trace kernel launch failed: "
+                               f"{lib.rtw_error_string(err).decode()} "
+                               f"({err})")
+        trace_launches += 1
+        last_trace.clear()
+        last_trace.update(zip(TRACE_INFO, info), scratch=scratch)
+        # the stamps are read when the spans are, after the capture
+        sp.defer("tail", functools.partial(trace_tail, scratch))
     return acc
 
 

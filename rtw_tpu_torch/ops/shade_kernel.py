@@ -40,6 +40,7 @@ from rtw_tpu_torch.ops.bounce import (BounceResult, PathState, bounce_core,
 from rtw_tpu_torch.ops.shading import resolve_albedo, tex_row
 from rtw_tpu_torch.ops.vec import Vec3
 from rtw_tpu_torch.utils import kernels
+from rtw_tpu_torch.utils import profiling as P
 from rtw_tpu_torch.utils import rng as R
 
 # E's float output rows: origin, direction, throughput, radiance before
@@ -239,98 +240,102 @@ def shade(scene: S.Scene, cfg, tables: ShadeTables | None, of, oi,
     CUDA tensors launch the kernel or raise.  `tables`: the scene's
     `ShadeTables`, built here when None."""
     global shade_launches
-    check_estimator(cfg.estimator)
-    TK.refuse_grad("shade", of=of, U=U, origin=state.origin,
-                   direction=state.direction, throughput=state.throughput,
-                   radiance=state.radiance, prev_pdf=state.prev_pdf)
-    dev = of.device
-    if dev.type == "cpu":
-        return shade_plain(scene, cfg, of, oi, state, depth, U)
-    if tables is None:
-        tables = shade_tables(scene)
-    n = of.shape[1]
-    f32, i32, b8 = torch.float32, torch.int32, torch.bool
-    depth = _depth_plane(depth, n, dev)
-    planes = [("of", of, f32, (TK.HIT_F32, n)), ("oi", oi, i32,
-                                                   (TK.HIT_I32, n)),
-              ("alive", state.alive, b8, None),
-              ("prev_pdf", state.prev_pdf, f32, None),
-              ("prev_diffuse", state.prev_diffuse, b8, None),
-              ("depth", depth, torch.int64, None),
-              ("U", U, f32, (U.shape[0], n)),
-              ("lights", tables.lights, f32, ...),
-              ("light_row", tables.light_row, i32, ...),
-              ("images", tables.images, i32, ...),
-              ("atlas8", tables.atlas8, i32, ...),
-              ("atlas565", tables.atlas565, i32, ...)]
-    for name in ("origin", "direction", "throughput", "radiance"):
-        planes += [(f"{name}.{c}", t, f32, None)
-                   for c, t in zip("xyz", getattr(state, name))]
-    _check("shade", dev, n, planes)
-    if U.shape[0] < R.NUM_FIXED_SLOTS or tex_row(scene, cfg) >= U.shape[0]:
-        raise ValueError(f"shade: U has {U.shape[0]} rows, the bounce reads "
-                         f"{max(R.NUM_FIXED_SLOTS, tex_row(scene, cfg) + 1)}")
-    out_f = torch.empty((OUT_F32, n), dtype=f32, device=dev)
-    out_b = torch.empty((2, n), dtype=b8, device=dev)
-    out_r = torch.empty(n, dtype=i32, device=dev)
-    io = _CShadeIO()
-    io.of, io.oi = of.data_ptr(), oi.data_ptr()
-    for field, v in (("org", state.origin), ("dir", state.direction),
-                     ("thr", state.throughput), ("rad", state.radiance)):
-        getattr(io, field)[:] = [c.data_ptr() for c in v]
-    io.alive, io.prev_pdf = state.alive.data_ptr(), state.prev_pdf.data_ptr()
-    io.prevd, io.depth = state.prev_diffuse.data_ptr(), depth.data_ptr()
-    io.u = U.data_ptr()
-    io.lights, io.light_row = (tables.lights.data_ptr(),
-                               tables.light_row.data_ptr())
-    io.images = tables.images.data_ptr()
-    io.atlas8, io.atlas565 = (tables.atlas8.data_ptr(),
-                              tables.atlas565.data_ptr())
-    io.out_f, io.out_b, io.out_rays = (out_f.data_ptr(), out_b.data_ptr(),
-                                       out_r.data_ptr())
-    env = scene_env(scene, cfg)
-    _call("rtw_shade", dev, io, n, _params(scene, cfg, env, tables))
-    shade_launches += 1
-    nee = env.nee
-    rows, flags = out_f.unbind(0), out_b.unbind(0)
+    with P.span("kernel.shade"):
+        check_estimator(cfg.estimator)
+        TK.refuse_grad("shade", of=of, U=U, origin=state.origin,
+                       direction=state.direction, throughput=state.throughput,
+                       radiance=state.radiance, prev_pdf=state.prev_pdf)
+        dev = of.device
+        if dev.type == "cpu":
+            return shade_plain(scene, cfg, of, oi, state, depth, U)
+        if tables is None:
+            tables = shade_tables(scene)
+        n = of.shape[1]
+        f32, i32, b8 = torch.float32, torch.int32, torch.bool
+        depth = _depth_plane(depth, n, dev)
+        planes = [("of", of, f32, (TK.HIT_F32, n)), ("oi", oi, i32,
+                                                       (TK.HIT_I32, n)),
+                  ("alive", state.alive, b8, None),
+                  ("prev_pdf", state.prev_pdf, f32, None),
+                  ("prev_diffuse", state.prev_diffuse, b8, None),
+                  ("depth", depth, torch.int64, None),
+                  ("U", U, f32, (U.shape[0], n)),
+                  ("lights", tables.lights, f32, ...),
+                  ("light_row", tables.light_row, i32, ...),
+                  ("images", tables.images, i32, ...),
+                  ("atlas8", tables.atlas8, i32, ...),
+                  ("atlas565", tables.atlas565, i32, ...)]
+        for name in ("origin", "direction", "throughput", "radiance"):
+            planes += [(f"{name}.{c}", t, f32, None)
+                       for c, t in zip("xyz", getattr(state, name))]
+        _check("shade", dev, n, planes)
+        if U.shape[0] < R.NUM_FIXED_SLOTS or tex_row(scene, cfg) >= U.shape[0]:
+            need = max(R.NUM_FIXED_SLOTS, tex_row(scene, cfg) + 1)
+            raise ValueError(f"shade: U has {U.shape[0]} rows, the bounce "
+                             f"reads {need}")
+        out_f = torch.empty((OUT_F32, n), dtype=f32, device=dev)
+        out_b = torch.empty((2, n), dtype=b8, device=dev)
+        out_r = torch.empty(n, dtype=i32, device=dev)
+        io = _CShadeIO()
+        io.of, io.oi = of.data_ptr(), oi.data_ptr()
+        for field, v in (("org", state.origin), ("dir", state.direction),
+                         ("thr", state.throughput), ("rad", state.radiance)):
+            getattr(io, field)[:] = [c.data_ptr() for c in v]
+        io.alive = state.alive.data_ptr()
+        io.prev_pdf = state.prev_pdf.data_ptr()
+        io.prevd, io.depth = state.prev_diffuse.data_ptr(), depth.data_ptr()
+        io.u = U.data_ptr()
+        io.lights, io.light_row = (tables.lights.data_ptr(),
+                                   tables.light_row.data_ptr())
+        io.images = tables.images.data_ptr()
+        io.atlas8, io.atlas565 = (tables.atlas8.data_ptr(),
+                                  tables.atlas565.data_ptr())
+        io.out_f, io.out_b, io.out_rays = (out_f.data_ptr(), out_b.data_ptr(),
+                                           out_r.data_ptr())
+        env = scene_env(scene, cfg)
+        _call("rtw_shade", dev, io, n, _params(scene, cfg, env, tables))
+        shade_launches += 1
+        nee = env.nee
+        rows, flags = out_f.unbind(0), out_b.unbind(0)
 
-    def v3(r):
-        return Vec3(*rows[r:r + 3]) if r < O_SORG or nee else None
-    return BounceResult(origin=v3(O_ORG), direction=v3(O_DIR),
-                        throughput=v3(O_THR), radiance=v3(O_RAD),
-                        alive=flags[OB_ALIVE], prev_pdf=rows[O_PPDF],
-                        prev_diffuse=flags[OB_PREVD], rays_lane=out_r,
-                        shadow_org=v3(O_SORG), shadow_dir=v3(O_SDIR),
-                        shadow_tmax=rows[O_STMAX] if nee else None,
-                        nee=v3(O_NEE))
+        def v3(r):
+            return Vec3(*rows[r:r + 3]) if r < O_SORG or nee else None
+        return BounceResult(origin=v3(O_ORG), direction=v3(O_DIR),
+                            throughput=v3(O_THR), radiance=v3(O_RAD),
+                            alive=flags[OB_ALIVE], prev_pdf=rows[O_PPDF],
+                            prev_diffuse=flags[OB_PREVD], rays_lane=out_r,
+                            shadow_org=v3(O_SORG), shadow_dir=v3(O_SDIR),
+                            shadow_tmax=rows[O_STMAX] if nee else None,
+                            nee=v3(O_NEE))
 
 
 def finish(radiance: Vec3, nee: Vec3, shadow_tmax, occluded) -> Vec3:
     """F: the contract of `finish_plain`.  CPU tensors run `finish_plain`;
     CUDA tensors launch the kernel or raise."""
     global finish_launches
-    TK.refuse_grad("finish", radiance=radiance, nee=nee,
-                   shadow_tmax=shadow_tmax)
-    dev = shadow_tmax.device
-    if dev.type == "cpu":
-        return finish_plain(radiance, nee, shadow_tmax, occluded)
-    n = shadow_tmax.shape[0]
-    f32 = torch.float32
-    _check("finish", dev, n,
-           [*((f"radiance.{c}", t, f32, None)
-              for c, t in zip("xyz", radiance)),
-            *((f"nee.{c}", t, f32, None) for c, t in zip("xyz", nee)),
-            ("shadow_tmax", shadow_tmax, f32, None),
-            ("occluded", occluded, torch.bool, None)])
-    out = torch.empty((3, n), dtype=f32, device=dev)
-    io = _CFinishIO()
-    io.rad[:] = [c.data_ptr() for c in radiance]
-    io.nee[:] = [c.data_ptr() for c in nee]
-    io.tmax, io.occluded = shadow_tmax.data_ptr(), occluded.data_ptr()
-    io.out = out.data_ptr()
-    _call("rtw_shade_finish", dev, io, n)
-    finish_launches += 1
-    return Vec3(out[0], out[1], out[2])
+    with P.span("kernel.finish"):
+        TK.refuse_grad("finish", radiance=radiance, nee=nee,
+                       shadow_tmax=shadow_tmax)
+        dev = shadow_tmax.device
+        if dev.type == "cpu":
+            return finish_plain(radiance, nee, shadow_tmax, occluded)
+        n = shadow_tmax.shape[0]
+        f32 = torch.float32
+        _check("finish", dev, n,
+               [*((f"radiance.{c}", t, f32, None)
+                  for c, t in zip("xyz", radiance)),
+                *((f"nee.{c}", t, f32, None) for c, t in zip("xyz", nee)),
+                ("shadow_tmax", shadow_tmax, f32, None),
+                ("occluded", occluded, torch.bool, None)])
+        out = torch.empty((3, n), dtype=f32, device=dev)
+        io = _CFinishIO()
+        io.rad[:] = [c.data_ptr() for c in radiance]
+        io.nee[:] = [c.data_ptr() for c in nee]
+        io.tmax, io.occluded = shadow_tmax.data_ptr(), occluded.data_ptr()
+        io.out = out.data_ptr()
+        _call("rtw_shade_finish", dev, io, n)
+        finish_launches += 1
+        return Vec3(out[0], out[1], out[2])
 
 
 def library() -> ctypes.CDLL:

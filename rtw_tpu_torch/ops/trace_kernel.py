@@ -33,6 +33,7 @@ from rtw_tpu_torch.ops import intersect as I
 from rtw_tpu_torch.ops.shading import ShadeRec, gather_shade
 from rtw_tpu_torch.ops.vec import Vec3
 from rtw_tpu_torch.utils import kernels
+from rtw_tpu_torch.utils import profiling as P
 
 # Props-table column layout (float32 matrix [P, K])
 P9 = list(range(9))
@@ -418,21 +419,23 @@ def trace_rows(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u,
     them).  CPU tensors run `trace_plain` and pack its result into the same
     rows; CUDA tensors launch the kernel or raise."""
     global trace_launches
-    check_plan(scene)
-    _refuse_grad_inputs("trace", scene, o, d, tmax, time, vol_u, tables)
-    if o.x.device.type == "cpu":
-        return _pack_hit(*trace_plain(scene, o, d, tmin, tmax, time, vol_u))
-    rays, tables, p = _launch_inputs(scene, o, d, tmin, tmax, time, vol_u,
-                                     tables)
-    n = rays.shape[1]
-    of = torch.empty((HIT_F32, n), dtype=torch.float32, device=rays.device)
-    oi = torch.empty((HIT_I32, n), dtype=torch.int32, device=rays.device)
-    _call("rtw_trace", rays.device, rays.data_ptr(), vol_u.data_ptr(),
-          tables.props.data_ptr(), tables.plan.data_ptr(),
-          tables.aabbs.data_ptr(), tables.hier.data_ptr(),
-          tables.vol_slot.data_ptr(), of.data_ptr(), oi.data_ptr(), n, p)
-    trace_launches += 1
-    return of, oi
+    with P.span("kernel.trace"):
+        check_plan(scene)
+        _refuse_grad_inputs("trace", scene, o, d, tmax, time, vol_u, tables)
+        if o.x.device.type == "cpu":
+            return _pack_hit(*trace_plain(scene, o, d, tmin, tmax, time,
+                                          vol_u))
+        rays, tables, p = _launch_inputs(scene, o, d, tmin, tmax, time, vol_u,
+                                         tables)
+        n = rays.shape[1]
+        of = torch.empty((HIT_F32, n), dtype=torch.float32, device=rays.device)
+        oi = torch.empty((HIT_I32, n), dtype=torch.int32, device=rays.device)
+        _call("rtw_trace", rays.device, rays.data_ptr(), vol_u.data_ptr(),
+              tables.props.data_ptr(), tables.plan.data_ptr(),
+              tables.aabbs.data_ptr(), tables.hier.data_ptr(),
+              tables.vol_slot.data_ptr(), of.data_ptr(), oi.data_ptr(), n, p)
+        trace_launches += 1
+        return of, oi
 
 
 def trace(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u,
@@ -475,21 +478,22 @@ def occluded_kernel(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time,
     occluded.  CPU tensors run `occluded_plain`; CUDA tensors launch the
     kernel or raise."""
     global occluded_launches
-    check_plan(scene)
-    _refuse_grad_inputs("occluded_kernel", scene, o, d, tmax, time, vol_u,
-                        tables)
-    if o.x.device.type == "cpu":
-        return occluded_plain(scene, o, d, tmin, tmax, time, vol_u)
-    rays, tables, p = _launch_inputs(scene, o, d, tmin, tmax, time, vol_u,
-                                     tables)
-    n = rays.shape[1]
-    out = torch.empty(n, dtype=torch.bool, device=rays.device)
-    _call("rtw_occluded", rays.device, rays.data_ptr(), vol_u.data_ptr(),
-          tables.props.data_ptr(), tables.plan.data_ptr(),
-          tables.aabbs.data_ptr(), tables.hier.data_ptr(),
-          tables.vol_slot.data_ptr(), out.data_ptr(), n, p)
-    occluded_launches += 1
-    return out
+    with P.span("kernel.occluded"):
+        check_plan(scene)
+        _refuse_grad_inputs("occluded_kernel", scene, o, d, tmax, time, vol_u,
+                            tables)
+        if o.x.device.type == "cpu":
+            return occluded_plain(scene, o, d, tmin, tmax, time, vol_u)
+        rays, tables, p = _launch_inputs(scene, o, d, tmin, tmax, time, vol_u,
+                                         tables)
+        n = rays.shape[1]
+        out = torch.empty(n, dtype=torch.bool, device=rays.device)
+        _call("rtw_occluded", rays.device, rays.data_ptr(), vol_u.data_ptr(),
+              tables.props.data_ptr(), tables.plan.data_ptr(),
+              tables.aabbs.data_ptr(), tables.hier.data_ptr(),
+              tables.vol_slot.data_ptr(), out.data_ptr(), n, p)
+        occluded_launches += 1
+        return out
 
 
 def library() -> ctypes.CDLL:
