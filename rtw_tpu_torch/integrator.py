@@ -581,6 +581,34 @@ def trace_wavefront_regen(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
     return accum, rays, stats
 
 
+def decode_tile_pixel(pos, nx: int, ny: int, tile: int = 32):
+    """Closed form of render.tile_permutation: the pixel id rendered by lane
+    `pos` (int32) under the (y//T, x//T, y%T, x%T) lexsort, including
+    partial edge tiles, in a dozen elementwise int32 ops on `pos`'s device.
+    The selects take tensors on both sides, so nothing widens to int64."""
+    t = tile
+    rx, ry = nx % t, ny % t
+    lanes_row = nx * t
+    ty = pos // lanes_row        # partial last row has < lanes_row lanes but
+    rem = pos - ty * lanes_row   # still floors to ny // t for every lane in it
+    tx = rem // (t * t)
+    if ry:                       # the last tile row is ry pixels high
+        last_row = ty >= ny // t
+        tx = torch.where(last_row, rem // (ry * t), tx)
+    if rx:
+        tx = torch.clamp_max(tx, nx // t)
+    local = rem - tx * (t * t)
+    if ry:
+        local = torch.where(last_row, rem - tx * (ry * t), local)
+    iy = local // t
+    ix = local - iy * t
+    if rx:                       # the last tile column is rx pixels wide
+        last_col = tx >= nx // t
+        iy = torch.where(last_col, local // rx, iy)
+        ix = torch.where(last_col, local - iy * rx, ix)
+    return (ty * t + iy) * nx + tx * t + ix
+
+
 def trace_wavefront_queue(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
                           n_samples: int, split=None):
     """Persistent wavefront with a global work queue.

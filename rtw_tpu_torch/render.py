@@ -14,7 +14,8 @@ import time as _time
 import numpy as np
 import torch
 
-from rtw_tpu_torch.integrator import stats_add, stats_zero, trace_wavefront
+from rtw_tpu_torch.integrator import (decode_tile_pixel, stats_add,
+                                     stats_zero, trace_wavefront)
 from rtw_tpu_torch.utils import checkpoint as ckpt
 from rtw_tpu_torch.utils import profiling as P
 
@@ -27,6 +28,16 @@ def tile_permutation(nx: int, ny: int, tile: int = 32) -> np.ndarray:
     y, x = y.ravel(), x.ravel()
     perm = np.lexsort((x % tile, y % tile, x // tile, y // tile))
     return perm.astype(np.int32)
+
+
+def lane_pixels(nx: int, ny: int, n_lanes: int,
+                device: torch.device) -> torch.Tensor:
+    """The pixel each of `n_lanes` lanes renders (int32, on `device`):
+    tile_permutation's order, computed on the device in closed form
+    (`decode_tile_pixel`); lanes past the image's pixels (the last batch's
+    padding) render pixel 0."""
+    pos = torch.arange(n_lanes, dtype=torch.int32, device=device)
+    return torch.where(pos < nx * ny, decode_tile_pixel(pos, nx, ny), 0)
 
 
 def _sync(device: torch.device) -> None:
@@ -56,10 +67,10 @@ def render(scene, cfg, seed: int | None = None, verbose: bool = False,
 
     Under a torch.profiler capture the call records its spans
     (utils/profiling.py): `render` around the whole call, `render.setup`,
-    a `sched.*` span for each scheduler call, `render.assemble`, and
-    `render.wait` around each place the host waits for the card (the
-    permutation's copy inside the assembly, the ray count's read that
-    ends `wall_seconds`)."""
+    `render.pixels` inside it (the lane -> pixel map), a `sched.*` span for
+    each scheduler call, `render.assemble`, and `render.wait` around the
+    one place the host waits for the card (the ray count's read that ends
+    `wall_seconds`)."""
     with P.span("render"):
         if seed is None:
             seed = cfg.seed
@@ -71,10 +82,8 @@ def render(scene, cfg, seed: int | None = None, verbose: bool = False,
             chunk = cfg.resolved_spp_chunk(
                 checkpointing=checkpoint_path is not None)
             n_tiles = math.ceil(npix / batch)
-            pad = n_tiles * batch - npix
-            perm = tile_permutation(cfg.nx, cfg.ny)
-            pixel_idx = torch.as_tensor(
-                np.concatenate([perm, np.zeros(pad, np.int32)]), device=dev)
+            with P.span("render.pixels"):
+                pixel_idx = lane_pixels(cfg.nx, cfg.ny, n_tiles * batch, dev)
             accums = [torch.zeros((batch, 3), dtype=torch.float32, device=dev)
                       for _ in range(n_tiles)]
             rays = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -123,12 +132,8 @@ def render(scene, cfg, seed: int | None = None, verbose: bool = False,
 
         with P.span("render.assemble"):
             lanes = torch.cat(accums, dim=0)[:npix]
-            img = torch.empty_like(lanes)
-            with P.span("render.wait"):
-                # the permutation's copy from pageable host memory: the
-                # host waits for the card's queue (the render's kernels)
-                img[torch.as_tensor(perm, dtype=torch.int64,
-                                    device=dev)] = lanes
+            img = torch.empty_like(lanes).index_copy_(
+                0, pixel_idx[:npix].long(), lanes)
             img = img / float(np.float32(cfg.spp))
         with P.span("render.wait"):
             total_rays = int(rays.item())          # syncs the device

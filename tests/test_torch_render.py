@@ -1,6 +1,8 @@
 """Whole renders of the port against the reference goldens, and the port's
 independence from JAX."""
 
+import importlib
+import math
 import os
 import subprocess
 import sys
@@ -12,13 +14,18 @@ import torch
 from rtw_tpu.render import tile_permutation as j_tile_permutation
 from rtw_tpu.render import to_srgb8 as j_to_srgb8
 import rtw_tpu_torch as rtt
-from rtw_tpu_torch.render import tile_permutation, to_srgb8
+from rtw_tpu_torch import integrator as TI
+from rtw_tpu_torch.integrator import decode_tile_pixel
+from rtw_tpu_torch.render import lane_pixels, tile_permutation, to_srgb8
 
 from tests.test_goldens import CFG, EXPECTED, GOLDEN_DIR
 
 # The suite runs in several worker processes on shared cores: one
 # intra-op thread each keeps torch's thread pools from oversubscribing them.
 torch.set_num_threads(1)
+
+# the module: the package's `render` attribute is the function
+TRN = importlib.import_module("rtw_tpu_torch.render")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -99,6 +106,73 @@ def test_tile_permutation_and_srgb_match_reference():
     np.testing.assert_array_equal(got, want)
     ref = j_to_srgb8(lin, 2.0)
     assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("nx,ny", [(64, 64), (96, 32), (100, 56), (80, 48),
+                                   (50, 40), (1200, 600), (33, 35),
+                                   (800, 800), (37, 53)])
+def test_decode_tile_pixel_matches_the_reference_permutation(nx, ny):
+    """The closed form is the reference's lexsort, partial edge tiles
+    included, in int32."""
+    got = decode_tile_pixel(torch.arange(nx * ny, dtype=torch.int32), nx, ny)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), j_tile_permutation(nx, ny))
+
+
+def test_lane_pixels_pad_the_last_batch_with_pixel_0():
+    """render()'s lane map at a ray batch that does not divide the image:
+    the permutation on the image's lanes, pixel 0 on the padding."""
+    cfg = rtt.RenderConfig(nx=70, ny=45, ray_batch=1000)
+    npix, batch = cfg.num_pixels, cfg.resolved_ray_batch()
+    n_lanes = math.ceil(npix / batch) * batch
+    assert n_lanes > npix
+    pix = lane_pixels(cfg.nx, cfg.ny, n_lanes, torch.device("cpu"))
+    assert pix.dtype == torch.int32 and pix.shape == (n_lanes,)
+    np.testing.assert_array_equal(pix[:npix].numpy(),
+                                  j_tile_permutation(cfg.nx, cfg.ny))
+    assert (pix[npix:] == 0).all()
+
+
+def _render_by_host_permutation(scene, cfg):
+    """render()'s loop and assembly with the lane map taken from the numpy
+    permutation and scattered through it, as before the closed form."""
+    npix, batch = cfg.num_pixels, cfg.resolved_ray_batch()
+    n_tiles = math.ceil(npix / batch)
+    perm = tile_permutation(cfg.nx, cfg.ny)
+    pix = torch.as_tensor(np.concatenate(
+        [perm, np.zeros(n_tiles * batch - npix, np.int32)]))
+    chunk = cfg.resolved_spp_chunk(checkpointing=False)
+    accums = [torch.zeros((batch, 3)) for _ in range(n_tiles)]
+    for s0 in range(0, cfg.spp, chunk):
+        for ti in range(n_tiles):
+            acc, _, _ = TI.trace_wavefront(
+                scene, cfg, pix[ti * batch:(ti + 1) * batch], cfg.seed, s0,
+                min(chunk, cfg.spp - s0))
+            accums[ti] = accums[ti] + acc.stack()
+    img = torch.empty((npix, 3))
+    img[torch.as_tensor(perm, dtype=torch.int64)] = torch.cat(accums)[:npix]
+    return (img / float(np.float32(cfg.spp))).reshape(cfg.ny, cfg.nx, 3)
+
+
+@pytest.mark.parametrize("path", ["mega", "queue"])
+def test_render_takes_no_host_permutation(monkeypatch, path):
+    """render() never calls the numpy sort, and its image is bit-equal to
+    the one assembled through it; several padded batches, two chunks."""
+    if path == "queue":
+        monkeypatch.setattr(TI, "_split_backend", lambda cfg, scene: True)
+        sid, nx, ny, opts = 2, 16, 8, dict(scheduler="queue", ray_batch=48)
+    else:
+        sid, nx, ny, opts = 0, 16, 16, dict(backend="mega", ray_batch=96)
+    scene = rtt.build_scene(sid, nx, ny, device="cpu")
+    cfg = rtt.RenderConfig(nx=nx, ny=ny, spp=2, spp_chunk=1, max_depth=4,
+                           scene_id=sid, **opts)
+    want = _render_by_host_permutation(scene, cfg)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("render() sorted the permutation on the host")
+    monkeypatch.setattr(TRN, "tile_permutation", refuse)
+    got = rtt.render(scene, cfg)
+    assert torch.equal(got, want)
 
 
 def test_render_image_is_the_encoded_render():

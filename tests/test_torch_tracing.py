@@ -26,18 +26,19 @@ torch.set_num_threads(1)
 # CPU branches here (A's `mega.launch` is the card's only)
 QUEUE_TREE = {
     ("render", None), ("render.setup", "render"),
+    ("render.pixels", "render.setup"),
     ("sched.queue", "render"), ("tables", "sched.queue"),
     ("queue.iteration", "sched.queue"), ("bounce.draw", "queue.iteration"),
     ("kernel.trace", "queue.iteration"), ("kernel.shade", "queue.iteration"),
     ("kernel.occluded", "queue.iteration"),
     ("kernel.finish", "queue.iteration"), ("queue.flush", "queue.iteration"),
     ("queue.regen", "queue.iteration"), ("queue.wait", "sched.queue"),
-    ("render.assemble", "render"), ("render.wait", "render.assemble"),
-    ("render.wait", "render")}
+    ("render.assemble", "render"), ("render.wait", "render")}
 MEGA_TREE = {
-    ("render", None), ("render.setup", "render"), ("sched.mega", "render"),
+    ("render", None), ("render.setup", "render"),
+    ("render.pixels", "render.setup"), ("sched.mega", "render"),
     ("tables", "sched.mega"), ("render.assemble", "render"),
-    ("render.wait", "render.assemble"), ("render.wait", "render")}
+    ("render.wait", "render")}
 
 
 @pytest.fixture(autouse=True)
