@@ -71,11 +71,12 @@ def reference_values(ref_scene, ref_cfg, kept: list, counts=None,
                                counts=counts, round_to=round_to)
 
 
-def judge(numbers: dict, limits: dict) -> bool:
-    """Every number within its limit (each cell gives every limit)."""
-    return all(numbers[k] <= limits[k] for k in NUMBERS)
+def judge(numbers: dict, limits: dict, names=NUMBERS) -> bool:
+    """Every number of `names` within its limit (each cell gives every
+    limit)."""
+    return all(numbers[k] <= limits[k] for k in names)
 
 
-def report_lines(numbers: dict, limits: dict) -> list[str]:
+def report_lines(numbers: dict, limits: dict, names=NUMBERS) -> list[str]:
     return [f"check {k} {numbers[k]!r} limit {limits[k]!r}"
-            for k in NUMBERS]
+            for k in names]

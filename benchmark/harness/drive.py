@@ -1,7 +1,9 @@
 """One run of one cell: set-up, the measured window, the traced slice, the
 check against the plain reference, and the result line.
 
-The order of a run:
+The mix's `call` picks the run: a render mix's is below; a gradient mix's
+(`"call": "grad_step"`) is `harness/grad.py`'s, in the same order.  The
+order of a render run:
 
 1. the look for the cards the cell asks for (no card: exit non-zero, no
    result);
@@ -79,18 +81,49 @@ def _check_device(cell: spec.Cell) -> None:
                        f"for {cell.chips}")
 
 
+def device_info(cell: spec.Cell, on_card: bool, slice_) -> dict:
+    """The result line's `device`: the peak is read now."""
+    info = {"platform": "gpu" if on_card else "cpu",
+            "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
+            "count": cell.chips,
+            "memory_peak_bytes": (int(torch.cuda.max_memory_allocated())
+                                  if on_card else 0)}
+    if slice_ is not None:
+        info.update(busy_s=slice_.busy_s, window_s=slice_.window_s)
+    return info
+
+
+def read_metrics(cell: spec.Cell, run: Run, trace: bool) -> dict:
+    """The cell's end-to-end metrics (`--trace 0`) or per-layer metrics
+    (`--trace 1`), each by its reader; a metric whose reader finds nothing
+    is left out."""
+    metrics = {}
+    for m in (cell.per_layer if trace else cell.end_to_end):
+        value = spec.metric_reader(m.name, cell.root)(run)
+        if value is not None:
+            metrics[m.name] = {"value": value, "unit": m.unit}
+    return metrics
+
+
 def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
              t_start: float, device: str = "cuda", render=None,
              fields: dict | None = None, control=None,
-             log=sys.stderr) -> dict:
+             log=sys.stderr, make_step=None) -> dict:
     """One run; returns the result dict (the line's keys, `checks` last).
     `render` replaces the program's `render` (tests plant faults there);
     `fields` replaces the cell's `RenderConfig` fields (tests run small);
     `control` (a dtype) also judges the reference computed in it at the
     same pixels, under `control_checks` (the calibration's, never a
-    benchmark run's)."""
+    benchmark run's).  A gradient mix's run is `harness/grad.py`'s, with
+    `make_step` in place of the program's step function."""
     if torch.device(device).type == "cuda":
         _check_device(cell)
+    if traffic.call_kind(cell.traffic) == "grad_step":
+        from harness import grad
+
+        return grad.run_cell(cell, seed, seconds, trace, t_start, device,
+                             make_step=make_step, fields=fields,
+                             control=control, log=log)
     import rtw_tpu_torch as rtt
 
     render = render or rtt.render
@@ -138,15 +171,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         run.slice = tr.profile_calls(one, int(tcfg["trace_renders"]),
                                      run.samples_per_call)
     on_card = torch.device(device).type == "cuda"
-    dev_info = {"platform": "gpu" if on_card else "cpu",
-                "kind": (torch.cuda.get_device_name(0) if on_card
-                         else "cpu"),
-                "count": cell.chips,
-                "memory_peak_bytes": (int(torch.cuda.max_memory_allocated())
-                                      if on_card else 0)}
-    if run.slice is not None:
-        dev_info.update(busy_s=run.slice.busy_s,
-                        window_s=run.slice.window_s)
+    dev_info = device_info(cell, on_card, run.slice)
     rays = sum(c.rays for c in calls)
     print(f"info {cell.name}: {len(calls)} calls in {window_s!r} s, "
           f"program rays {rays} ({rays / window_s / 1e6!r} Mrays/s over "
@@ -164,22 +189,27 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
           f"{time.perf_counter() - t_ref!r} s over "
           f"{counts['paths']} paths", file=log, flush=True)
     run.counts = counts
+    return result_line(cell, run, trace, numbers, check.NUMBERS,
+                       control_numbers, dev_info, log)
+
+
+def result_line(cell: spec.Cell, run: Run, trace: bool, numbers: dict,
+                names: tuple, control_numbers, dev_info: dict,
+                log=sys.stderr) -> dict:
+    """The result dict of a run of either call, `checks` last: the
+    numbers `names` against the cell's limits, also printed as the last
+    lines of `log`."""
     limits = {k: float(v) for k, v in cell.notes["limits"].items()}
-    metrics = {}
-    for m in (cell.per_layer if trace else cell.end_to_end):
-        value = spec.metric_reader(m.name, cell.root)(run)
-        if value is not None:
-            metrics[m.name] = {"value": value, "unit": m.unit}
-    result = {"correct": check.judge(numbers, limits),
-              "attempted": len(calls), "failed": 0, "metrics": metrics,
-              "device": dev_info}
+    result = {"correct": check.judge(numbers, limits, names),
+              "attempted": len(run.calls), "failed": 0,
+              "metrics": read_metrics(cell, run, trace), "device": dev_info}
     if run.slice is not None:
         result["breakdown"] = run.slice.breakdown()
     if control_numbers is not None:
         result["control_checks"] = control_numbers
     result["checks"] = {k: {"value": numbers[k], "limit": limits[k]}
-                        for k in check.NUMBERS}
-    for line in check.report_lines(numbers, limits):
+                        for k in names}
+    for line in check.report_lines(numbers, limits, names):
         print(line, file=log, flush=True)
     return result
 

@@ -14,7 +14,13 @@ the host operations with theirs.  From them:
 - `device_ops`: the summed time of each device operation's name;
 - `idle_by_host`: each gap between device operations, named by the
   innermost host operation that covers its middle ("host python" where
-  none does), summed by name.
+  none does), summed by name;
+- `backward_s`: the summed time of the device operations launched from
+  inside torch autograd's backward: each device operation is matched to
+  its launch through the profiler's correlation ids (the runtime call
+  that launched it, or else the host operation it is linked to), and the
+  launch lies inside an `autograd::engine::evaluate_function` host event;
+  None where the slice holds no such event (no backward ran).
 """
 
 from __future__ import annotations
@@ -30,21 +36,63 @@ NAME_CHARS = 120
 NAME_NOISE = ("void ", "at::native::", "(anonymous namespace)::", "std::")
 # host events looked at back from a gap's middle for the innermost cover
 SCAN_BACK = 64
+# the host event of one node of autograd's backward
+BACKWARD = "autograd::engine::evaluate_function"
 
 
 def _events(prof):
-    """(device [(start_ns, end_ns, name)], host [(start_ns, end_ns,
-    name)]) from the profiler's raw events."""
+    """From the profiler's raw events, in one pass: (device [(start_ns,
+    end_ns, name)], host [(start_ns, end_ns, name)], the backward's
+    arguments).  The backward's: (device [(correlation id, linked
+    correlation id, seconds)], launches {correlation id: start_ns}, host
+    operations {correlation id: start_ns}, backward [(start_ns, end_ns,
+    name)]).  A host event linked to an operation (linked id above 0) is
+    a runtime or driver call, and its correlation id is that of the
+    device operations it launched; the others are operations."""
     dev, host = [], []
+    corr, launches, ops, back = [], {}, {}, []
     cuda = torch.autograd.DeviceType.CUDA
     for e in prof.profiler.kineto_results.events():
         start = e.start_ns()
-        end = start + e.duration_ns()
-        if end <= start:
+        dur = e.duration_ns()
+        if e.device_type() == cuda:
+            corr.append((e.correlation_id(), e.linked_correlation_id(),
+                         dur * 1e-9))
+            if dur > 0:
+                dev.append((start, start + dur, e.name()))
             continue
-        row = (start, end, e.name())
-        (dev if e.device_type() == cuda else host).append(row)
-    return sorted(dev), sorted(host)
+        name = e.name()
+        if dur > 0:
+            host.append((start, start + dur, name))
+        if e.linked_correlation_id() > 0:
+            launches[e.correlation_id()] = start
+        else:
+            ops[e.correlation_id()] = start
+            if name.startswith(BACKWARD):
+                back.append((start, start + dur, name))
+    dev.sort()
+    host.sort()
+    return dev, host, (corr, launches, ops, back)
+
+
+def backward_s(dev, launches, ops, back):
+    """The seconds of the device operations `dev` whose launch (the
+    launch with their correlation id, or else the host operation their
+    linked id names) lies inside one of the `back` intervals; None without
+    a backward interval or a device operation."""
+    if not back or not dev:
+        return None
+    merged = _union(sorted(back))
+    starts = [s for s, _ in merged]
+    total = 0.0
+    for corr, linked, seconds in dev:
+        at = launches.get(corr, ops.get(linked))
+        if at is None:
+            continue
+        i = bisect.bisect_right(starts, at) - 1
+        if i >= 0 and at <= merged[i][1]:
+            total += seconds
+    return total
 
 
 def _union(intervals):
@@ -65,7 +113,7 @@ class Slice:
         self.window_s = window_s
         self.renders = renders
         self.samples = samples
-        self.device, host = _events(prof)
+        self.device, host, backward = _events(prof)
         merged = _union(self.device)
         self.busy_s = sum(e - s for s, e in merged) * 1e-9
         self.n_device_ops = len(self.device)
@@ -75,6 +123,7 @@ class Slice:
             self.device_ops[key] = self.device_ops.get(key, 0.0) + (
                 e - s) * 1e-9
         self.idle_by_host = _label_gaps(merged, host)
+        self.backward_s = backward_s(*backward)
 
     def device_s(self, pattern: str) -> float:
         rx = re.compile(pattern)

@@ -1,8 +1,13 @@
-"""The one traffic generator: a closed loop of renders, each call's inputs
+"""The one traffic generator: a closed loop of calls, each call's inputs
 drawn from the run's seed.
 
 A mix (`traffic/<name>.json`) gives the parameters:
 
+- `call`: what each call is: `"render"` (the default, a mix without the
+  key), a `render()` of the image; `"grad_step"`, a loss-and-gradient
+  step and its update, whose further keys `harness/grad.py` lists (it
+  takes `warmup_calls`, `max_calls`, `check` and `trace_renders` as
+  below, `check.renders` judged steps with no `pixels`);
 - `spp`: samples per pixel of every call;
 - `options`: further `RenderConfig` fields of every call (for example
   `{"rng": "tea"}`), the same for the program and the reference;
@@ -26,6 +31,15 @@ import numpy as np
 
 SEED_BITS = 40          # a run seed up to 2^40 (seeds beyond 2^31 occur)
 CALL_BITS = 20          # calls per run below 2^20
+CALLS = ("render", "grad_step")
+
+
+def call_kind(mix: dict) -> str:
+    """The mix's `call` (`"render"` where it gives none)."""
+    kind = mix.get("call", "render")
+    if kind not in CALLS:
+        raise ValueError(f"unknown call {kind!r} (have {CALLS})")
+    return kind
 
 
 def call_seed(seed: int, k: int) -> int:

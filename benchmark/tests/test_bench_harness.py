@@ -113,18 +113,32 @@ def test_a_full_check_fits_with_24_cells():
 def test_every_cell_loads(cell):
     """Each cell's configuration, mix and notes parse, give a render
     configuration, report setup_s, another end-to-end metric and a
-    per-layer metric, and every metric has its reader."""
+    per-layer metric, and every metric has its reader.  A render cell's
+    configuration changes and assumes nothing; a gradient cell's lists in
+    its file the keys `BENCHMARK.json` says it changed, and what it
+    assumed; each cell's limits are those of its call's check."""
     import plainref.config
+    from harness import check, grad
 
     c = spec.load_cell(cell)
-    fields = traffic.render_fields(c.config, c.traffic)
+    entry = {e["name"]: e for e in _bench()["configs"]}[
+        {w["name"]: w for w in _bench()["workloads"]}[cell]["config"]]
+    if traffic.call_kind(c.traffic) == "render":
+        fields = traffic.render_fields(c.config, c.traffic)
+        assert c.config["reduced"] == [] and c.config["assumed"] == []
+        numbers = check.NUMBERS
+    else:
+        fields = grad.grad_fields(c.config, c.traffic)
+        assert fields["differentiable"] and c.config["assumed"]
+        assert set(c.config["reduced"]) <= set(c.config)
+        numbers = grad.NUMBERS
     plainref.config.RenderConfig(**fields)
-    assert c.config["reduced"] == [] and c.config["assumed"] == []
+    assert c.config["reduced"] == entry["reduced"]
     e2e = {m.name for m in c.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2 and c.per_layer
     for m in c.end_to_end + c.per_layer:
         assert callable(spec.metric_reader(m.name))
-    assert set(c.notes["limits"]) >= {"rel_l1", "off_share", "nonfinite"}
+    assert set(c.notes["limits"]) >= set(numbers)
     assert c.notes["limits"]["nonfinite"] == 0
     for key in ("why", "seeds", "window"):
         assert key in c.notes, key
@@ -200,6 +214,65 @@ def test_new_config_mix_cell_and_metric_are_only_files(tmp_path):
     for rel in files:
         os.remove(os.path.join(bench_copy, rel))
     os.remove(os.path.join(bench_copy, "metrics", "throwaway_ms.x.py"))
+    assert _tree_digest(bench_copy) == before
+
+
+def test_new_gradient_mix_is_only_files(tmp_path):
+    """A throwaway gradient configuration, mix and cell added as files and
+    entries to a copy: the harness runs the gradient call from them, and
+    no file that was there changes."""
+    root = str(tmp_path)
+    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), root)
+    shutil.copytree(BENCH_DIR, os.path.join(root, "benchmark"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench_copy = os.path.join(root, "benchmark")
+    before = _tree_digest(bench_copy)
+
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        b = json.load(f)
+    b["configs"].append({"name": "throwaway", "source": "https://example.org",
+                         "file": "benchmark/configs/throwaway.json",
+                         "reduced": [], "why": "a test"})
+    b["workloads"].append({"name": "throwaway-grad", "config": "throwaway",
+                           "traffic": "throwaway-grad-mix", "chips": 1,
+                           "why": "a test"})
+    files = {
+        "configs/throwaway.json": {"name": "throwaway", "scene_id": 5,
+                                   "nx": 12, "ny": 8, "max_depth": 3,
+                                   "differentiable": True, "remat": True,
+                                   "fit_row": 1, "reduced": [],
+                                   "assumed": ["a test"]},
+        "traffic/throwaway-grad-mix.json": {
+            "call": "grad_step", "n_samples": 2, "spp_chunk": 1,
+            "fit": {"start": [0.1, 0.2, 0.3], "lr": 0.5, "decay": 0.9,
+                    "decay_after": 0},
+            "warmup_calls": 1, "max_calls": 2, "check": {"renders": 1},
+            "trace_renders": 1},
+        "cells/throwaway-grad.json": {
+            "why": "a test", "seeds": [], "window": "none",
+            "limits": {"loss_rel_err": 1e-4, "tex_grad_rel_l1": 1e-3,
+                       "cam_grad_rel_l1": 1e-3, "nonfinite": 0}},
+    }
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(b, f)
+    for rel, doc in files.items():
+        with open(os.path.join(bench_copy, rel), "w") as f:
+            json.dump(doc, f)
+
+    import io
+    import time
+
+    from harness import drive
+
+    c = spec.load_cell("throwaway-grad", root=root)
+    r = drive.run_cell(c, 78, 0.0, False, time.perf_counter(), device="cpu",
+                       log=io.StringIO())
+    assert r["correct"] and r["attempted"] == 1, r["checks"]
+    assert set(r["metrics"]) == {"msamples_per_s", "setup_s"}
+    assert list(r["checks"]) == ["loss_rel_err", "tex_grad_rel_l1",
+                                 "cam_grad_rel_l1", "nonfinite"]
+    for rel in files:
+        os.remove(os.path.join(bench_copy, rel))
     assert _tree_digest(bench_copy) == before
 
 
