@@ -2,7 +2,8 @@
 check against the plain reference, and the result line.
 
 The mix's `call` picks the run: a render mix's is below; a gradient mix's
-(`"call": "grad_step"`) is `harness/grad.py`'s, in the same order.  The
+(`"call": "grad_step"`) is `harness/grad.py`'s and a denoised frame's
+(`"call": "render_denoised"`) `harness/denoised.py`'s, in the same order.  The
 order of a render run:
 
 1. the look for the cards the cell asks for (no card: exit non-zero, no
@@ -115,15 +116,23 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     `control` (a dtype) also judges the reference computed in it at the
     same pixels, under `control_checks` (the calibration's, never a
     benchmark run's).  A gradient mix's run is `harness/grad.py`'s, with
-    `make_step` in place of the program's step function."""
+    `make_step` in place of the program's step function; a denoised
+    frame's is `harness/denoised.py`'s."""
     if torch.device(device).type == "cuda":
         _check_device(cell)
-    if traffic.call_kind(cell.traffic) == "grad_step":
+    kind = traffic.call_kind(cell.traffic)
+    if kind == "grad_step":
         from harness import grad
 
         return grad.run_cell(cell, seed, seconds, trace, t_start, device,
                              make_step=make_step, fields=fields,
                              control=control, log=log)
+    if kind == "render_denoised":
+        from harness import denoised
+
+        return denoised.run_cell(cell, seed, seconds, trace, t_start,
+                                 device, render=render, fields=fields,
+                                 control=control, log=log)
     import rtw_tpu_torch as rtt
 
     render = render or rtt.render

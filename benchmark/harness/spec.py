@@ -7,8 +7,9 @@ the name that `BENCHMARK.json` gives it:
 - a configuration: the `file` of its `configs` entry (JSON: the scene, the
   image size, the depth, its source);
 - a traffic mix: `traffic/<traffic>.json` (the call each step makes:
-  `render`, the default, or `grad_step`; the samples per pixel, the
-  options, how many calls the check and the traced slice take);
+  `render`, the default, `grad_step` or `render_denoised`; the samples
+  per pixel, the options, how many calls the check and the traced slice
+  take);
 - a cell: `cells/<workload>.json` (why it exists, the limits of its
   correctness check with the readings they were set from, its seeds);
 - a metric: `metrics/<name>.py`, a module with `read(run)` that returns

@@ -20,7 +20,13 @@ the host operations with theirs.  From them:
   its launch through the profiler's correlation ids (the runtime call
   that launched it, or else the host operation it is linked to), and the
   launch lies inside an `autograd::engine::evaluate_function` host event;
-  None where the slice holds no such event (no backward ran).
+  None where the slice holds no such event (no backward ran);
+- `marked`: by the name of each of the benchmark's own markers (a
+  harness's `record_function` range, named `bench.*`), (seconds, count)
+  of the device operations launched inside its ranges, matched as the
+  backward's are.  The profiler mirrors such a range on the device's
+  timeline as a device event of the same name, which is no device work:
+  it is left out of every device reading.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ NAME_NOISE = ("void ", "at::native::", "(anonymous namespace)::", "std::")
 SCAN_BACK = 64
 # the host event of one node of autograd's backward
 BACKWARD = "autograd::engine::evaluate_function"
+# the prefix of the benchmark's own profiler markers
+MARKER = "bench."
 
 
 def _events(prof):
@@ -56,6 +64,8 @@ def _events(prof):
         start = e.start_ns()
         dur = e.duration_ns()
         if e.device_type() == cuda:
+            if e.name().startswith(MARKER):
+                continue
             corr.append((e.correlation_id(), e.linked_correlation_id(),
                          dur * 1e-9))
             if dur > 0:
@@ -75,16 +85,16 @@ def _events(prof):
     return dev, host, (corr, launches, ops, back)
 
 
-def backward_s(dev, launches, ops, back):
-    """The seconds of the device operations `dev` whose launch (the
+def launched_inside(dev, launches, ops, ranges):
+    """(seconds, count) of the device operations `dev` whose launch (the
     launch with their correlation id, or else the host operation their
-    linked id names) lies inside one of the `back` intervals; None without
-    a backward interval or a device operation."""
-    if not back or not dev:
+    linked id names) lies inside one of the `ranges` [(start_ns, end_ns,
+    name)]; None without a range or a device operation."""
+    if not ranges or not dev:
         return None
-    merged = _union(sorted(back))
+    merged = _union(sorted(ranges))
     starts = [s for s, _ in merged]
-    total = 0.0
+    total, count = 0.0, 0
     for corr, linked, seconds in dev:
         at = launches.get(corr, ops.get(linked))
         if at is None:
@@ -92,7 +102,16 @@ def backward_s(dev, launches, ops, back):
         i = bisect.bisect_right(starts, at) - 1
         if i >= 0 and at <= merged[i][1]:
             total += seconds
-    return total
+            count += 1
+    return total, count
+
+
+def backward_s(dev, launches, ops, back):
+    """The seconds of the device operations `dev` launched inside one of
+    the `back` intervals (`launched_inside`); None without a backward
+    interval or a device operation."""
+    got = launched_inside(dev, launches, ops, back)
+    return None if got is None else got[0]
 
 
 def _union(intervals):
@@ -113,7 +132,7 @@ class Slice:
         self.window_s = window_s
         self.renders = renders
         self.samples = samples
-        self.device, host, backward = _events(prof)
+        self.device, host, (corr, launches, ops, back) = _events(prof)
         merged = _union(self.device)
         self.busy_s = sum(e - s for s, e in merged) * 1e-9
         self.n_device_ops = len(self.device)
@@ -123,7 +142,11 @@ class Slice:
             self.device_ops[key] = self.device_ops.get(key, 0.0) + (
                 e - s) * 1e-9
         self.idle_by_host = _label_gaps(merged, host)
-        self.backward_s = backward_s(*backward)
+        self.backward_s = backward_s(corr, launches, ops, back)
+        self.marked = {}
+        for name in {h[2] for h in host if h[2].startswith(MARKER)}:
+            self.marked[name] = launched_inside(
+                corr, launches, ops, [h for h in host if h[2] == name])
 
     def device_s(self, pattern: str) -> float:
         rx = re.compile(pattern)

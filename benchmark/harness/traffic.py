@@ -8,6 +8,8 @@ A mix (`traffic/<name>.json`) gives the parameters:
   step and its update, whose further keys `harness/grad.py` lists (it
   takes `warmup_calls`, `max_calls`, `check` and `trace_renders` as
   below, `check.renders` judged steps with no `pixels`);
+  `"render_denoised"`, a `render()` of the frame and the program's
+  denoiser over it (`harness/denoised.py`), which takes the keys below;
 - `spp`: samples per pixel of every call;
 - `options`: further `RenderConfig` fields of every call (for example
   `{"rng": "tea"}`), the same for the program and the reference;
@@ -31,7 +33,7 @@ import numpy as np
 
 SEED_BITS = 40          # a run seed up to 2^40 (seeds beyond 2^31 occur)
 CALL_BITS = 20          # calls per run below 2^20
-CALLS = ("render", "grad_step")
+CALLS = ("render", "grad_step", "render_denoised")
 
 
 def call_kind(mix: dict) -> str:

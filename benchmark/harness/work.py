@@ -90,3 +90,31 @@ def query_bound_s(w: dict, n_vol: int) -> float:
     ops = sum(n * (t + HIT_OPS)
               for n, t in zip(w["hits_by_prim"], PRIM_TEST_OPS))
     return bound_s(n_bytes, ops)
+
+
+# The denoised frame's filter (`plainref/denoise.py`): f32 operations of
+# one à-trous tap at one pixel: the Weber scale (sum of both colours, 6),
+# the colour distance over its square (10), its weight (the exponent,
+# the exponential, the B3 product: 3), the albedo's and the normal's
+# distance, exponential and product (11 each), the weighted colour and
+# the weight accumulated (7)
+ATROUS_TAP_OPS = 48
+ATROUS_TAPS = 25
+# a pass's weighted mean (3 divisions) at each pixel; the display
+# transform before the first (a clamp and a power a channel)
+ATROUS_PASS_OPS = 3
+DISPLAY_OPS = 9
+# a centre-of-pixel ray: s, t and the direction
+GBUFFER_RAY_OPS = 19
+
+
+def denoise_bound_s(hits_by_prim, n_pixels: int, iterations: int) -> float:
+    """The bound of one frame's denoise: the first-hit G-buffer (a ray a
+    pixel, each hit tested against its winner) and `iterations` à-trous
+    passes of every tap at every pixel; the linear frame read once and
+    the denoised frame written once."""
+    ops = n_pixels * (GBUFFER_RAY_OPS + DISPLAY_OPS + iterations * (
+        ATROUS_TAPS * ATROUS_TAP_OPS + ATROUS_PASS_OPS))
+    ops += sum(n * (t + HIT_OPS) for n, t in zip(hits_by_prim,
+                                                 PRIM_TEST_OPS))
+    return bound_s(2 * n_pixels * PIXEL_BYTES, ops)

@@ -116,14 +116,15 @@ def test_every_cell_loads(cell):
     per-layer metric, and every metric has its reader.  A render cell's
     configuration changes and assumes nothing; a gradient cell's lists in
     its file the keys `BENCHMARK.json` says it changed, and what it
-    assumed; each cell's limits are those of its call's check."""
+    assumed; each cell's limits are those of its call's check (a denoised
+    frame's are a render's)."""
     import plainref.config
     from harness import check, grad
 
     c = spec.load_cell(cell)
     entry = {e["name"]: e for e in _bench()["configs"]}[
         {w["name"]: w for w in _bench()["workloads"]}[cell]["config"]]
-    if traffic.call_kind(c.traffic) == "render":
+    if traffic.call_kind(c.traffic) in ("render", "render_denoised"):
         fields = traffic.render_fields(c.config, c.traffic)
         assert c.config["reduced"] == [] and c.config["assumed"] == []
         numbers = check.NUMBERS
@@ -142,6 +143,13 @@ def test_every_cell_loads(cell):
     assert c.notes["limits"]["nonfinite"] == 0
     for key in ("why", "seeds", "window"):
         assert key in c.notes, key
+
+
+def _report(bench: dict, metric: str, cell: str) -> None:
+    """Add `cell` to the cells that `metric` lists, as a later cell's
+    entry does."""
+    m = {e["name"]: e for e in bench["end_to_end"] + bench["per_layer"]}
+    m[metric]["workloads"].append(cell)
 
 
 def test_new_config_mix_cell_and_metric_are_only_files(tmp_path):
@@ -163,6 +171,7 @@ def test_new_config_mix_cell_and_metric_are_only_files(tmp_path):
     b["workloads"].append({"name": "throwaway-cell", "config": "throwaway",
                            "traffic": "throwaway-mix", "chips": 1,
                            "why": "a test"})
+    _report(b, "msamples_per_s", "throwaway-cell")
     b["per_layer"].append({"name": "throwaway_ms.x", "unit": "ms",
                            "better": "lower", "source": "host_clock",
                            "layer": "driver (render.py)",
@@ -236,6 +245,7 @@ def test_new_gradient_mix_is_only_files(tmp_path):
     b["workloads"].append({"name": "throwaway-grad", "config": "throwaway",
                            "traffic": "throwaway-grad-mix", "chips": 1,
                            "why": "a test"})
+    _report(b, "msamples_per_s", "throwaway-grad")
     files = {
         "configs/throwaway.json": {"name": "throwaway", "scene_id": 5,
                                    "nx": 12, "ny": 8, "max_depth": 3,
