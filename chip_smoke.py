@@ -25,9 +25,7 @@ the port's paths through `render`:
   E and F against their plain versions at the 10th launch's inputs of
   scenes 1, 2 and 4, also under "book", the MIS weight off and the other
   texture filters, and on the furnace cavity (6 lights); the three
-  scenes rendered with E and F and in the "glue" mode (B and C with the
-  torch glue, the path before E and F) in turns: equal rays, the same
-  image, Mrays/s of both;
+  scenes rendered with E and F, with their Mrays/s;
 - scheduler="qmega": scene 1 at 800x400, 16 spp, depth 20 on the work
   queue with the megakernel's hybrid mode;
 - the scale tier: the stress fields of tools/stress_scale_torch.py (16384,
@@ -92,7 +90,7 @@ gives the bound).
 one scene-2, one scene-4 and one 65536-sphere field render (B, C, E and F
 apart from the glue, and the glue's kernels an iteration), and every
 other split path (the fields, the lit field, tea, threefry, book and the
-counters) with E and F beside the glue mode in turns.  Each phase
+counters) with E and F.  Each phase
 prints one line; any failure raises, so the run exits non-zero and
 prints no result.  With no CUDA device it exits 1.
 
@@ -294,10 +292,8 @@ def phase_build():
     names = ("mega_kernel", "trace_kernel", "shade_kernel", "denoise_kernel")
     t0 = time.perf_counter()
     kernels.build_all(list(names))
-    MK.library()
-    TK.library()
-    SK.library()
-    DN.library()
+    for lib in (MK.LIB, TK.LIB, SK.LIB, DN.LIB):
+        lib.load()
     secs = time.perf_counter() - t0
     for name in names:
         regs = kernels.ptxas_summary(name).replace("\n", " | ")
@@ -556,16 +552,16 @@ def _trace_calls(cfg):
 def _render_counted(scene, cfg):
     """`render` after a warm-up with the identical config, the megakernel's
     launch counts set to 0 just before it and read just after.  Returns
-    (image, metrics, {counter: launches})."""
+    (image, metrics, {counter: launches}): `trace` the persistent kernel's,
+    `step` the per-iteration step's (either mode)."""
     import rtw_tpu_torch as rtt
-    from rtw_tpu_torch.ops import mega_kernel as MK
 
     rtt.render(scene, cfg)
     m = {}
-    MK.launches = MK.hybrid_launches = MK.trace_launches = 0
+    _reset_launches()
     img = rtt.render(scene, cfg, metrics=m)
-    counts = dict(trace=MK.trace_launches, step=MK.launches,
-                  hybrid=MK.hybrid_launches)
+    launched = _launch_counts()
+    counts = dict(trace=launched["mega_trace"], step=launched["mega_step"])
     if tuple(img.shape) != (cfg.ny, cfg.nx, 3):
         raise AssertionError(f"image has shape {tuple(img.shape)}")
     if not bool(torch.isfinite(img).all()):
@@ -675,7 +671,7 @@ def _mega_path(label, scene, cfg, path):
             f"{cfg.max_depth}")
     img, m, counts = _render_counted(scene, cfg)
     calls = _trace_calls(cfg)
-    if counts["trace"] != calls or counts["step"] or counts["hybrid"]:
+    if counts["trace"] != calls or counts["step"]:
         raise AssertionError(f"{label} {head}: launches {counts}, expected "
                              f"{calls} mega_trace and no mega_step")
     info = {k: MK.last_trace[k] for k in MK.TRACE_INFO}
@@ -1120,18 +1116,13 @@ def phase_cavity():
     of the walls' radiance L and each of its pixels within 12%, the wall
     pixels at L within 1e-5."""
     import rtw_tpu_torch as rtt
-    from rtw_tpu_torch.ops import mega_kernel as MK
-    from rtw_tpu_torch.ops import trace_kernel as TK
 
     scene = furnace_cavity().to("cuda")
     cfg = rtt.RenderConfig(nx=24, ny=24, spp=256, max_depth=24, seed=3)
-    MK.launches = MK.hybrid_launches = MK.trace_launches = 0
-    TK.trace_launches = TK.occluded_launches = 0
+    _reset_launches()
     m = {}
     img = rtt.render(scene, cfg, metrics=m)
-    launched = dict(mega_trace=MK.trace_launches, mega_step=MK.launches,
-                    hybrid=MK.hybrid_launches, trace=TK.trace_launches,
-                    occluded=TK.occluded_launches)
+    launched = _launch_counts()
     if any(launched.values()):
         raise AssertionError(f"cavity: auto launched kernels {launched}")
     img = img.cpu().numpy()
@@ -1400,12 +1391,6 @@ SHADE_NEE_FLOPS = 70
 BOOK_LIGHT_FLOPS = 45
 MARBLE_FLOPS = 7 * 8 * 30 + 20
 IMAGE_FLOPS = 40
-# the split paths' renders with E and F against the "glue" mode (B and C
-# with the torch glue between them): ray totals within SHADE_RAYS_RTOL,
-# SHADE_PIXELS of the linear pixels within SHADE_PIXEL_TOL
-SHADE_RAYS_RTOL = 1e-4
-SHADE_PIXELS = 0.99
-SHADE_PIXEL_TOL = 1e-3
 
 
 def _shade_bound(scene, cfg, tables, args, plain):
@@ -1606,7 +1591,7 @@ def _shade_steps(tag, label, got, device=False):
     rows = {}
     (scene, cfg, tables, *args), _ = got["shade"]
     if tables is None:
-        tables = SK.shade_tables(scene)
+        tables = SK.shade_tables(scene, cfg)
     err, rep = _compare_shade(f"shade {label}", scene, cfg, tables, args)
     print(f"[{tag} step check] {rep}", flush=True)
     ms, plain_ms, times = _turns(
@@ -1740,9 +1725,9 @@ def phase_shade_steps():
             variants += [dict(tex_filter=f)
                          for f in ("rgb565", "nearest565", "rgb8")]
         for opts in variants:
-            _, rep = _compare_shade(
-                f"shade scene {sid} {opts}", scene,
-                dataclasses.replace(cfg, **opts), tables, args)
+            vcfg = dataclasses.replace(cfg, **opts)
+            _, rep = _compare_shade(f"shade scene {sid} {opts}", scene, vcfg,
+                                    SK.shade_tables(scene, vcfg), args)
             print(f"[36 shade options] {rep}", flush=True)
     for est in ("mis", "book"):
         cfg = rtt.RenderConfig(nx=128, ny=128, spp=1, max_depth=24,
@@ -1751,42 +1736,47 @@ def phase_shade_steps():
             scene, args = _cavity_inputs(cfg, bounces)
             _, rep = _compare_shade(
                 f"shade cavity {est} after {bounces} bounces", scene, cfg,
-                SK.shade_tables(scene), args,
+                SK.shade_tables(scene, cfg), args,
                 need=_cavity_branches(scene, cfg, args, bounces))
             print(f"[36 shade options] {rep}", flush=True)
     return out
 
 
-@contextlib.contextmanager
-def _split_glue():
-    """Renders inside run the split tier in the "glue" mode: kernels B and
-    C with the torch glue between them (the path before E and F)."""
-    from rtw_tpu_torch import integrator as TI
-
-    queue, regen = TI.trace_wavefront_queue, TI.trace_wavefront_regen
-    TI.trace_wavefront_queue = functools.partial(queue, split="glue")
-    TI.trace_wavefront_regen = functools.partial(regen, split="glue")
-    try:
-        yield
-    finally:
-        TI.trace_wavefront_queue, TI.trace_wavefront_regen = queue, regen
-
-
 def _launch_counts():
-    """{kernel: launches} of the split tier's wrappers."""
-    from rtw_tpu_torch.ops import shade_kernel as SK
-    from rtw_tpu_torch.ops import trace_kernel as TK
+    """{kernel: launches} of every kernel since `_reset_launches`
+    (`worker.launch_counts`; mega_step counts both of its modes)."""
+    from rtw_tpu_torch.parallel import worker
 
-    return {"trace": TK.trace_launches, "occluded": TK.occluded_launches,
-            "shade": SK.shade_launches, "shade_finish": SK.finish_launches}
+    return worker.launch_counts()
 
 
 def _reset_launches():
-    from rtw_tpu_torch.ops import shade_kernel as SK
-    from rtw_tpu_torch.ops import trace_kernel as TK
+    from rtw_tpu_torch.utils import kernels
 
-    TK.trace_launches = TK.occluded_launches = 0
-    SK.shade_launches = SK.finish_launches = 0
+    kernels.launches.clear()
+
+
+@contextlib.contextmanager
+def _hybrid_launches(box):
+    """Inside, box["mega_step_hybrid"] grows by the kernel launches of the
+    hybrid calls of `mega_step` (the library counts both modes under
+    one entry point)."""
+    from rtw_tpu_torch.ops import mega_kernel as MK
+    from rtw_tpu_torch.utils import kernels
+
+    real = MK.mega_step
+
+    def step(*a, **kw):
+        n0 = kernels.launches["rtw_mega_step"]
+        out = real(*a, **kw)
+        if kw.get("hybrid", a[6] if len(a) > 6 else False):
+            box["mega_step_hybrid"] += kernels.launches["rtw_mega_step"] - n0
+        return out
+    MK.mega_step = step
+    try:
+        yield
+    finally:
+        MK.mega_step = real
 
 
 def _check_shade_launches(label, counts, nee=None):
@@ -1802,80 +1792,54 @@ def _check_shade_launches(label, counts, nee=None):
                              "not one E per B and one F per C")
 
 
-def _shade_turns(tag, label, scene, cfg):
-    """One split path through `render` with E and F (E) and in the "glue"
-    mode (G), in turns E, G, G, E after a warm-up of each, launch counts
-    from 0 for each: one E launch per B launch and one F per C launch, no
-    E or F in G; ray totals within SHADE_RAYS_RTOL; SHADE_PIXELS of the
-    linear pixels within SHADE_PIXEL_TOL.  Returns (E metrics, G
-    metrics)."""
+def _shade_render(tag, label, scene, cfg):
+    """One split path through `render` with E and F after a warm-up,
+    launch counts from 0: one E launch per B launch and one F per C
+    launch, a finite image.  Returns its metrics."""
     import rtw_tpu_torch as rtt
     from rtw_tpu_torch.ops import shade_kernel as SK
 
     rtt.render(scene, cfg)
-    with _split_glue():
-        rtt.render(scene, cfg)
-    m = [{} for _ in range(4)]
-    imgs, counts = [], []
-    for i, glue in enumerate((False, True, True, False)):
-        _reset_launches()
-        with _split_glue() if glue else contextlib.nullcontext():
-            imgs.append(rtt.render(scene, cfg, metrics=m[i]))
-        counts.append(_launch_counts())
+    m = {}
+    _reset_launches()
+    img = rtt.render(scene, cfg, metrics=m)
+    counts = _launch_counts()
     label = f"{label} {cfg.nx}x{cfg.ny} spp {cfg.spp}"
-    _check_shade_launches(label, counts[0], SK.has_nee(scene, cfg))
-    if counts[1]["shade"] or counts[1]["shade_finish"]:
-        raise AssertionError(f"{label}: the glue mode launched E or F "
-                             f"({counts[1]})")
-    e, g = imgs[0], imgs[1]
-    close = ((e - g).abs() <= SHADE_PIXEL_TOL
-             + SHADE_PIXEL_TOL * g.abs()).all(-1)
-    px = float(close.float().mean())
-    gap = abs(m[0]["rays"] - m[1]["rays"]) / m[1]["rays"]
-    report = (f"{label}: E+F {m[0]['mrays_per_sec']:.2f} / "
-              f"{m[3]['mrays_per_sec']:.2f} Mrays/s "
-              f"({m[0]['wall_seconds']:.3f} / {m[3]['wall_seconds']:.3f} s), "
-              f"glue {m[1]['mrays_per_sec']:.2f} / "
-              f"{m[2]['mrays_per_sec']:.2f} Mrays/s "
-              f"({m[1]['wall_seconds']:.3f} / {m[2]['wall_seconds']:.3f} s); "
-              f"rays {m[0]['rays']} vs {m[1]['rays']} (rel gap {gap:.2e}); "
-              f"pixels within {SHADE_PIXEL_TOL} {px:.6f}, max abs diff "
-              f"{float((e - g).abs().max()):.3e}; launches E {counts[0]}, "
-              f"glue {counts[1]}")
-    print(f"[{tag}] {report} on {card_line()}", flush=True)
-    if not bool(torch.isfinite(e).all()) or gap > SHADE_RAYS_RTOL or (
-            px < SHADE_PIXELS):
-        raise AssertionError(report)
-    return m[0], m[1]
+    _check_shade_launches(label, counts, SK.has_nee(scene, cfg))
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{label}: non-finite image")
+    print(f"[{tag}] {label}: E+F {m['mrays_per_sec']:.2f} Mrays/s "
+          f"({m['wall_seconds']:.3f} s), rays {m['rays']}; launches "
+          f"{counts} on {card_line()}", flush=True)
+    return m
 
 
 def phase_shade_renders(every_path=False):
-    """Scenes 1, 2 and 4 at bench_scenes' workloads with E and F and in the
-    "glue" mode in turns (`_shade_turns`); with `every_path` (--profile)
-    also the other split paths of phases 18, 19 and 23: the 16384- and
-    65536-sphere fields, the lit field, and scene 2 with tea, threefry
-    and book and scene 1 with the counters.  Returns {path: (E metrics,
-    G metrics)}."""
+    """Scenes 1, 2 and 4 at bench_scenes' workloads with E and F
+    (`_shade_render`); with `every_path` (--profile) also the other split
+    paths of phases 18, 19 and 23: the 16384- and 65536-sphere fields, the
+    lit field, and scene 2 with tea, threefry and book and scene 1 with
+    the counters.  Returns {path: metrics}."""
     import rtw_tpu_torch as rtt
 
     out = {}
     for sid, (nx, ny, spp) in SPLIT_WORKLOADS.items():
         cfg = rtt.RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=BENCH_DEPTH,
                                scene_id=sid)
-        out[f"scene{sid}"] = _shade_turns(
+        out[f"scene{sid}"] = _shade_render(
             "37 shade renders", f"scene {sid}",
             rtt.build_scene(sid, nx, ny), cfg)
     if not every_path:
         return out
     for n, lit in ((FIELDS[0], False), (FIELDS[1], False), (LIT_FIELD, True)):
         path = f"field{n}{'lit' if lit else ''}"
-        out[path] = _shade_turns("37 shade renders", path,
+        out[path] = _shade_render("37 shade renders", path,
                                  _field(n, lit)[0], _field_cfg())
     for path, sid, opts in OPTION_PATHS:
         nx, ny, spp = SPLIT_WORKLOADS[sid]
         cfg = rtt.RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=BENCH_DEPTH,
                                scene_id=sid, **opts)
-        out[f"scene{sid}{path}"] = _shade_turns(
+        out[f"scene{sid}{path}"] = _shade_render(
             "37 shade renders", f"scene {sid} {path}",
             rtt.build_scene(sid, nx, ny), cfg)
     return out
@@ -1921,15 +1885,14 @@ def phase_qmega_small():
     hybrid kernel against the same render with the plain twin on the card:
     equal rays and every pixel within 1e-4."""
     import rtw_tpu_torch as rtt
-    from rtw_tpu_torch.ops import mega_kernel as MK
 
     cfg = rtt.RenderConfig(nx=128, ny=128, spp=8, max_depth=10,
                            scene_id=QMEGA_SCENE, scheduler="qmega")
     scene = rtt.build_scene(QMEGA_SCENE, cfg.nx, cfg.ny)
     mk, mp = {}, {}
-    n0 = MK.hybrid_launches
+    n0 = _launch_counts()["mega_step"]
     img_k = rtt.render(scene, cfg, metrics=mk)
-    if MK.hybrid_launches == n0:
+    if _launch_counts()["mega_step"] == n0:
         raise AssertionError("qmega launched no hybrid mega_step kernel")
     with _plain_mega():
         img_p = rtt.render(scene, cfg, metrics=mp)
@@ -1953,7 +1916,6 @@ def phase_qmega_main(queue):
     (`queue`: phase 8's metrics, this run).  Returns (launch count,
     metrics)."""
     import rtw_tpu_torch as rtt
-    from rtw_tpu_torch.ops import mega_kernel as MK
 
     nx, ny, spp = SPLIT_WORKLOADS[QMEGA_SCENE]
     cfg = rtt.RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=BENCH_DEPTH,
@@ -1961,9 +1923,9 @@ def phase_qmega_main(queue):
     scene = rtt.build_scene(QMEGA_SCENE, nx, ny)
     rtt.render(scene, cfg)                      # warm-up
     m = {}
-    MK.hybrid_launches = 0
+    _reset_launches()
     img = rtt.render(scene, cfg, metrics=m)
-    launches = MK.hybrid_launches
+    launches = _launch_counts()["mega_step"]
     if launches <= 0:
         raise AssertionError("the qmega path launched no hybrid kernel")
     if tuple(img.shape) != (ny, nx, 3) or not bool(torch.isfinite(img).all()):
@@ -2161,7 +2123,7 @@ def phase_mega_scale():
                      f"{MEGA_FIELD} spheres")
     cfg = _field_cfg(scheduler="qmega")
     img, m, counts = _render_counted(scene, cfg)
-    launches = counts["hybrid"]
+    launches = counts["step"]             # every step of qmega is hybrid
     if launches <= 0:
         raise AssertionError(f"qmega on {MEGA_FIELD} spheres launched no "
                              "hybrid kernel")
@@ -2217,12 +2179,11 @@ def _against_plain_queue(tag, label, scene, cfg):
     import dataclasses
 
     import rtw_tpu_torch as rtt
-    from rtw_tpu_torch.ops import trace_kernel as TK
 
     mk, mp = {}, {}
-    n0 = TK.trace_launches
+    n0 = _launch_counts()["trace"]
     img_k = rtt.render(scene, cfg, metrics=mk)
-    if TK.trace_launches == n0:
+    if _launch_counts()["trace"] == n0:
         raise AssertionError(f"{label}: auto launched no trace kernel")
     img_p = rtt.render(scene, dataclasses.replace(
         cfg, backend="jnp", scheduler="queue"), metrics=mp)
@@ -2486,20 +2447,16 @@ def phase_options_off_the_megakernel():
     regen sweep renders it and no kernel launches (A, its step, D, B, C);
     a finite image.  Forced backend="mega" with "book" raises ValueError."""
     import rtw_tpu_torch as rtt
-    from rtw_tpu_torch.ops import mega_kernel as MK
-    from rtw_tpu_torch.ops import trace_kernel as TK
 
     scene = rtt.build_scene(0, 200, 200)
     parts = []
     for opts in ({"estimator": "book"}, {"rng": "tea"}):
         cfg = rtt.RenderConfig(nx=200, ny=200, spp=4, max_depth=BENCH_DEPTH,
                                scene_id=0, **opts)
-        before = (MK.trace_launches, MK.launches, MK.hybrid_launches,
-                  TK.trace_launches, TK.occluded_launches)
+        before = _launch_counts()
         m = {}
         img = rtt.render(scene, cfg, metrics=m)
-        after = (MK.trace_launches, MK.launches, MK.hybrid_launches,
-                 TK.trace_launches, TK.occluded_launches)
+        after = _launch_counts()
         if after != before:
             raise AssertionError(f"Cornell {opts}: kernels launched "
                                  f"{before} -> {after}")
@@ -2584,14 +2541,14 @@ def phase_resume():
         times.append((start, end))
         return out
     MK.mega_trace = timed_trace
-    MK.trace_launches = 0
+    _reset_launches()
     m = {}
     try:
         resumed = rtt.render(scene, cfg, metrics=m, checkpoint_path=path,
                              **kw)
     finally:
         MK.mega_trace = real_trace
-    launches = MK.trace_launches
+    launches = _launch_counts()["mega_trace"]
     torch.cuda.synchronize()
     ms = [s.elapsed_time(e) for s, e in times]
     for f in (whole_path, path):
@@ -2668,7 +2625,6 @@ def _grad_step(scene, cfg, n_samples, chunk, split=None, target=None):
     the allocation at its start)}; the launch counts set to 0 just before
     it and read just after."""
     from rtw_tpu_torch import diff as TD
-    from rtw_tpu_torch.ops import trace_kernel as TK
 
     fn = TD.make_loss_and_grad_chunked(scene, cfg, n_samples, chunk, split)
     pix = torch.arange(cfg.num_pixels, device="cuda")
@@ -2678,13 +2634,14 @@ def _grad_step(scene, cfg, n_samples, chunk, split=None, target=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
-    TK.trace_launches = TK.occluded_launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     loss, grads = fn(params, target, pix, GRAD_SEED)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launched = _launch_counts()
     out = dict(loss=float(loss), grads=grads, wall=wall,
-               trace=TK.trace_launches, occluded=TK.occluded_launches,
+               trace=launched["trace"], occluded=launched["occluded"],
                peak_mb=(torch.cuda.max_memory_allocated() - before) / 1e6)
     if not np.isfinite(out["loss"]):
         raise AssertionError(f"non-finite loss {out['loss']}")
@@ -2915,15 +2872,14 @@ def phase_grad_queue():
     GRAD_QUEUE_RAYS and pixels within 1e-4 on GRAD_QUEUE_PIXELS of the
     frame."""
     import rtw_tpu_torch as rtt
-    from rtw_tpu_torch.ops import trace_kernel as TK
 
     cfg = rtt.RenderConfig(nx=128, ny=128, spp=16, max_depth=BENCH_DEPTH,
                            scene_id=2, differentiable=True)
     scene = rtt.build_scene(2, 128, 128)
     md, mf = {}, {}
-    n0 = TK.trace_launches
+    n0 = _launch_counts()["trace"]
     img_d = rtt.render(scene, cfg, metrics=md)
-    if TK.trace_launches == n0:
+    if _launch_counts()["trace"] == n0:
         raise AssertionError("queue parity: no trace kernel launched")
     img_f = rtt.render(scene, dataclasses.replace(cfg, differentiable=False),
                        metrics=mf)
@@ -3550,14 +3506,14 @@ def phase_tools():
 
     def run(tool, need, fn, *args, **kw):
         _reset_launches()
-        MK.launches = MK.hybrid_launches = MK.trace_launches = 0
+        hybrid = {"mega_step_hybrid": 0}
         t0 = time.perf_counter()
-        out, ms = _timed_mega_trace(lambda: fn(*args, **kw))
+        with _hybrid_launches(hybrid):
+            out, ms = _timed_mega_trace(lambda: fn(*args, **kw))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = {"mega_trace": MK.trace_launches, "mega_step": MK.launches,
-                  "mega_step_hybrid": MK.hybrid_launches,
-                  **_launch_counts()}
+        counts = {**_launch_counts(), **hybrid}
+        counts["mega_step"] -= hybrid["mega_step_hybrid"]
         missing = [k for k in need if counts[k] <= 0]
         if missing:
             raise AssertionError(f"{tool}: no launch of {missing} "
@@ -3705,8 +3661,7 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="add torch.profiler breakdowns of a Cornell, a "
                          "scene-2, a scene-4 and a 65536-sphere field "
-                         "render, and every split path with E and F "
-                         "beside the glue mode in turns")
+                         "render, and every split path with E and F")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

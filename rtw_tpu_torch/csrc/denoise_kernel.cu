@@ -147,6 +147,6 @@ extern "C" int rtw_atrous(const float* img, const float* albedo,
                               inv_albedo, inv_normal, s);
 }
 
-extern "C" const char* rtw_atrous_error_string(int code) {
+extern "C" const char* rtw_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -900,7 +900,7 @@ extern "C" int rtw_mega_trace(const int* pixel_idx, const float* props,
                               const int* hier, const int* vol_slot,
                               float* acc, unsigned long long* rays,
                               unsigned long long* scratch, int n,
-                              MegaParams p, void* stream, int* info) {
+                              MegaParams p, int* info, void* stream) {
   if (n <= 0) return 0;
   // one instantiation per (tables shared, walk)
   using Launch = decltype(&launch_trace<false, false>);

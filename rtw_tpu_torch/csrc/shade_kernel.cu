@@ -616,6 +616,6 @@ extern "C" int rtw_shade_finish(FinishIO io, int n, void* stream) {
   return (int)cudaGetLastError();
 }
 
-extern "C" const char* rtw_shade_error_string(int code) {
+extern "C" const char* rtw_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

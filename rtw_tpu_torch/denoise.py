@@ -8,10 +8,10 @@ shading normal) from `primary_features`, one deterministic
 centre-of-pixel camera ray per pixel.
 
 The filter runs one pass per iteration.  On CUDA tensors each pass is one
-launch of the hand-written kernel `csrc/denoise_kernel.cu` (`atrous_pass`;
-`atrous_launches` counts them), made inside the dispatcher operation
-`rtw_tpu_torch::atrous_pass` so that a profiler ties the kernel to an
-operation; on CPU tensors it is its plain twin
+launch of the hand-written kernel `csrc/denoise_kernel.cu` (`atrous_pass`,
+through `LIB`, a utils/kernels.Library), made inside the dispatcher
+operation `rtw_tpu_torch::atrous_pass` so that a profiler ties the kernel
+to an operation; on CPU tensors it is its plain twin
 `atrous_pass_plain`, torch on [H, W] planes, the reference's jitted jnp
 pass written out.
 
@@ -40,10 +40,11 @@ from rtw_tpu_torch.utils import kernels
 # 5-tap B3-spline: the à-trous generating kernel
 _B3 = np.array([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0
 
-# Launches of the à-trous kernel since import (or since a caller reset it).
-atrous_launches = 0
-# The bound kernel library, loaded by `library()` at the first launch.
-_lib: ctypes.CDLL | None = None
+# csrc/denoise_kernel.cu's C interface: img, albedo, normal (either may be
+# null), out, h, w, step and the three float scalars
+_F = ctypes.c_float
+LIB = kernels.Library("denoise_kernel", {
+    "rtw_atrous": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [_F] * 3})
 # The registration of the dispatcher operation around each launch, made by
 # `_atrous_op()` at the first launch and kept for the process's life.
 _ops: torch.library.Library | None = None
@@ -129,24 +130,6 @@ def atrous_pass_plain(img, albedo, normal, step: int, sc: float,
     return acc / torch.clamp_min(wsum, 1e-8)
 
 
-def _check_plane(name: str, t, shape, dev) -> None:
-    """`t` a contiguous float32 tensor of `shape` on `dev`; raise
-    otherwise."""
-    if not torch.is_tensor(t):
-        raise TypeError(f"atrous: {name} must be a tensor")
-    if t.device != dev:
-        raise ValueError(f"atrous: {name} is on {t.device}, the image on "
-                         f"{dev}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"atrous: {name} has dtype {t.dtype}, needs "
-                        f"torch.float32")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"atrous: {name} has shape {tuple(t.shape)}, needs "
-                         f"{shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"atrous: {name} must be contiguous")
-
-
 def atrous_pass(img, albedo, normal, step: int, sc: float,
                 sigma_albedo: float, sigma_normal: float):
     """One pass of `atrous_pass_plain`'s contract through
@@ -156,14 +139,14 @@ def atrous_pass(img, albedo, normal, step: int, sc: float,
     the dispatcher operation `rtw_tpu_torch::atrous_pass`, so that a
     profiler links the launch to an operation as it does torch's own.
     Raises on anything the kernel does not take."""
-    global atrous_launches
     if not torch.is_tensor(img) or img.dim() != 3 or img.shape[2] != 3:
         raise ValueError(f"atrous: img must be an [H, W, 3] tensor, got "
                          f"{getattr(img, 'shape', type(img))}")
     dev, shape = img.device, tuple(img.shape)
-    for name, t in (("img", img), ("albedo", albedo), ("normal", normal)):
-        if t is not None:
-            _check_plane(name, t, shape, dev)
+    kernels.check("atrous", dev, [
+        (name, t, torch.float32, shape) for name, t in (
+            ("img", img), ("albedo", albedo), ("normal", normal))
+        if t is not None])
     if dev.type != "cuda":
         raise ValueError(f"atrous: the image is on {dev}; the kernel takes "
                          f"CUDA tensors (atrous_pass_plain is the CPU's)")
@@ -173,27 +156,17 @@ def atrous_pass(img, albedo, normal, step: int, sc: float,
     f32 = [float(np.float32(v)) for v in (1.0 / (2.0 * sc * sc),
                                           2.0 * sigma_albedo ** 2,
                                           2.0 * sigma_normal ** 2)]
-    out = _atrous_op()(img, albedo, normal, step, *f32)
-    atrous_launches += 1
-    return out
+    return _atrous_op()(img, albedo, normal, step, *f32)
 
 
 def _launch(img, albedo, normal, step, inv_2sc2, two_sa2, two_sn2):
     """The CUDA kernel of `rtw_tpu_torch::atrous_pass`: one launch of
     `rtw_atrous` on planes `atrous_pass` has checked."""
     out = torch.empty_like(img)
-    lib = library()
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rtw_atrous(
-            img.data_ptr(), None if albedo is None else albedo.data_ptr(),
-            None if normal is None else normal.data_ptr(), out.data_ptr(),
-            img.shape[0], img.shape[1], step, inv_2sc2, two_sa2, two_sn2,
-            stream)
-    if err != 0:
-        raise RuntimeError(f"rtw_atrous kernel launch failed: "
-                           f"{lib.rtw_atrous_error_string(err).decode()} "
-                           f"({err})")
+    LIB.launch("rtw_atrous", img.device, img.data_ptr(),
+               None if albedo is None else albedo.data_ptr(),
+               None if normal is None else normal.data_ptr(), out.data_ptr(),
+               img.shape[0], img.shape[1], step, inv_2sc2, two_sa2, two_sn2)
     return out
 
 
@@ -246,23 +219,6 @@ def denoise(img, scene: S.Scene = None, cfg=None, iterations: int = 5,
     if mode == "hdr":
         return atrous(img, albedo=alb, normal=nrm, iterations=iterations)
     raise ValueError(f"mode must be 'ldr' or 'hdr', got {mode!r}")
-
-
-def library() -> ctypes.CDLL:
-    """csrc/denoise_kernel.cu, built at first use and bound to its C
-    interface."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = kernels.load("denoise_kernel")
-    ptr, f32, i32 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-    lib.rtw_atrous.restype = i32
-    lib.rtw_atrous.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, f32, f32,
-                               f32, ptr]
-    lib.rtw_atrous_error_string.restype = ctypes.c_char_p
-    lib.rtw_atrous_error_string.argtypes = [i32]
-    _lib = lib
-    return lib
 
 
 def _atrous_op():

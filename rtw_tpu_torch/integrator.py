@@ -125,12 +125,11 @@ def generate_camera_rays(scene: S.Scene, cfg, pixel_idx, path_keys) -> PathState
 # kernels B, E, C and F (`TK.trace_rows`, `SK.shade`, `TK.occluded_kernel`,
 # `SK.finish`; their plain versions on CPU tensors), nothing in torch
 # between them but the uniform draw; a gradient render keeps B and C with
-# the torch glue there, as "glue" does.  "glue" runs B and C with the
-# shading in plain torch between them (the path before E and F, kept for
-# timing the two in turns); "plain" runs the plain versions of B and C on
-# any device (`TK.trace_plain`, `TK.occluded_plain`): the twin the card's
-# gradient path is held against, and that path on the CPU.
-SPLIT_MODES = ("kernels", "glue", "plain")
+# the shading in plain torch between them (E has no backward).  "plain"
+# runs the plain versions of B and C on any device (`TK.trace_plain`,
+# `TK.occluded_plain`): the twin the card's gradient path is held against,
+# and that path on the CPU.
+SPLIT_MODES = ("kernels", "plain")
 
 
 def _split_mode(cfg, scene, split):
@@ -161,8 +160,8 @@ def _detached(*args):
 
 
 def _split_query(kernel, plain, mode, scene, tables, cfg, *args):
-    """One split-tier query: `kernel` (with the tables) in modes "kernels"
-    and "glue", its `plain` version in mode "plain".  A gradient render
+    """One split-tier query: `kernel` (with the tables) in mode "kernels",
+    its `plain` version in mode "plain".  A gradient render
     runs it under torch.no_grad() on detached inputs (the reference's
     stop_gradient): its answer is a detached decision."""
     def run(*a):
@@ -282,7 +281,8 @@ def _render_tables(cfg, scene, split):
         if not mode:
             return None, None
         return (_split_tables(cfg, scene),
-                SK.shade_tables(scene) if _shade_mode(cfg, mode) else None)
+                SK.shade_tables(scene, cfg) if _shade_mode(cfg, mode)
+                else None)
 
 
 # Length of the iteration-occupancy trace (cfg.occupancy_trace); later
@@ -531,10 +531,9 @@ def trace_wavefront_regen(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
     path ends.  Every draw is keyed by (pixel, sample, bounce, slot), so the
     image matches the reference's regen scheduler.  The reference's drain
     tail compaction is compiled out on its plain path too, and is not
-    ported.  `split`: the split tier's mode of every bounce (`bounce_step`;
-    "glue" times the path before kernels E and F).  Returns (accum Vec3 of
-    [N], rays int64 [1], stats: a WavefrontStats with cfg.bounce_stats,
-    else ())."""
+    ported.  `split`: the split tier's mode of every bounce
+    (`bounce_step`).  Returns (accum Vec3 of [N], rays int64 [1], stats: a
+    WavefrontStats with cfg.bounce_stats, else ())."""
     tables, stables = _render_tables(cfg, scene, split)
     n = pixel_idx.shape[0]
     dev = pixel_idx.device
@@ -562,23 +561,34 @@ def trace_wavefront_regen(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
         accum = V.where(finished, accum + rad, accum)
         sample = torch.where(finished, sample + 1, sample)
         regen = finished & (sample < s_end)
-
-        new_keys = R.make_path_keys(seed, pixel_idx, sample, cfg.rng)
-        fresh = generate_camera_rays(scene, cfg, pixel_idx, new_keys)
-        path = PathState(
-            origin=V.where(regen, fresh.origin, st.origin),
-            direction=V.where(regen, fresh.direction, st.direction),
-            throughput=V.where(regen, fresh.throughput, st.throughput),
-            radiance=V.where(finished, fresh.radiance, st.radiance),
-            alive=torch.where(finished, regen, st.alive),
-            time=torch.where(regen, fresh.time, st.time),
-            prev_pdf=torch.where(regen, fresh.prev_pdf, st.prev_pdf),
-            prev_diffuse=torch.where(regen, fresh.prev_diffuse,
-                                     st.prev_diffuse),
-        )
-        path_keys = torch.where(regen, new_keys, path_keys)
-        depth = torch.where(regen, 0, depth)
+        path, path_keys, depth = _regenerate(
+            scene, cfg, seed, pixel_idx, sample, st, path_keys, depth, regen,
+            finished, torch.where(finished, regen, st.alive))
     return accum, rays, stats
+
+
+def _regenerate(scene: S.Scene, cfg, seed: int, pixel, sample,
+                path: PathState, path_keys, depth, claim, reset, alive):
+    """(path, path keys, depth) with a fresh camera ray of (pixel, sample)
+    on the lanes of `claim` at depth 0, the radiance cleared on the lanes
+    of `reset` (the finished ones, claimed or not) and the alive plane
+    `alive`: the regeneration of `trace_wavefront_regen` and of
+    `trace_wavefront_queue`."""
+    new_keys = R.make_path_keys(seed, pixel, sample, cfg.rng)
+    fresh = generate_camera_rays(scene, cfg, pixel, new_keys)
+    path = PathState(
+        origin=V.where(claim, fresh.origin, path.origin),
+        direction=V.where(claim, fresh.direction, path.direction),
+        throughput=V.where(claim, fresh.throughput, path.throughput),
+        radiance=V.where(reset, fresh.radiance, path.radiance),
+        alive=alive,
+        time=torch.where(claim, fresh.time, path.time),
+        prev_pdf=torch.where(claim, fresh.prev_pdf, path.prev_pdf),
+        prev_diffuse=torch.where(claim, fresh.prev_diffuse,
+                                 path.prev_diffuse),
+    )
+    return (path, torch.where(claim, new_keys, path_keys),
+            torch.where(claim, 0, depth))
 
 
 def decode_tile_pixel(pos, nx: int, ny: int, tile: int = 32):
@@ -635,8 +645,7 @@ def trace_wavefront_queue(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
     by the termination test, so the card's iterations past the end count
     nothing and its counters equal the CPU's.
 
-    `split`: the split tier's mode of every bounce (`bounce_step`; "glue"
-    times the path before kernels E and F).
+    `split`: the split tier's mode of every bounce (`bounce_step`).
 
     Returns (accum Vec3 of [N] positional sums, rays int64 [1], stats: a
     WavefrontStats with cfg.bounce_stats, else ())."""
@@ -690,25 +699,9 @@ def trace_wavefront_queue(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
                 with P.span("queue.regen"):
                     sample = torch.where(have, q_sample, sample)
                     pixel = torch.where(have, q_pixel, pixel)
-                    new_keys = R.make_path_keys(seed, pixel, sample, cfg.rng)
-                    fresh = generate_camera_rays(scene, cfg, pixel, new_keys)
-                    path = PathState(
-                        origin=V.where(have, fresh.origin, path.origin),
-                        direction=V.where(have, fresh.direction,
-                                          path.direction),
-                        throughput=V.where(have, fresh.throughput,
-                                           path.throughput),
-                        radiance=V.where(pend, fresh.radiance,
-                                         path.radiance),
-                        alive=path.alive | have,
-                        time=torch.where(have, fresh.time, path.time),
-                        prev_pdf=torch.where(have, fresh.prev_pdf,
-                                             path.prev_pdf),
-                        prev_diffuse=torch.where(have, fresh.prev_diffuse,
-                                                 path.prev_diffuse),
-                    )
-                    path_keys = torch.where(have, new_keys, path_keys)
-                    depth = torch.where(have, 0, depth)
+                    path, path_keys, depth = _regenerate(
+                        scene, cfg, seed, pixel, sample, path, path_keys,
+                        depth, have, pend, path.alive | have)
                     pending = pending & ~pend
         with P.span("queue.wait"):
             more = bool((path.alive.any() | pending.any()))

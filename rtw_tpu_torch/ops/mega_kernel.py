@@ -34,9 +34,9 @@ order).  What bounds it now: the operations of the sweeps and the shading
 under divergence, and the tail (`trace_tail`): once the lane counter runs
 dry, each thread finishes at most one lane while its SM empties.
 
-On CUDA tensors the wrappers launch the hand-written kernels (built by
-utils/kernels.py); on CPU tensors they run the plain versions.  There is no
-fallback: a CUDA tensor gets the kernel or an error.
+On CUDA tensors the wrappers launch the hand-written kernels (`LIB`, a
+utils/kernels.Library); on CPU tensors they run the plain versions.  There
+is no fallback: a CUDA tensor gets the kernel or an error.
 
 The kernel's envelope is the reference's (`integrator._validate_mega`):
 fast RNG, at most one light, constant/checker textures, every prim type,
@@ -115,19 +115,11 @@ TABLES_SHARED_MAX = 100 * 1024
 # walks its blocks (csrc/geometry.cuh::walk_blocks).
 STRAIGHT_MAX_BLOCKS = 8
 
-# Launches of the CUDA kernels since import (or since a caller reset them):
-# the per-iteration step in regenerating mode and in hybrid mode (TPU
-# kernel D), and the persistent render (TPU kernel A on the render path).
-launches = 0
-hybrid_launches = 0
-trace_launches = 0
 # The last persistent launch: its resident grid (`TRACE_INFO` keys) and its
 # scratch tensor on the card (lane counter and clock stamps; `trace_tail`).
 last_trace: dict = {}
 TRACE_INFO = ("blocks_per_sm", "sms", "grid", "block", "registers",
               "local_bytes")
-# The bound kernel library, loaded by `library()` at the first launch.
-_lib: ctypes.CDLL | None = None
 
 
 class _CParams(ctypes.Structure):
@@ -163,6 +155,16 @@ class _CParams(ctypes.Structure):
     ]
 
 
+_P = ctypes.c_void_p
+# csrc/mega_kernel.cu's C interface: the per-iteration step (regenerating
+# and hybrid mode, TPU kernel D) and the persistent render (TPU kernel A),
+# each on the five split tables
+LIB = kernels.Library("mega_kernel", {
+    "rtw_mega_step": [_P] * 10 + [ctypes.c_int, ctypes.c_int, _CParams],
+    "rtw_mega_trace": [_P] * 9 + [ctypes.c_int, _CParams,
+                                  ctypes.POINTER(ctypes.c_int)]})
+
+
 @dataclasses.dataclass
 class MegaParams:
     """Everything one render's launches share: the float row `parf`, the
@@ -185,8 +187,9 @@ def mega_params(scene: S.Scene, seed: int, cfg, s_end: int,
                 s0: int = 0) -> MegaParams:
     """Validate the envelope (`_validate_mega`: ValueError for a render
     the kernel does not compute) and assemble the launch parameters for
-    the samples [s0, s_end).  The camera and light rows reach the host in
-    one copy."""
+    the samples [s0, s_end), with the tables in shared memory where they
+    fit; raise ValueError if what the kernel keeps there exceeds a block's.
+    The camera and light rows reach the host in one copy."""
     with P.span("tables"):
         _validate_mega(cfg, scene)
         cam = scene.camera
@@ -228,6 +231,10 @@ def mega_params(scene: S.Scene, seed: int, cfg, s_end: int,
         c.walk = int(tables.n_blocks > STRAIGHT_MAX_BLOCKS)
         always, joined = table_bytes(c)
         c.tables_shared = int(always + joined <= TABLES_SHARED_MAX)
+        need = always + (joined if c.tables_shared else 0)
+        if need > TK.SMEM_MAX:
+            raise ValueError(f"the kernel's tables take {need} bytes of "
+                             f"shared memory, a block has {TK.SMEM_MAX}")
         c.s0 = s0
         return MegaParams(parf=parf, h0=h0, s0=s0, s_end=s_end,
                           n_vol=c.n_vol, tables=tables, c_params=c)
@@ -345,76 +352,27 @@ def mega_step_plain(scene: S.Scene, cfg, sf, si, params: MegaParams, rays,
     return sf2, si2
 
 
-def _check(named, params: MegaParams, device) -> None:
-    """Device, dtype, shape and contiguity of each (name, tensor, dtype,
-    shape) in `named` and of the scene's tables, and the tables' shared
-    memory against a block's."""
-    c, tb = params.c_params, params.tables
-    for name, t, dtype, shape in (*named,
-            ("props", tb.props, torch.float32, (c.n_props, c.kdim)),
-            ("plan", tb.plan, torch.int32, (c.n_entries, TK.PLAN_COLS)),
-            ("aabbs", tb.aabbs, torch.float32, (c.n_blocks + c.n_nodes, 8)),
-            ("hier", tb.hier, torch.int32, (c.n_entries, TK.HIER_COLS)),
-            ("vol_slot", tb.vol_slot, torch.int32, (c.n_props,))):
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, the lanes on "
-                             f"{device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} has dtype {t.dtype}, needs {dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, needs "
-                             f"{shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    always, joined = table_bytes(c)
-    need = always + (joined if c.tables_shared else 0)
-    if need > TK.SMEM_MAX:
-        raise ValueError(f"the kernel's tables take {need} bytes of shared "
-                         f"memory, a block has {TK.SMEM_MAX}")
-
-
-def _check_tensors(sf, si, params: MegaParams, rays) -> int:
-    n = sf.shape[-1]
-    _check((("sf", sf, torch.float32, (NF, n)),
-            ("si", si, torch.int32, (NI, n)),
-            ("rays", rays, torch.int64, (1,))), params, sf.device)
-    return n
-
-
 def mega_step(scene: S.Scene, cfg, sf, si, params: MegaParams, rays,
               hybrid=False):
     """One whole wavefront iteration.  Returns (sf', si') and adds this
     iteration's ray count into the int64 [1] tensor `rays`.  `hybrid`: the
     queue-scheduled mode (TPU kernel D).
 
-    CPU tensors run `mega_step_plain`; CUDA tensors launch the kernel on
+    CPU tensors run `mega_step_plain`; other tensors launch the kernel on
     the current stream (no synchronisation) or raise."""
-    global launches, hybrid_launches
-    if sf.device.type == "cpu":
+    dev = sf.device
+    if dev.type == "cpu":
         return mega_step_plain(scene, cfg, sf, si, params, rays, hybrid)
-    if sf.device.type != "cuda":
-        raise ValueError(f"mega_step runs on CPU or CUDA tensors, not "
-                         f"{sf.device}")
-    n = _check_tensors(sf, si, params, rays)
+    n = sf.shape[-1]
+    kernels.check("mega_step", dev, (("sf", sf, torch.float32, (NF, n)),
+                                     ("si", si, torch.int32, (NI, n)),
+                                     ("rays", rays, torch.int64, (1,))))
+    params.tables.check_fit("mega_step", scene, dev)
     osf = torch.empty_like(sf)
     osi = torch.empty_like(si)
-    lib = library()
-    tb = params.tables
-    with torch.cuda.device(sf.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rtw_mega_step(sf.data_ptr(), si.data_ptr(),
-                                tb.props.data_ptr(), tb.plan.data_ptr(),
-                                tb.aabbs.data_ptr(), tb.hier.data_ptr(),
-                                tb.vol_slot.data_ptr(), osf.data_ptr(),
-                                osi.data_ptr(), rays.data_ptr(), n,
-                                int(bool(hybrid)), params.c_params, stream)
-    if err != 0:
-        raise RuntimeError(f"mega_step kernel launch failed: "
-                           f"{lib.rtw_error_string(err).decode()} ({err})")
-    if hybrid:
-        hybrid_launches += 1
-    else:
-        launches += 1
+    LIB.launch("rtw_mega_step", dev, sf.data_ptr(), si.data_ptr(),
+               *params.tables.pointers(), osf.data_ptr(), osi.data_ptr(),
+               rays.data_ptr(), n, int(bool(hybrid)), params.c_params)
     return osf, osi
 
 
@@ -435,39 +393,27 @@ def mega_trace(scene: S.Scene, cfg, pixel_idx, params: MegaParams, rays):
     float32 [3, N], and adds the rays traced into the int64 [1] tensor
     `rays`.
 
-    CPU tensors run `mega_trace_plain`; CUDA tensors make one launch of the
-    persistent kernel on the current stream (no synchronisation) or
+    CPU tensors run `mega_trace_plain`; other tensors make one launch of
+    the persistent kernel on the current stream (no synchronisation) or
     raise.  Under a torch.profiler capture the launch records the span
     `mega.launch`, whose `tail` value is `trace_tail` of its clock stamps,
     read by `utils.profiling.spans()`."""
-    global trace_launches
-    if pixel_idx.device.type == "cpu":
+    dev = pixel_idx.device
+    if dev.type == "cpu":
         return mega_trace_plain(scene, cfg, pixel_idx, params, rays)
-    if pixel_idx.device.type != "cuda":
-        raise ValueError(f"mega_trace runs on CPU or CUDA tensors, not "
-                         f"{pixel_idx.device}")
     with P.span("mega.launch") as sp:
         n = pixel_idx.shape[0]
-        _check((("pixel_idx", pixel_idx, torch.int32, (n,)),
-                ("rays", rays, torch.int64, (1,))), params, pixel_idx.device)
-        acc = torch.empty((3, n), dtype=torch.float32,
-                          device=pixel_idx.device)
-        scratch = torch.zeros(4, dtype=torch.int64, device=pixel_idx.device)
+        kernels.check("mega_trace", dev, (
+            ("pixel_idx", pixel_idx, torch.int32, (n,)),
+            ("rays", rays, torch.int64, (1,))))
+        params.tables.check_fit("mega_trace", scene, dev)
+        acc = torch.empty((3, n), dtype=torch.float32, device=dev)
+        scratch = torch.zeros(4, dtype=torch.int64, device=dev)
         info = (ctypes.c_int * len(TRACE_INFO))()
-        lib = library()
-        tb = params.tables
-        with torch.cuda.device(pixel_idx.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.rtw_mega_trace(
-                pixel_idx.data_ptr(), tb.props.data_ptr(), tb.plan.data_ptr(),
-                tb.aabbs.data_ptr(), tb.hier.data_ptr(),
-                tb.vol_slot.data_ptr(), acc.data_ptr(), rays.data_ptr(),
-                scratch.data_ptr(), n, params.c_params, stream, info)
-        if err != 0:
-            raise RuntimeError(f"mega_trace kernel launch failed: "
-                               f"{lib.rtw_error_string(err).decode()} "
-                               f"({err})")
-        trace_launches += 1
+        LIB.launch("rtw_mega_trace", dev, pixel_idx.data_ptr(),
+                   *params.tables.pointers(), acc.data_ptr(),
+                   rays.data_ptr(), scratch.data_ptr(), n, params.c_params,
+                   info)
         last_trace.clear()
         last_trace.update(zip(TRACE_INFO, info), scratch=scratch)
         # the stamps are read when the spans are, after the capture
@@ -484,22 +430,3 @@ def trace_tail(scratch) -> dict:
     start, dry, end = ~s[1] & (2 ** 64 - 1), s[2], s[3]
     return {"kernel_ms": (end - start) * 1e-6, "tail_ms": (end - dry) * 1e-6}
 
-
-def library() -> ctypes.CDLL:
-    """csrc/mega_kernel.cu, built at first use and bound to its C
-    interface."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = kernels.load("mega_kernel")
-    lib.rtw_mega_step.restype = ctypes.c_int
-    lib.rtw_mega_step.argtypes = [ctypes.c_void_p] * 10 + [
-        ctypes.c_int, ctypes.c_int, _CParams, ctypes.c_void_p]
-    lib.rtw_mega_trace.restype = ctypes.c_int
-    lib.rtw_mega_trace.argtypes = [ctypes.c_void_p] * 9 + [
-        ctypes.c_int, _CParams, ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_int)]
-    lib.rtw_error_string.restype = ctypes.c_char_p
-    lib.rtw_error_string.argtypes = [ctypes.c_int]
-    _lib = lib
-    return lib

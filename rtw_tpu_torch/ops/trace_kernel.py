@@ -4,8 +4,8 @@ props table).
 
 `trace` is the nearest-hit query with its shading record and `occluded_kernel`
 the any-hit shadow query.  On CUDA tensors each launches its hand-written
-kernel of csrc/trace_kernel.cu (built by utils/kernels.py) on the current
-stream; on CPU tensors each runs its plain version, `trace_plain`
+kernel of csrc/trace_kernel.cu (`LIB`, a utils/kernels.Library) on the
+current stream; on CPU tensors each runs its plain version, `trace_plain`
 (intersect_scene + gather_shade) or `occluded_plain`.  There is no
 fallback: a CUDA tensor gets the kernel or an error.  Volumes read their
 free-flight uniforms from `vol_u` [max(n_vol, 1), N] (the shadow ray's own
@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -71,12 +72,6 @@ SMEM_MAX = 232448
 HIT_F32 = 21
 HIT_I32 = 5
 
-# Launches of each CUDA kernel since import (or since a caller reset them).
-trace_launches = 0
-occluded_launches = 0
-# The bound kernel library, loaded by `library()` at the first launch.
-_lib: ctypes.CDLL | None = None
-
 
 def build_props(scene: S.Scene, any_xform: bool):
     """The [P, K] float32 per-prim property matrix (K = 25, or 49 with the
@@ -97,10 +92,10 @@ def build_props(scene: S.Scene, any_xform: bool):
     return torch.stack(cols, dim=1).contiguous()
 
 
-def check_plan(scene: S.Scene) -> None:
+def check_plan(chunk_plan) -> None:
     """Every plan entry must be a prim type the kernels implement (all six;
     csrc/geometry.cuh::prim_t)."""
-    for e in scene.chunk_plan:
+    for e in chunk_plan:
         I.check_prim_type(e[3])
 
 
@@ -113,14 +108,25 @@ class _CTraceParams(ctypes.Structure):
                 ("kdim", ctypes.c_int32)]
 
 
+_P = ctypes.c_void_p
+# csrc/trace_kernel.cu's C interface: rays, vol_u, the five tables, the
+# outputs (trace: of, oi; occluded: out), then n and the parameters
+LIB = kernels.Library("trace_kernel", {
+    "rtw_trace": [_P] * 9 + [ctypes.c_int, _CTraceParams],
+    "rtw_occluded": [_P] * 8 + [ctypes.c_int, _CTraceParams]})
+
+
 @dataclasses.dataclass
 class SplitTables:
     """The scene's tables both kernels read, on the scene's device: the
     props table, the chunk plan, the AABB table (the `n_blocks` block rows,
     then the hierarchy's upper nodes: `augment_aabbs`), the per-group `hier`
-    rows that index it (`layout`: the same rows as Python ints, for the
-    launch checks), and the per-prim volume slot.  A render builds them
-    once (`split_tables`) and passes them to every launch."""
+    rows that index it (`layout`: the same rows as Python ints), and the
+    per-prim volume slot, checked against the scene's `chunk_plan` when they
+    are made (`check_tables`; `dataclasses.replace` checks again).  A
+    render builds them once (`split_tables`) and passes them to every
+    launch, which only confirms they fit its scene and device
+    (`check_fit`)."""
 
     props: torch.Tensor       # float32 [P, K]
     plan: torch.Tensor        # int32 [E, PLAN_COLS]
@@ -129,6 +135,30 @@ class SplitTables:
     vol_slot: torch.Tensor    # int32 [P]; -1 off volumes
     n_blocks: int
     layout: list[list[int]]   # hier on the host
+    chunk_plan: Any           # the scene's plan the tables were made for
+
+    def __post_init__(self):
+        check_plan(self.chunk_plan)
+        check_tables(self)
+
+    @property
+    def device(self):
+        return self.props.device
+
+    def pointers(self) -> list[int]:
+        """The five tables' device pointers, in the kernels' order."""
+        return [t.data_ptr() for t in (self.props, self.plan, self.aabbs,
+                                       self.hier, self.vol_slot)]
+
+    def check_fit(self, who: str, scene: S.Scene, device) -> None:
+        """Raise ValueError unless the tables were made for `scene`'s plan
+        and are on `device`."""
+        if self.chunk_plan != scene.chunk_plan:
+            raise ValueError(f"{who}: the tables were made for another chunk "
+                             "plan than the scene's")
+        if self.device != device:
+            raise ValueError(f"{who}: the tables are on {self.device}, the "
+                             f"launch on {device}")
 
 
 def plan_table(scene: S.Scene):
@@ -218,11 +248,12 @@ def augment_aabbs(scene: S.Scene):
     return torch.cat(parts).contiguous(), layout
 
 
-def check_tables(scene: S.Scene, tables: SplitTables) -> None:
-    """The tables' shapes and the hier rows against the plan: what the
-    kernels index without a bounds check.  Host-side only (no device
-    read).  Raises ValueError on a table that does not fit."""
-    plan = scene.chunk_plan
+def check_tables(tables: SplitTables) -> None:
+    """The tables' dtypes, shapes and strides and the hier rows against
+    their plan: what the kernels index without a bounds check.  Host-side
+    only (no device read).  Raises ValueError on a table that does not fit
+    (TypeError on a dtype)."""
+    plan = tables.chunk_plan
     n_rows = tables.props.shape[0]
     if n_rows < max(e[0] + e[2] for e in plan):
         raise ValueError(f"props has {n_rows} rows, the plan reads "
@@ -237,14 +268,13 @@ def check_tables(scene: S.Scene, tables: SplitTables) -> None:
                          "plan's blocks out")
     n_nodes = sum(sum(_level_counts(e, r[H_LEVELS]))
                   for e, r in zip(plan, tables.layout))
-    for name, t, shape in (
-            ("plan", tables.plan, (len(plan), PLAN_COLS)),
-            ("aabbs", tables.aabbs, (n_blocks + n_nodes, 8)),
-            ("hier", tables.hier, (len(plan), HIER_COLS)),
-            ("vol_slot", tables.vol_slot, (n_rows,))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, the plan "
-                             f"needs {shape}")
+    f32, i32 = torch.float32, torch.int32
+    kernels.check("split_tables", tables.device, (
+        ("props", tables.props, f32, kernels.ANY),
+        ("plan", tables.plan, i32, (len(plan), PLAN_COLS)),
+        ("aabbs", tables.aabbs, f32, (n_blocks + n_nodes, 8)),
+        ("hier", tables.hier, i32, (len(plan), HIER_COLS)),
+        ("vol_slot", tables.vol_slot, i32, (n_rows,))))
     smem = 4 * (8 * n_nodes + len(plan) * (PLAN_COLS + HIER_COLS))
     if smem > SMEM_MAX:
         raise ValueError(f"the upper nodes and the plan take {smem} bytes "
@@ -281,18 +311,15 @@ def split_tables(scene: S.Scene) -> SplitTables:
     scene tensor that requires grad under grad mode is refused
     (`refuse_grad`)."""
     refuse_grad("split_tables", **_scene_tensors(scene))
-    check_plan(scene)
     props = build_props(scene, any(e[5] for e in scene.chunk_plan))
     aabbs, layout = augment_aabbs(scene)
-    tables = SplitTables(props=props, plan=plan_table(scene), aabbs=aabbs,
-                         hier=torch.tensor(layout, dtype=torch.int32,
-                                           device=scene.device),
-                         n_blocks=sum(r[H_BLOCKS] for r in layout),
-                         layout=layout,
-                         vol_slot=scene.prims.vol_slot.to(torch.int32)
-                         .contiguous())
-    check_tables(scene, tables)
-    return tables
+    return SplitTables(props=props, plan=plan_table(scene), aabbs=aabbs,
+                       hier=torch.tensor(layout, dtype=torch.int32,
+                                         device=scene.device),
+                       n_blocks=sum(r[H_BLOCKS] for r in layout),
+                       layout=layout,
+                       vol_slot=scene.prims.vol_slot.to(torch.int32)
+                       .contiguous(), chunk_plan=scene.chunk_plan)
 
 
 def _slab_pass(boxes, o: Vec3, d: Vec3, tmin, tmax):
@@ -352,45 +379,31 @@ def _plane(x, n: int, dev):
     return torch.full((n,), float(x), dtype=torch.float32, device=dev)
 
 
-def _launch_inputs(scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u,
-                   tables):
-    """(rays [8, N], tables, params) checked for the kernels, with the
-    volume uniforms: CUDA, float32/int32, contiguous, shapes that agree
-    with each other and with the plan (`check_tables`)."""
+def _launch(entry: str, scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u,
+            tables, *outs) -> None:
+    """Launch `entry` (rtw_trace or rtw_occluded) on the rays, the volume
+    uniforms and the tables (built here when None) into the output tensors
+    `outs`, after the launch checks: float32 rays and uniforms of agreeing
+    shapes on one device, contiguous, and tables made for the scene on
+    that device."""
     dev = o.x.device
-    if dev.type != "cuda":
-        raise ValueError(f"the split-tier kernels run on CUDA tensors, not "
-                         f"{dev}")
     n = o.x.shape[0]
     if tables is None:
         tables = split_tables(scene)
     rays = torch.stack([*(c.to(torch.float32) for c in (*o, *d)),
                         _plane(time, n, dev), _plane(tmax, n, dev)])
-    check_tables(scene, tables)
-    for name, t, dtype, shape in (
-            ("rays", rays, torch.float32, (8, n)),
-            ("props", tables.props, torch.float32, None),
-            ("plan", tables.plan, torch.int32, None),
-            ("aabbs", tables.aabbs, torch.float32, None),
-            ("hier", tables.hier, torch.int32, None),
-            ("vol_slot", tables.vol_slot, torch.int32, None),
-            ("vol_u", vol_u, torch.float32, (max(scene.n_vol, 1), n))):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, the rays on {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} has dtype {t.dtype}, needs {dtype}")
-        if shape is not None and tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, needs "
-                             f"{shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    kernels.check(entry, dev, (
+        ("rays", rays, torch.float32, (8, n)),
+        ("vol_u", vol_u, torch.float32, (max(scene.n_vol, 1), n))))
+    tables.check_fit(entry, scene, dev)
     p = _CTraceParams()
     p.tmin = float(tmin)
-    p.n_entries = len(scene.chunk_plan)
+    p.n_entries = len(tables.chunk_plan)
     p.n_blocks = tables.n_blocks
     p.n_nodes = tables.aabbs.shape[0] - tables.n_blocks
     p.kdim = tables.props.shape[1]
-    return rays, tables, p
+    LIB.launch(entry, dev, rays.data_ptr(), vol_u.data_ptr(),
+               *tables.pointers(), *(t.data_ptr() for t in outs), n, p)
 
 
 def _refuse_grad_inputs(who, scene, o, d, tmax, time, vol_u, tables):
@@ -402,39 +415,22 @@ def _refuse_grad_inputs(who, scene, o, d, tmax, time, vol_u, tables):
     refuse_grad(who, o=o, d=d, tmax=tmax, time=time, vol_u=vol_u, **tabs)
 
 
-def _call(fn, dev, *args):
-    lib = library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, fn)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn} kernel launch failed: "
-                           f"{lib.rtw_error_string(err).decode()} ({err})")
-
-
 def trace_rows(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u,
                tables: SplitTables | None = None):
     """Nearest hit and shading record as the kernel writes them: (of, oi),
     float32 [HIT_F32, N] and int32 [HIT_I32, N] rows (`_unpack_hit` reads
     them).  CPU tensors run `trace_plain` and pack its result into the same
-    rows; CUDA tensors launch the kernel or raise."""
-    global trace_launches
+    rows; other tensors launch the kernel or raise."""
     with P.span("kernel.trace"):
-        check_plan(scene)
         _refuse_grad_inputs("trace", scene, o, d, tmax, time, vol_u, tables)
-        if o.x.device.type == "cpu":
+        dev, n = o.x.device, o.x.shape[0]
+        if dev.type == "cpu":
             return _pack_hit(*trace_plain(scene, o, d, tmin, tmax, time,
                                           vol_u))
-        rays, tables, p = _launch_inputs(scene, o, d, tmin, tmax, time, vol_u,
-                                         tables)
-        n = rays.shape[1]
-        of = torch.empty((HIT_F32, n), dtype=torch.float32, device=rays.device)
-        oi = torch.empty((HIT_I32, n), dtype=torch.int32, device=rays.device)
-        _call("rtw_trace", rays.device, rays.data_ptr(), vol_u.data_ptr(),
-              tables.props.data_ptr(), tables.plan.data_ptr(),
-              tables.aabbs.data_ptr(), tables.hier.data_ptr(),
-              tables.vol_slot.data_ptr(), of.data_ptr(), oi.data_ptr(), n, p)
-        trace_launches += 1
+        of = torch.empty((HIT_F32, n), dtype=torch.float32, device=dev)
+        oi = torch.empty((HIT_I32, n), dtype=torch.int32, device=dev)
+        _launch("rtw_trace", scene, o, d, tmin, tmax, time, vol_u, tables,
+                of, oi)
         return of, oi
 
 
@@ -475,42 +471,16 @@ def occluded_kernel(scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time,
                     vol_u, tables: SplitTables | None = None):
     """Any hit in (tmin, tmax) per ray: bool [N], the contract of
     `occluded_plain`.  A lane with tmax <= tmin (a dead lane) is never
-    occluded.  CPU tensors run `occluded_plain`; CUDA tensors launch the
+    occluded.  CPU tensors run `occluded_plain`; other tensors launch the
     kernel or raise."""
-    global occluded_launches
     with P.span("kernel.occluded"):
-        check_plan(scene)
         _refuse_grad_inputs("occluded_kernel", scene, o, d, tmax, time, vol_u,
                             tables)
-        if o.x.device.type == "cpu":
+        dev = o.x.device
+        if dev.type == "cpu":
             return occluded_plain(scene, o, d, tmin, tmax, time, vol_u)
-        rays, tables, p = _launch_inputs(scene, o, d, tmin, tmax, time, vol_u,
-                                         tables)
-        n = rays.shape[1]
-        out = torch.empty(n, dtype=torch.bool, device=rays.device)
-        _call("rtw_occluded", rays.device, rays.data_ptr(), vol_u.data_ptr(),
-              tables.props.data_ptr(), tables.plan.data_ptr(),
-              tables.aabbs.data_ptr(), tables.hier.data_ptr(),
-              tables.vol_slot.data_ptr(), out.data_ptr(), n, p)
-        occluded_launches += 1
+        out = torch.empty(o.x.shape[0], dtype=torch.bool, device=dev)
+        _launch("rtw_occluded", scene, o, d, tmin, tmax, time, vol_u, tables,
+                out)
         return out
 
-
-def library() -> ctypes.CDLL:
-    """csrc/trace_kernel.cu, built at first use and bound to its C
-    interface."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = kernels.load("trace_kernel")
-    ptrs = [ctypes.c_void_p] * 9
-    lib.rtw_trace.restype = ctypes.c_int
-    lib.rtw_trace.argtypes = ptrs + [ctypes.c_int, _CTraceParams,
-                                     ctypes.c_void_p]
-    lib.rtw_occluded.restype = ctypes.c_int
-    lib.rtw_occluded.argtypes = ptrs[:8] + [ctypes.c_int, _CTraceParams,
-                                            ctypes.c_void_p]
-    lib.rtw_error_string.restype = ctypes.c_char_p
-    lib.rtw_error_string.argtypes = [ctypes.c_int]
-    _lib = lib
-    return lib

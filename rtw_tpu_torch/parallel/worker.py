@@ -122,29 +122,30 @@ def launch(steps: list, world: int, device: str = "cuda",
 # ---------------------------------------------------------------- the rank
 
 
-def _counters() -> dict:
+def launch_counts() -> dict:
+    """{kernel: launches} of every entry point of every kernel library
+    since `utils.kernels.launches` was last cleared, keyed without the
+    "rtw_" prefix: mega_step (both of its modes), mega_trace, trace,
+    occluded, shade, shade_finish, atrous."""
     from rtw_tpu_torch import denoise as DN
     from rtw_tpu_torch.ops import mega_kernel as MK
     from rtw_tpu_torch.ops import shade_kernel as SK
     from rtw_tpu_torch.ops import trace_kernel as TK
+    from rtw_tpu_torch.utils import kernels
 
-    return {"mega_trace": (MK, "trace_launches"), "mega_step":
-            (MK, "launches"), "hybrid": (MK, "hybrid_launches"),
-            "trace": (TK, "trace_launches"),
-            "occluded": (TK, "occluded_launches"),
-            "shade": (SK, "shade_launches"),
-            "shade_finish": (SK, "finish_launches"),
-            "atrous": (DN, "atrous_launches")}
+    return {e.removeprefix("rtw_"): kernels.launches[e]
+            for lib in (MK.LIB, TK.LIB, SK.LIB, DN.LIB)
+            for e in lib.entry_points}
 
 
 def counted(fn):
-    """(fn(), {kernel: launches in the call}): every launch count set to 0
+    """(fn(), `launch_counts()` of the call): every launch count cleared
     just before the call and read just after."""
-    counters = _counters()
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    from rtw_tpu_torch.utils import kernels
+
+    kernels.launches.clear()
     out = fn()
-    return out, {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    return out, launch_counts()
 
 
 def _scene(spec, cfg, device):

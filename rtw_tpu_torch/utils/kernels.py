@@ -1,13 +1,14 @@
-"""Build the CUDA kernels of csrc/ with nvcc at first use and load them with
-ctypes.
+"""The port's one boundary between Python and its CUDA kernels: build the
+sources of csrc/ with nvcc at first use, load and launch them through
+ctypes (`Library`), and check the tensors a launch hands them (`check`).
 
 Each `csrc/<name>.cu` exposes a plain C interface (no PyTorch headers, so
 nvcc takes seconds), is compiled for `sm_90a` into
 `build/rtw_tpu_torch/<name>-<source hash>.so` at the repository root, and is
-bound by its wrapper module.  The build runs from the sources
-in the checkout only; the hash covers the source and the shared headers
-(`csrc/*.cuh`), so a change to either is rebuilt.  `build_all` starts one
-nvcc per source, all at once.
+declared by its wrapper module as one `Library`.  The build runs from the
+sources in the checkout only; the hash covers the source and the shared
+headers (`csrc/*.cuh`), so a change to either is rebuilt.  `build_all`
+starts one nvcc per source, all at once.
 `-Xptxas -v` reports registers, shared memory and spills; the report is
 kept in `build_log[name]`.  No `--use_fast_math`; `-fmad=false` keeps each
 float operation rounded on its own, as torch's separate elementwise
@@ -17,6 +18,7 @@ version.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import ctypes
 import glob
@@ -27,6 +29,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 CSRC = os.path.join(_ROOT, "rtw_tpu_torch", "csrc")
 BUILD_DIR = os.path.join(_ROOT, "build", "rtw_tpu_torch")
@@ -36,6 +40,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 build_log: dict[str, str] = {}
 build_seconds: dict[str, float] = {}
+# Launches of each entry point since import (or since a caller cleared it).
+launches: collections.Counter[str] = collections.Counter()
+# The shape that `check` takes as it comes.
+ANY = ...
 
 
 def nvcc_path() -> str:
@@ -95,8 +103,65 @@ def ptxas_summary(name: str) -> str:
     return "\n".join(keep) if keep else build_log.get(name, "")
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The library of csrc/<name>.cu, built if needed (unbound: the wrapper
-    module declares its C interface)."""
-    return ctypes.CDLL(build(name))
+class Library:
+    """The library of csrc/<name>.cu and its C interface: each entry point's
+    argument types (`entry_points`, without the stream, which every entry
+    point takes last), each returning a CUDA error code, 0 on success; every
+    library exports `rtw_error_string` to decode it.  It is built and
+    loaded at its first launch, never at import."""
 
+    def __init__(self, name: str, entry_points: dict[str, list]):
+        self.name = name
+        self.entry_points = entry_points
+        self._dll: ctypes.CDLL | None = None
+
+    def load(self) -> ctypes.CDLL:
+        """The loaded library, built if needed and bound to its interface."""
+        if self._dll is None:
+            dll = ctypes.CDLL(build(self.name))
+            for entry, argtypes in self.entry_points.items():
+                fn = getattr(dll, entry)
+                fn.restype = ctypes.c_int
+                fn.argtypes = [*argtypes, ctypes.c_void_p]
+            dll.rtw_error_string.restype = ctypes.c_char_p
+            dll.rtw_error_string.argtypes = [ctypes.c_int]
+            self._dll = dll
+        return self._dll
+
+    def launch(self, entry: str, device, *args) -> None:
+        """Call `entry` with `args` and the current stream of `device` (a
+        CUDA device); count the launch in `launches`, or raise
+        RuntimeError with the decoded error if the call returns one."""
+        if device.type != "cuda":
+            raise ValueError(f"{entry}: the kernel runs on CUDA tensors, not "
+                             f"{device}")
+        dll = self.load()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = getattr(dll, entry)(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{entry} kernel launch failed: "
+                               f"{dll.rtw_error_string(err).decode()} ({err})")
+        launches[entry] += 1
+
+
+def check(who: str, device, planes) -> None:
+    """Each (name, tensor, dtype, shape) of `planes`: a tensor on `device`
+    of `dtype` and `shape` (ANY: any shape), contiguous, as a kernel reads
+    it through a raw pointer.  Raises TypeError for a non-tensor or a wrong
+    dtype and ValueError for the device, the shape or a stride, naming the
+    plane."""
+    for name, t, dtype, shape in planes:
+        if not torch.is_tensor(t):
+            raise TypeError(f"{who}: {name} must be a tensor")
+        if t.device != device:
+            raise ValueError(f"{who}: {name} is on {t.device}, the launch on "
+                             f"{device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{who}: {name} has dtype {t.dtype}, needs "
+                            f"{dtype}")
+        if shape is not ANY and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, "
+                             f"needs {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{who}: {name} must be contiguous")

@@ -27,6 +27,7 @@ import rtw_tpu as rt
 from rtw_tpu import denoise as JD
 import rtw_tpu_torch as rtt
 from rtw_tpu_torch import denoise as DN
+from rtw_tpu_torch.utils import kernels
 from rtw_tpu_torch.denoise import (atrous, atrous_pass, denoise,
                                    primary_features)
 
@@ -65,10 +66,10 @@ def test_atrous_matches_reference(size, guided, iterations):
 
 def test_cpu_atrous_launches_no_kernel(inputs):
     img, alb, nrm = (torch.as_tensor(x) for x in inputs)
-    DN.atrous_launches = 0
+    kernels.launches.clear()
     atrous(img, albedo=alb, normal=nrm, iterations=5)
     denoise(img, mode="hdr")
-    assert DN.atrous_launches == 0
+    assert kernels.launches["rtw_atrous"] == 0
 
 
 def test_cpu_atrous_converts_its_planes(inputs):
@@ -105,11 +106,11 @@ def test_atrous_pass_refuses(inputs, fault):
         err = ValueError       # CPU planes: the kernel takes CUDA tensors
     else:
         img, err = img.reshape(-1, 3), ValueError
-    DN.atrous_launches = 0
+    kernels.launches.clear()
     with pytest.raises(err):
         atrous_pass(img, step=1, sc=0.5, sigma_albedo=0.13,
                     sigma_normal=0.25, **kw)
-    assert DN.atrous_launches == 0
+    assert kernels.launches["rtw_atrous"] == 0
 
 
 @pytest.mark.parametrize("mode", ["ldr", "hdr"])

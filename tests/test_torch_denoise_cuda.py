@@ -11,7 +11,7 @@ machine with the card:
   guided and unguided, at the Cornell 800x800 G-buffer and 1-spp frame
   and at 24x32, 7x5 and 1x1.  The two differ by the order of torch's
   channel sums and nothing else (`-fmad=false`, the same `expf`).
-- `atrous_launches` grows by `iterations` a call of `atrous`.
+- `kernels.launches["rtw_atrous"]` grows by `iterations` a call of `atrous`.
 - The wrapper `atrous_pass` refuses float64, non-contiguous and
   mismatched planes on the card, and launches nothing then; `atrous`
   converts them (float64, a strided view, guidance on the CPU) and gives
@@ -26,6 +26,7 @@ import torch
 
 import rtw_tpu_torch as rtt
 from rtw_tpu_torch import denoise as DN
+from rtw_tpu_torch.utils import kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -103,10 +104,10 @@ def test_kernel_matches_plain(card, request, size, guided, mode):
 @pytest.mark.parametrize("iterations", [1, 3, 5])
 def test_launches_count_the_passes(card, iterations):
     img, alb, nrm = _random(24, 32, "hdr", card)
-    DN.atrous_launches = 0
+    kernels.launches.clear()
     DN.atrous(img, alb, nrm, iterations=iterations)
     DN.atrous(img, iterations=iterations)
-    assert DN.atrous_launches == 2 * iterations
+    assert kernels.launches["rtw_atrous"] == 2 * iterations
 
 
 @pytest.mark.parametrize("fault", ["float64", "strided", "shape", "cpu"])
@@ -121,10 +122,10 @@ def test_wrapper_refuses(card, fault):
         alb, err = alb[:, :-1].contiguous(), ValueError
     else:
         alb, err = alb.cpu(), ValueError
-    DN.atrous_launches = 0
+    kernels.launches.clear()
     with pytest.raises(err):
         DN.atrous_pass(img, alb, nrm, 1, 0.5, **SIGMAS)
-    assert DN.atrous_launches == 0
+    assert kernels.launches["rtw_atrous"] == 0
 
 
 @pytest.mark.parametrize("form", ["float64", "strided", "cpu_guidance"])
@@ -137,9 +138,9 @@ def test_atrous_takes_what_it_can_convert(card, form):
         img = img.permute(2, 0, 1).contiguous().permute(1, 2, 0)
     else:
         alb, nrm = alb.cpu(), nrm.cpu()
-    DN.atrous_launches = 0
+    kernels.launches.clear()
     got = DN.atrous(img, alb, nrm, iterations=3)
-    assert DN.atrous_launches == 3
+    assert kernels.launches["rtw_atrous"] == 3
     assert got.dtype == torch.float32 and got.device == want.device
     _assert_close(got, want, form)
 

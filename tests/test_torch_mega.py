@@ -26,6 +26,7 @@ import rtw_tpu_torch as rtt
 from chip_smoke import furnace_cavity
 from rtw_tpu_torch import integrator as TI
 from rtw_tpu_torch.ops import mega_kernel as TMK
+from rtw_tpu_torch.utils import kernels
 
 # The suite runs in several worker processes on shared cores: one
 # intra-op thread each keeps torch's thread pools from oversubscribing them.
@@ -86,7 +87,7 @@ def _check_steps(cfg, steps):
     params = TMK.mega_params(ts, cfg.seed, cfg, s_end)
     np.testing.assert_array_equal(params.parf, np.asarray(parf)[0])
     extent = float(ts.block_aabbs[:, :6].abs().max())
-    launches = TMK.launches
+    launches = kernels.launches["rtw_mega_step"]
 
     with pltpu.force_tpu_interpret_mode():
         step = jax.jit(lambda a, b: JMK.mega_step(js, jcfg, a, b, parf,
@@ -103,7 +104,8 @@ def _check_steps(cfg, steps):
                                 f"step {it}")
             assert int(rays) == int(np.asarray(j_rays).sum())
             sf, si = j_sf, j_si
-    assert TMK.launches == launches   # CPU tensors never reach the kernel
+    # CPU tensors never reach the kernel
+    assert kernels.launches["rtw_mega_step"] == launches
 
 
 def test_mega_step_plain_hybrid_matches_pallas_kernel():
@@ -168,10 +170,11 @@ def test_trace_wavefront_qmega_matches_reference_queue(sid):
     pix = np.arange(cfg.num_pixels, dtype=np.int32)
     ref, ref_rays, _ = jax.jit(lambda: j_queue(
         js, jcfg, jnp.asarray(pix), JR.base_key(cfg.seed), 0, cfg.spp))()
-    launches = TMK.hybrid_launches
+    launches = kernels.launches["rtw_mega_step"]
     got, rays, _ = TI.trace_wavefront_qmega(ts, cfg, torch.as_tensor(pix),
                                             cfg.seed, 0, cfg.spp)
-    assert TMK.hybrid_launches == launches  # the CPU runs the plain twin
+    # the CPU runs the plain twin
+    assert kernels.launches["rtw_mega_step"] == launches
     a = np.stack([np.asarray(c) for c in ref])
     b = np.stack([c.numpy() for c in got])
     assert np.isfinite(b).all()
@@ -251,16 +254,20 @@ def test_mega_step_checks_its_inputs():
     params = TMK.mega_params(ts, 0, cfg, 1)
     assert params.c_params.kdim == 49 and params.c_params.n_props == 40
     assert params.c_params.n_entries == 5
-    sf, si = TMK.init_carry(torch.arange(64, dtype=torch.int32), 0)
-    rays = torch.zeros(1, dtype=torch.int64)
-    with pytest.raises(TypeError):
-        TMK._check_tensors(sf, si.to(torch.int64), params, rays)
-    with pytest.raises(ValueError):
-        TMK._check_tensors(sf[:, :10], si, params, rays)
-    with pytest.raises(ValueError):
-        TMK._check_tensors(sf.t().contiguous().t(), si, params, rays)
-    with pytest.raises(ValueError):
-        TMK.mega_step(ts, cfg, sf.to("meta"), si, params, rays)
+    # meta tensors take the launch path, whose checks run before the
+    # library is built
+    sf, si = (t.to("meta") for t in TMK.init_carry(
+        torch.arange(64, dtype=torch.int32), 0))
+    rays = torch.zeros(1, dtype=torch.int64, device="meta")
+    with pytest.raises(TypeError, match="si"):
+        TMK.mega_step(ts, cfg, sf, si.to(torch.int64), params, rays)
+    with pytest.raises(ValueError, match="shape"):
+        TMK.mega_step(ts, cfg, sf[:, :10].contiguous(), si, params, rays)
+    with pytest.raises(ValueError, match="contiguous"):
+        TMK.mega_step(ts, cfg, sf.t().contiguous().t(), si, params, rays)
+    with pytest.raises(ValueError, match="si"):
+        TMK.mega_step(ts, cfg, sf, torch.zeros(si.shape, dtype=torch.int32),
+                      params, rays)
 
 
 

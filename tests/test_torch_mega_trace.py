@@ -20,6 +20,7 @@ import torch
 import rtw_tpu_torch as rtt
 from rtw_tpu_torch import integrator as TI
 from rtw_tpu_torch.ops import mega_kernel as TMK
+from rtw_tpu_torch.utils import kernels
 
 # The suite runs in several worker processes on shared cores: one
 # intra-op thread each keeps torch's thread pools from oversubscribing them.
@@ -141,28 +142,27 @@ def test_pull_schedule_emulation():
 
 def test_trace_wavefront_mega_on_cpu_launches_nothing():
     cfg, scene, _ = _setup(0)
-    before = (TMK.launches, TMK.hybrid_launches, TMK.trace_launches)
+    before = dict(kernels.launches)
     acc, rays, stats = TI.trace_wavefront_mega(
         scene, cfg, torch.arange(cfg.num_pixels), cfg.seed, 0, cfg.spp)
-    assert (TMK.launches, TMK.hybrid_launches, TMK.trace_launches) == before
+    assert dict(kernels.launches) == before
     assert acc.x.shape == (cfg.num_pixels,) and stats == ()
     assert int(rays) > cfg.num_pixels * cfg.spp
 
 
 def test_mega_trace_checks_its_inputs():
     cfg, scene, params = _setup(0)
-    pix = torch.arange(64, dtype=torch.int32)
-    rays = torch.zeros(1, dtype=torch.int64)
-    named = (("rays", rays, torch.int64, (1,)),)
-    with pytest.raises(TypeError):
-        TMK._check((("pixel_idx", pix.long(), torch.int32, (64,)),
-                    *named), params, pix.device)
-    with pytest.raises(ValueError):
-        TMK._check((("pixel_idx", torch.arange(128, dtype=torch.int32)[::2],
-                     torch.int32, (64,)), *named),
-                   params, pix.device)
-    with pytest.raises(ValueError):
-        TMK._check((("pixel_idx", pix, torch.int32, (64,)), *named),
-                   params, torch.device("meta"))
-    with pytest.raises(ValueError):
-        TMK.mega_trace(scene, cfg, pix.to("meta"), params, rays)
+    """A non-CPU tensor goes to the launch path, whose checks run before
+    the library is built: the meta device stands in for the card."""
+    pix = torch.arange(64, dtype=torch.int32, device="meta")
+    rays = torch.zeros(1, dtype=torch.int64, device="meta")
+    with pytest.raises(TypeError, match="pixel_idx"):
+        TMK.mega_trace(scene, cfg, pix.long(), params, rays)
+    with pytest.raises(ValueError, match="pixel_idx"):
+        TMK.mega_trace(scene, cfg, torch.arange(
+            128, dtype=torch.int32, device="meta")[::2], params, rays)
+    with pytest.raises(ValueError, match="rays"):
+        TMK.mega_trace(scene, cfg, pix, params,
+                       torch.zeros(1, dtype=torch.int64))
+    with pytest.raises(ValueError, match="tables are on cpu"):
+        TMK.mega_trace(scene, cfg, pix, params, rays)

@@ -320,29 +320,28 @@ def test_render_of_the_field_matches_reference(scheduler):
 
 
 def test_launch_checks_refuse_tables_that_do_not_fit_the_plan(monkeypatch):
-    """(g) `check_tables`, which every launch runs on its inputs, raises on
-    a table whose shape does not fit the plan; a plan that needs more
-    levels than the kernel walks raises when the table is built."""
+    """(g) `check_tables`, which runs whenever split tables are made
+    (`dataclasses.replace` included), raises on a table whose shape does
+    not fit the plan; a plan that needs more levels than the kernel walks
+    raises when the table is built; a launch refuses tables made for
+    another plan."""
     monkeypatch.setattr(TK, "TWO_LEVEL_MIN", 32)
     ts = build_stress_scene(FIELD, device="cpu")
     tables = TK.split_tables(ts)
-    TK.check_tables(ts, tables)
-    for bad in (dataclasses.replace(tables, aabbs=tables.aabbs[:-1]),
-                dataclasses.replace(tables, aabbs=tables.aabbs[:40]),
-                dataclasses.replace(tables, hier=tables.hier[:, :-1]),
-                dataclasses.replace(tables, props=tables.props[:-1]),
-                dataclasses.replace(tables, vol_slot=tables.vol_slot[1:]),
-                dataclasses.replace(tables, n_blocks=43)):
+    TK.check_tables(tables)
+    for bad in (dict(aabbs=tables.aabbs[:-1]), dict(aabbs=tables.aabbs[:40]),
+                dict(hier=tables.hier[:, :-1]),
+                dict(props=tables.props[:-1]),
+                dict(vol_slot=tables.vol_slot[1:]), dict(n_blocks=43)):
         with pytest.raises(ValueError):
-            TK.check_tables(ts, bad)
+            dataclasses.replace(tables, **bad)
     monkeypatch.setattr(TK, "TWO_LEVEL_MIN", 10 ** 9)
-    TK.check_tables(ts, tables)      # a table carries its own level counts
+    TK.check_tables(tables)          # a table carries its own level counts
     flat = [[0, 0, 40, 0, 0, 0, 0]]
     with pytest.raises(ValueError, match="aabbs"):
-        TK.check_tables(ts, dataclasses.replace(tables, layout=flat))
+        dataclasses.replace(tables, layout=flat)
     with pytest.raises(ValueError, match="hier rows"):
-        TK.check_tables(ts, dataclasses.replace(
-            tables, layout=[[1, 0, 40, 41, 0, 0, 0]]))
+        dataclasses.replace(tables, layout=[[1, 0, 40, 41, 0, 0, 0]])
     big = dataclasses.replace(ts, chunk_plan=(
         (0, 2 ** 27, 2 ** 27, TS.PRIM_SPHERE, 0, False, 64),))
     monkeypatch.setattr(TK, "TWO_LEVEL_MIN", 128)
@@ -350,5 +349,8 @@ def test_launch_checks_refuse_tables_that_do_not_fit_the_plan(monkeypatch):
         TK.hier_layout(big.chunk_plan)   # 2M blocks: five levels of 16
     o = TV(*torch.zeros(3, 8))
     with pytest.raises(ValueError, match="CUDA"):
-        TK._launch_inputs(ts, o, o, 1e-6, 1e27, 0.0, torch.zeros(1, 8),
-                          tables)
+        TK._launch("rtw_trace", ts, o, o, 1e-6, 1e27, 0.0,
+                   torch.zeros(1, 8), tables)
+    with pytest.raises(ValueError, match="another chunk plan"):
+        TK._launch("rtw_trace", big, o, o, 1e-6, 1e27, 0.0,
+                   torch.zeros(1, 8), tables)

@@ -6,8 +6,8 @@ their plain versions there); here the wrappers run the plain versions,
 so these tests hold:
 
 - (a) `bounce_step` in the split modes "kernels" (B, E, C, F through
-  their wrappers), "glue" (B and C with the torch glue) and "plain" equal
-  bit for bit on every output plane, on scenes 0-5 under both estimators,
+  their wrappers) and "plain" (the plain B and C with the torch glue)
+  equal bit for bit on every output plane, on scenes 0-5 under both estimators,
   the three streams, the four texture filters and the MIS weight off;
 - (b) the "kernels" mode against the reference's `bounce_step` on CPU
   JAX (its jnp sweep) from bit-equal camera rays, three bounces: equal
@@ -84,17 +84,16 @@ def _planes(state, rays):
 
 @pytest.mark.parametrize("sid,case,opts", MODE_CASES,
                          ids=[f"{s}-{c}" for s, c, _ in MODE_CASES])
-def test_kernel_mode_equals_glue_and_plain(sid, case, opts):
+def test_kernel_mode_equals_plain(sid, case, opts):
     scene, cfg, keys, state, depth = _start(sid, **opts)
     for _ in range(BOUNCES):
         outs = {m: TI.bounce_step(scene, cfg, keys, state, depth, split=m)
                 for m in TI.SPLIT_MODES}
         want = _planes(*outs["plain"])
-        for mode in ("kernels", "glue"):
-            for i, (a, b) in enumerate(zip(_planes(*outs[mode]), want)):
-                torch.testing.assert_close(
-                    a, b, rtol=0, atol=0, equal_nan=True,
-                    msg=lambda m, i=i, mode=mode: f"{mode} plane {i}: {m}")
+        for i, (a, b) in enumerate(zip(_planes(*outs["kernels"]), want)):
+            torch.testing.assert_close(
+                a, b, rtol=0, atol=0, equal_nan=True,
+                msg=lambda m, i=i: f"kernels plane {i}: {m}")
         state, depth = outs["kernels"][0], depth + 1
     assert bool(state.alive.any())
 
@@ -155,7 +154,8 @@ def test_kernel_mode_steps_like_the_reference(sid, opts):
 @pytest.mark.parametrize("sid", [1, 2, 4])
 def test_shade_tables_read_back(sid):
     scene = rtt.build_scene(sid, 8, 8, device="cpu")
-    tb = SK.shade_tables(scene)
+    cfg = rtt.RenderConfig(nx=8, ny=8, spp=1, scene_id=sid)
+    tb = SK.shade_tables(scene, cfg)
     lt = scene.lights
     want = [(SK.L_POS, lt.position), (SK.L_U, lt.vec_u), (SK.L_V, lt.vec_v),
             (SK.L_EMIT, lt.emission), (SK.L_NRM, lt.normal)]
@@ -171,7 +171,8 @@ def test_shade_tables_read_back(sid):
                           (tb.atlas565, tex.images_packed565)):
         assert words.dtype == torch.int32
         assert torch.equal(words, packed.view(torch.int32))
-    assert tb.sky == float(scene.sky_light)
+    assert tb.sky == float(scene.sky_light) == tb.params.sky
+    assert tb.nee == SK.has_nee(scene, cfg) == bool(tb.params.nee)
     assert all(t.is_contiguous() for t in (tb.lights, tb.light_row,
                                            tb.images, tb.atlas8,
                                            tb.atlas565))
@@ -181,7 +182,7 @@ def test_shade_tables_of_many_lights():
     import chip_smoke
 
     scene = chip_smoke.furnace_cavity()
-    tb = SK.shade_tables(scene)
+    tb = SK.shade_tables(scene, rtt.RenderConfig(nx=8, ny=8, spp=1))
     assert tb.lights.shape == (6, SK.LIGHT_COLS)
     assert torch.equal(tb.lights[:, SK.L_EMIT:SK.L_EMIT + 3],
                        scene.lights.emission)
@@ -266,14 +267,25 @@ def test_wrappers_refuse_bad_planes(fault):
         err = ValueError
     with pytest.raises(err, match={"device": "is on", "dtype": "dtype",
                                    "contiguous": "contiguous"}[fault]):
-        SK.shade(scene, cfg, SK.shade_tables(scene), of, oi, state, depth, U)
+        SK.shade(scene, cfg, SK.shade_tables(scene, cfg), of, oi, state,
+                 depth, U)
     with pytest.raises(err):
         SK.finish(rad, nee, tmax, occ)
 
 
+def test_shade_refuses_tables_of_another_config():
+    """E's parameters are built with its tables, under one config: a launch
+    under another is refused (the meta device stands in for the card)."""
+    scene, cfg, e, _ = _inputs()
+    book = dataclasses.replace(cfg, estimator="book")
+    with pytest.raises(ValueError, match="another config"):
+        SK.shade(scene, book, SK.shade_tables(scene, cfg),
+                 *(_meta(x) for x in e))
+
+
 def test_gradient_path_never_reaches_e(monkeypatch):
     """A differentiable bounce in the "kernels" mode keeps B and C with the
-    torch glue (E has no backward), and equals the "glue" mode."""
+    torch glue (E has no backward), and equals the "plain" mode."""
     def refuse(*a, **k):
         raise AssertionError("E launched on the gradient path")
     monkeypatch.setattr(SK, "shade", refuse)
@@ -281,7 +293,7 @@ def test_gradient_path_never_reaches_e(monkeypatch):
     scene, cfg, keys, state, depth = _start(2)
     cfg = dataclasses.replace(cfg, differentiable=True)
     k = TI.bounce_step(scene, cfg, keys, state, depth, split="kernels")
-    g = TI.bounce_step(scene, cfg, keys, state, depth, split="glue")
+    g = TI.bounce_step(scene, cfg, keys, state, depth, split="plain")
     for a, b in zip(_planes(*k), _planes(*g)):
         assert torch.equal(a, b)
 

@@ -37,6 +37,7 @@ from rtw_tpu_torch.models.builder import SceneBuilder as TSceneBuilder
 from rtw_tpu_torch.ops import intersect as TI
 from rtw_tpu_torch.ops import trace_kernel as TK
 from rtw_tpu_torch.ops.vec import Vec3 as TV
+from rtw_tpu_torch.utils import kernels
 
 # The suite runs in several worker processes on shared cores: one
 # intra-op thread each keeps torch's thread pools from oversubscribing them.
@@ -145,13 +146,14 @@ def test_wrappers_run_the_plain_version_on_cpu(query):
     ts = rtt.build_scene(sid, 64, 48, device="cpu")
     args = (ts, _tv(o), _tv(d), 1e-4, 1e4, torch.as_tensor(time),
             torch.as_tensor(vol_u))
-    before = (TK.trace_launches, TK.occluded_launches)
+    counts = kernels.launches
+    before = (counts["rtw_trace"], counts["rtw_occluded"])
     got = getattr(TK, query)(*args)
     plain = (TK.trace_plain if query == "trace" else TK.occluded_plain)(*args)
     for a, b in zip(jax.tree_util.tree_leaves(got),
                     jax.tree_util.tree_leaves(plain)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert (TK.trace_launches, TK.occluded_launches) == before
+    assert (counts["rtw_trace"], counts["rtw_occluded"]) == before
 
 
 def test_kernel_launch_refuses_cpu_tensors_and_volumes():
@@ -161,7 +163,7 @@ def test_kernel_launch_refuses_cpu_tensors_and_volumes():
     o = TV(*torch.zeros(3, 8))
     vol_u = torch.zeros(1, 8)
     with pytest.raises(ValueError, match="CUDA"):
-        TK._launch_inputs(ts, o, o, 1e-6, 1e27, 0.0, vol_u, None)
+        TK._launch("rtw_trace", ts, o, o, 1e-6, 1e27, 0.0, vol_u, None)
     tables = TK.split_tables(ts)
     assert tuple(tables.props.shape) == (640, 25)
     assert tuple(tables.plan.shape) == (2, TK.PLAN_COLS)
