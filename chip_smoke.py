@@ -25,7 +25,10 @@ the port's paths through `render`:
   E and F against their plain versions at the 10th launch's inputs of
   scenes 1, 2 and 4, also under "book", the MIS weight off and the other
   texture filters, and on the furnace cavity (6 lights); the three
-  scenes rendered with E and F, with their Mrays/s;
+  scenes rendered with E and F, with their Mrays/s; the regeneration
+  kernel R against the queue's torch merge at scene 4's 1200x600 lanes,
+  bit-equal on every plane, timed with no lane and every lane claimed,
+  and one R launch per iteration and per queue call on every split path;
 - scheduler="qmega": scene 1 at 800x400, 16 spp, depth 20 on the work
   queue with the megakernel's hybrid mode;
 - the scale tier: the stress fields of tools/stress_scale_torch.py (16384,
@@ -65,7 +68,7 @@ the port's paths through `render`:
   `trace_plain`, `denoise` in ldr and hdr, and `cli.main` on scene 0 at
   800x800, 16 spp: with its defaults (one `mega_trace` launch, the PNG
   equal to `render`'s) and with --denoise, --metrics-json and
-  --profile-dir (the regen sweep and one launch of B);
+  --profile-dir (the regen sweep through R, and one launch of B);
   `entry()` and `dryrun_multichip(2)`;
 - the tools (tools/*_torch.py) through their functions at reduced sizes:
   kernel_check's cases (but the 131072 field), bench_scenes on scene 5,
@@ -78,10 +81,10 @@ and occlusion kernels on a scene of tied prims (equal spheres across and
 inside a block, coincident rects and boxes) against their plain versions
 on every lane; the furnace cavity (6 lights, outside the megakernel's
 envelope) through scheduler="auto", which must render on the plain regen
-sweep with no kernel launched and meet tests/test_integrator.py's furnace
-bounds; Cornell with estimator="book" and with rng="tea" through "auto",
-outside the megakernel's envelope: no kernel launched, and a forced
-megakernel refused; per launch, each kernel's time beside the one read before its warps shared
+sweep with no kernel launched but the regeneration R and meet
+tests/test_integrator.py's furnace bounds; Cornell with estimator="book"
+and with rng="tea" through "auto", outside the megakernel's envelope: no
+kernel launched but R under "book", and a forced megakernel refused; per launch, each kernel's time beside the one read before its warps shared
 their sweeps (PERF.md) and, for the split kernels and the hybrid step's
 nearest hit, the per-warp spread of the work their lanes need (the
 busiest lane's against the mean lane's, from the replay of the walk that
@@ -1111,7 +1114,8 @@ def phase_cavity():
     """The furnace cavity (7 prims, 6 lights: outside the megakernel's
     envelope) through `render` with scheduler="auto" on the card, at
     test_furnace_cavity_exact's 24x24, 256 spp, depth 24: the plain regen
-    sweep, with no megakernel, trace or occlusion launch counted, and that
+    sweep, with no megakernel, trace or occlusion launch counted (its
+    regeneration is R's: launched), and that
     test's assertions on the image: the albedo-1 sphere's mean within 2%
     of the walls' radiance L and each of its pixels within 12%, the wall
     pixels at L within 1e-5."""
@@ -1123,7 +1127,8 @@ def phase_cavity():
     m = {}
     img = rtt.render(scene, cfg, metrics=m)
     launched = _launch_counts()
-    if any(launched.values()):
+    if launched["regen"] <= 0 or any(v for k, v in launched.items()
+                                     if k != "regen"):
         raise AssertionError(f"cavity: auto launched kernels {launched}")
     img = img.cpu().numpy()
     sphere_px = img[9:15, 9:15]
@@ -1189,9 +1194,10 @@ def phase_split_main():
     """The split tier through `render` at full width: scenes 1, 2 and 4 at
     bench_scenes' workloads, each a path of its own: warm-up with the
     identical config, then the timed render with the launch counts set to
-    0 just before it and read just after: one E launch per B launch and
-    one F per C launch.  Returns {scene: (trace launches, occlusion
-    launches, metrics, {kernel: launches})}."""
+    0 just before it and read just after: one E launch per B launch, one
+    F per C launch, and one R launch per B launch and per queue call.
+    Returns {scene: (trace launches, occlusion launches, metrics, {kernel:
+    launches})}."""
     import rtw_tpu_torch as rtt
     from rtw_tpu_torch.ops import shade_kernel as SK
 
@@ -1217,6 +1223,10 @@ def phase_split_main():
             raise AssertionError(f"scene {sid}: bad image {tuple(img.shape)}")
         _check_shade_launches(f"scene {sid}", launched,
                               SK.has_nee(scene, cfg))
+        if launched["regen"] != nt + _trace_calls(cfg):
+            raise AssertionError(f"scene {sid}: {launched['regen']} R "
+                                 f"launches, not one an iteration ({nt}) "
+                                 f"and one a call ({_trace_calls(cfg)})")
         counts[sid] = (nt, no, m, launched)
         mean = img.reshape(-1, 3).mean(0).cpu().numpy()
         print(f"[8 split main path] scene {sid} {nx}x{ny} spp {spp} depth "
@@ -1812,6 +1822,190 @@ def _shade_render(tag, label, scene, cfg):
           f"({m['wall_seconds']:.3f} s), rays {m['rays']}; launches "
           f"{counts} on {card_line()}", flush=True)
     return m
+
+
+# Kernel R (`SK.regen`) at the final cell's frame: scene 4, 1200x600 lanes
+REGEN_SCENE, REGEN_NX, REGEN_NY = 4, 1200, 600
+REGEN_SEED = 2**33 + 12345
+REGEN_MASKS = ("empty", "full", "random", "disjoint")
+# bytes a lane: with no lane claimed, the two masks read; with every lane
+# claimed, flushed and pending, the masks and the claimed (sample, pixel)
+# read (18) and the 75 B of new planes written
+REGEN_BYTES_NONE = 2
+REGEN_BYTES_FULL = 18 + 75
+
+
+def regen_carry(cfg, n, masks, seed=0, device="cuda"):
+    """A queue iteration's carry at R's launch over `n` lanes, made with
+    numpy from `seed`: random planes (no pending lane alive), the claimed
+    (sample, pixel), and the flush's masks `have` and `pend` of kind
+    `masks`: "empty" (no flush), "full" (every lane flushed and claimed),
+    "random" (`have` a part of `pend`), "disjoint" (the two apart)."""
+    from rtw_tpu_torch.ops.bounce import PathState
+    from rtw_tpu_torch.ops.vec import Vec3
+
+    g = np.random.default_rng(seed)
+
+    def f():
+        return torch.as_tensor(g.standard_normal(n).astype(np.float32),
+                               device=device)
+
+    def b(p):
+        return torch.as_tensor(g.random(n) < p, device=device)
+
+    def i(lo, hi):
+        return torch.as_tensor(g.integers(lo, hi, n), dtype=torch.int64,
+                               device=device)
+    npix = cfg.nx * cfg.ny
+    if masks == "empty":
+        have = pend = torch.zeros(n, dtype=torch.bool, device=device)
+    elif masks == "full":
+        have = pend = torch.ones(n, dtype=torch.bool, device=device)
+    elif masks == "random":
+        pend = b(0.5)
+        have = pend & b(0.8)
+    elif masks == "disjoint":
+        have = b(0.3)
+        pend = ~have & b(0.5)
+    else:
+        raise ValueError(f"unknown masks {masks!r}")
+    pending = pend | b(0.2)
+    path = PathState(origin=Vec3(f(), f(), f()), direction=Vec3(f(), f(), f()),
+                     throughput=Vec3(f(), f(), f()),
+                     radiance=Vec3(f(), f(), f()), alive=b(0.7) & ~pending,
+                     time=f(), prev_pdf=f(), prev_diffuse=b(0.5))
+    return dict(path=path, keys=i(0, 1 << 32), depth=i(0, 21),
+                sample=i(0, 20), pixel=i(0, npix), q_sample=i(0, 20),
+                q_pixel=i(0, npix), have=have, pend=pend, pending=pending)
+
+
+def regen_plain(scene, cfg, seed, c, queue=True):
+    """The torch merge R stands for, on carry `c` (`regen_carry`): the work
+    queue's (`queue`: the claimed (sample, pixel) taken where `have`, the
+    alive plane `alive | have`, `pending & ~pend`) or the regen
+    scheduler's (the lane's own (sample, pixel); alive
+    `where(pend, have, alive)`).  Returns the planes as `regen_planes`."""
+    from rtw_tpu_torch import integrator as TI
+
+    have, pend, path = c["have"], c["pend"], c["path"]
+    if queue:
+        sample = torch.where(have, c["q_sample"], c["sample"])
+        pixel = torch.where(have, c["q_pixel"], c["pixel"])
+        alive, pending = path.alive | have, c["pending"] & ~pend
+    else:
+        sample, pixel = c["sample"], c["pixel"]
+        alive, pending = torch.where(pend, have, path.alive), c["pending"]
+    path, keys, depth = TI._regenerate(scene, cfg, seed, pixel, sample, path,
+                                       c["keys"], c["depth"], have, pend,
+                                       alive)
+    return regen_planes(dict(c, path=path, keys=keys, depth=depth,
+                             sample=sample, pixel=pixel, pending=pending))
+
+
+def _cloned(x):
+    """A tensor, or a (named) tuple of them, copied."""
+    if isinstance(x, tuple):
+        return type(x)(*(_cloned(y) for y in x))
+    return x.clone()
+
+
+def regen_launch(rp, c, queue=True):
+    """R once on a copy of carry `c`, as the work queue (`queue`: the
+    claimed pair, the pending plane) or the regen scheduler (the lane's
+    own pair, the alive plane `alive & ~pend`) launches it.  Returns the
+    planes as `regen_planes`."""
+    from rtw_tpu_torch.ops import shade_kernel as SK
+
+    c = {k: _cloned(v) for k, v in c.items()}
+    path = c["path"]
+    if queue:
+        SK.regen(rp, c["have"], c["pend"], path, c["keys"], c["depth"],
+                 c["q_sample"], c["q_pixel"], c["pending"])
+    else:
+        path = path._replace(alive=path.alive & ~c["pend"])
+        SK.regen(rp, c["have"], c["pend"], path, c["keys"], c["depth"],
+                 c["sample"], c["pixel"])
+    return regen_planes(dict(c, path=path))
+
+
+def regen_planes(c):
+    """{name: plane} of the planes R writes, each float plane as its bits
+    (int32)."""
+    path = c["path"]
+    out = {}
+    for name, v in path._asdict().items():
+        for tag, t in (zip("xyz", v) if isinstance(v, tuple) else [("", v)]):
+            key = f"{name}.{tag}" if tag else name
+            out[key] = t.view(torch.int32) if t.is_floating_point() else t
+    for name in ("keys", "depth", "pending"):
+        out[name] = c[name]
+    return out
+
+
+def regen_mismatch(got, want):
+    """The planes of `got` whose values or bits differ from `want`'s."""
+    return [k for k in want if not torch.equal(got[k], want[k])]
+
+
+def phase_regen():
+    """Kernel R (`SK.regen`) against the torch merge it replaces
+    (`integrator._regenerate` with the queue's selects, `regen_plain`) at
+    scene 4's 1200x600 = 720,000 lanes: the queue's launch with `have` /
+    `pend` empty, full, random and disjoint, and the regen scheduler's
+    launch, every plane bit-equal; R timed with no lane and with every
+    lane claimed, a call in turns with the torch merge (CUDA events) and
+    the kernel alone (torch.profiler), beside R's byte bound.  Returns the
+    kernels line's row, less its launches (the scene-4 render
+    of `phase_split_main` gives them)."""
+    import rtw_tpu_torch as rtt
+    from rtw_tpu_torch.ops import shade_kernel as SK
+
+    cfg = rtt.RenderConfig(nx=REGEN_NX, ny=REGEN_NY, spp=20,
+                           max_depth=BENCH_DEPTH, scene_id=REGEN_SCENE)
+    scene = rtt.build_scene(REGEN_SCENE, REGEN_NX, REGEN_NY)
+    rp = SK.regen_params(scene, cfg, REGEN_SEED)
+    n = REGEN_NX * REGEN_NY
+    parts, bad = [], []
+    for masks in REGEN_MASKS:
+        c = regen_carry(cfg, n, masks, seed=len(parts))
+        for queue in (True, False) if masks != "disjoint" else (True,):
+            off = regen_mismatch(regen_launch(rp, c, queue),
+                                 regen_plain(scene, cfg, REGEN_SEED, c,
+                                             queue))
+            kind = "queue" if queue else "regen"
+            parts.append(f"{masks} ({kind}): {int(c['have'].sum())} claimed,"
+                         f" planes off {off or 'none'}")
+            bad += off
+    torch.cuda.synchronize()
+    full, none = (regen_carry(cfg, n, m, seed=9) for m in ("full", "empty"))
+
+    def launch(c):
+        return lambda: SK.regen(rp, c["have"], c["pend"], c["path"],
+                                c["keys"], c["depth"], c["q_sample"],
+                                c["q_pixel"], c["pending"])
+    plain = regen_carry(cfg, n, "full", seed=9)
+    ms, plain_ms, turns = _turns(
+        launch(full), lambda: regen_plain(scene, cfg, REGEN_SEED, plain))
+    ms_none = _time_ms(launch(none), 50)
+    # the kernel alone: back to back, the events above also time the
+    # wrapper's host work, which is longer than the kernel
+    device_ms = _device_ms(launch(full), "regen_kernel")
+    device_ms_none = _device_ms(launch(none), "regen_kernel")
+    bound = 1e3 * n * REGEN_BYTES_FULL / HBM_BYTES_PER_S
+    bound_none = 1e3 * n * REGEN_BYTES_NONE / HBM_BYTES_PER_S
+    report = (f"R against the torch merge at scene {REGEN_SCENE}'s "
+              f"{REGEN_NX}x{REGEN_NY} = {n} lanes: {'; '.join(parts)}; every "
+              f"lane claimed {ms:.4f} ms a call, the kernel alone "
+              f"{device_ms:.4f} ms, plain {plain_ms:.3f} ms ({turns}), bound "
+              f"{bound:.4f} ms (bytes); no lane claimed {ms_none:.4f} ms a "
+              f"call, the kernel alone {device_ms_none:.4f} ms, bound "
+              f"{bound_none:.5f} ms")
+    print(f"[38 regen] {report} on {card_line()}", flush=True)
+    if bad:
+        raise AssertionError(report)
+    return dict(max_abs_err=0.0, ms=ms, ms_none=ms_none, device_ms=device_ms,
+                device_ms_none=device_ms_none, plain_ms=plain_ms,
+                bound_ms=bound, bound_by="bytes")
 
 
 def phase_shade_renders(every_path=False):
@@ -2444,8 +2638,9 @@ def phase_options():
 def phase_options_off_the_megakernel():
     """Cornell at 200x200, 4 spp, depth 20 with estimator="book" and with
     rng="tea" under "auto": outside the megakernel's envelope, so the plain
-    regen sweep renders it and no kernel launches (A, its step, D, B, C);
-    a finite image.  Forced backend="mega" with "book" raises ValueError."""
+    regen sweep renders it and no kernel launches (A, its step, D, B, C)
+    but R, which regenerates the fast stream ("book") and not "tea"; a
+    finite image.  Forced backend="mega" with "book" raises ValueError."""
     import rtw_tpu_torch as rtt
 
     scene = rtt.build_scene(0, 200, 200)
@@ -2457,13 +2652,15 @@ def phase_options_off_the_megakernel():
         m = {}
         img = rtt.render(scene, cfg, metrics=m)
         after = _launch_counts()
-        if after != before:
+        grew = {k for k in after if after[k] != before[k]}
+        if grew != ({"regen"} if cfg.rng == "fast" else set()):
             raise AssertionError(f"Cornell {opts}: kernels launched "
                                  f"{before} -> {after}")
         if not bool(torch.isfinite(img).all()):
             raise AssertionError(f"Cornell {opts}: non-finite image")
         mean = img.reshape(-1, 3).mean(0).cpu().numpy()
-        parts.append(f"{opts}: no kernel launched, {m['rays']} rays, "
+        parts.append(f"{opts}: launched {sorted(grew) or 'none'}, "
+                     f"{m['rays']} rays, "
                      f"{m['wall_seconds']:.3f} s, mean {_fmt(mean)}")
     try:
         rtt.render(scene, rtt.RenderConfig(nx=200, ny=200, spp=4,
@@ -3425,7 +3622,9 @@ def phase_denoise_cli(cornell):
     if (rc != 0 or pixels.shape != (dy, dx, 3) or "mrays_per_sec" not in doc
             or not doc.get("device_memory") or len(traces) != 1
             or cli_launches["atrous"] != ATROUS_PASSES
-            or not _launched_once(dict(cli_launches, atrous=0), "trace")):
+            or cli_launches["regen"] <= 0
+            or not _launched_once(dict(cli_launches, atrous=0, regen=0),
+                                  "trace")):
         raise AssertionError(report)
     got = _capture(cfg, {"trace": (TK, "trace")}, call=1,
                    run=lambda: DN.primary_features(scene, cfg))
@@ -3695,6 +3894,7 @@ def main(argv=None) -> int:
     steps = timed(phase_split_step_times)
     shade_steps = timed(phase_shade_steps)
     timed(phase_shade_renders)
+    regen = timed(phase_regen)
     hybrid = timed(phase_hybrid_step)
     timed(phase_qmega_small)
     hybrid["launches"], qmega = timed(phase_qmega_main,
@@ -3793,6 +3993,12 @@ def main(argv=None) -> int:
                  "rtw_tpu_torch/csrc/denoise_kernel.cu",
                  "rtw_tpu/denoise.py:atrous",
                  cli_rows["cornelldenoise"]["atrous"]))
+    # no pallas_call: R stands for the XLA fusion of the reference's
+    # regeneration inside its jitted queue loop
+    rows.append(("regen", f"scene{REGEN_SCENE}",
+                 "rtw_tpu_torch/csrc/shade_kernel.cu",
+                 "rtw_tpu/integrator.py:trace_wavefront_queue",
+                 dict(regen, launches=counts[REGEN_SCENE][3]["regen"])))
     grad_steps += [(name, path, v) for path in ("kernelcheck", "profile2",
                                                 "occupancy1", "archaeology2")
                    for name, v in tool_rows[path].items()
@@ -3816,7 +4022,8 @@ def main(argv=None) -> int:
          **{k: v[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                               "bound_ms", "bound_by", "library_ms",
                               "loop_ms", "loop_launches",
-                              "launches_by_rank", "device_ms") if k in v}}
+                              "launches_by_rank", "device_ms", "ms_none",
+                              "device_ms_none") if k in v}}
         for name, path, src, rep, v in rows]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -111,6 +111,7 @@
 #include <stdint.h>
 
 #include "geometry.cuh"
+#include "rng.cuh"
 
 using namespace rtw;
 
@@ -159,8 +160,6 @@ constexpr int U_SCATTER_0 = 0, U_SCATTER_1 = 1, U_SCATTER_2 = 2,
               NUM_FIXED_SLOTS = 8;
 
 constexpr float INV_PI_F = 0.31830987334251404f;   // float32(1/pi)
-constexpr uint32_t GOLDEN = 0x9E3779B9u;
-constexpr uint32_t CAM_OFF = 0xF53EA684u;          // 0x0CA4 * GOLDEN mod 2^32
 
 }  // namespace
 
@@ -199,15 +198,7 @@ __device__ __forceinline__ V3 offset_point(V3 point, V3 normal, V3 out_dir) {
   return point + normal * (scale * side);
 }
 
-// ---- fast RNG (rtw_tpu/utils/rng.py pcg_hash streams), native uint32 ----
-__device__ __forceinline__ uint32_t pcg(uint32_t x) {
-  uint32_t state = x * 747796405u + 2891336453u;
-  uint32_t word = ((state >> ((state >> 28u) + 4u)) ^ state) * 277803737u;
-  return (word >> 22u) ^ word;
-}
-__device__ __forceinline__ float to_unit(uint32_t bits) {
-  return (float)(bits >> 8u) * (1.0f / 16777216.0f);
-}
+// ---- fast RNG (rtw_tpu/utils/rng.py pcg_hash streams; rng.cuh) ----------
 __device__ __forceinline__ float slot_u(uint32_t h, int slot) {
   return to_unit(pcg(pcg(h + (uint32_t)(slot + 1))));
 }

@@ -41,11 +41,34 @@
 // material.
 //
 // F is a pass over 7 float and 1 bool rows in, 3 out: bound by bytes.
+//
+// R (`regen_kernel`), launched once a work-queue iteration after the flush
+// and once before the loop, is the regeneration merge of
+// rtw_tpu_torch/integrator.py::_regenerate on the fast stream, in place on
+// the carried planes.  It replaces no pallas_call: it stands for the XLA
+// fusion of the reference's regeneration inside its jitted queue loop
+// (rtw_tpu/integrator.py, `trace_wavefront_queue` / `_regen`), where the
+// port ran ~197 eager torch launches an iteration over every lane.  On a
+// claimed lane it reads the claimed (sample, pixel), computes the path key
+// pcg(pcg(h0 + sample) + pixel) and the five camera draws
+// to_unit(pcg(pcg(pcg(key + CAM_OFF) + k + 1))), and builds the thin-lens
+// ray in the order of `generate_camera_rays`: the origin summed as
+// o + u * rdx + v * rdy, the direction through `intersect.fma`'s rounding
+// (an f32 product exact in double, one double sum, then a float: not
+// fmaf), sinf and cosf the precise ones.  A's camera code
+// (mega_kernel.cu, `lane_step`) rounds differently and is not this one.
+// What bounds it: bytes.  Every lane reads its two masks; a reset lane
+// writes 13 B (radiance, pending); a claimed lane reads its sample and
+// pixel (16 B) and writes 62 B more.  At 720,000 lanes that is ~1.4 MB
+// (~0.43 us at 3.35 TB/s, so the launch itself, a few us) with no lane
+// claimed and ~67 MB (~20 us) with every lane claimed; an unclaimed lane
+// returns after its masks, so the work follows the claims.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "geometry.cuh"
+#include "rng.cuh"
 
 using namespace rtw;
 
@@ -130,6 +153,44 @@ struct FinishIO {
   float* out;
 };
 
+// R's by-value parameters; mirrors _CRegenParams (all members 4 bytes, no
+// padding): the camera's rows, `hor` and `vert` already scaled by the f32
+// reciprocals of nx and ny, the shutter's start and length, h0 =
+// utils/rng.path_hash_base(seed).
+struct RegenParams {
+  float org[3];
+  float cam_u[3];
+  float cam_v[3];
+  float ll[3];
+  float hor[3];
+  float vert[3];
+  float lens;
+  float t0;
+  float dt;
+  uint32_t h0;
+  int nx;
+};
+
+// R's planes; mirrors _CRegenIO.  `sample` and `pixel`: each claimed
+// lane's (sample, pixel); null pending: no pending plane.
+struct RegenIO {
+  const bool* claim;
+  const bool* reset;
+  const long long* sample;
+  const long long* pixel;
+  float* org[3];
+  float* dir[3];
+  float* thr[3];
+  float* rad[3];
+  float* time;
+  float* prev_pdf;
+  bool* alive;
+  bool* prevd;
+  long long* keys;
+  long long* depth;
+  bool* pending;
+};
+
 namespace {
 
 __device__ __forceinline__ V3 load_plane3(const float* const* p, int i) {
@@ -171,15 +232,7 @@ __device__ __forceinline__ V3 sphere_surface(float u1, float u2) {
   return {r * cosf(phi), r * sinf(phi), z};
 }
 
-// ---- the lattice hash (utils/rng.py pcg_hash, native uint32) -------------
-__device__ __forceinline__ uint32_t pcg(uint32_t x) {
-  uint32_t state = x * 747796405u + 2891336453u;
-  uint32_t word = ((state >> ((state >> 28u) + 4u)) ^ state) * 277803737u;
-  return (word >> 22u) ^ word;
-}
-__device__ __forceinline__ float to_unit(uint32_t bits) {
-  return (float)(bits >> 8u) * (1.0f / 16777216.0f);
-}
+// ---- the lattice hash: rng.cuh's pcg ------------------------------------
 // A float lattice coordinate (an integer value) as the plain code's int64,
 // wrapped to uint32 as pcg_hash wraps it: negative ids wrap mod 2^32.
 __device__ __forceinline__ uint32_t lattice_id(float f) {
@@ -597,6 +650,52 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
+// R: `_regenerate`'s merge in place.  Radiance cleared and pending dropped
+// on `reset` lanes; on `claim` lanes the fresh camera ray, throughput 1,
+// prev_pdf 1, prev_diffuse false, depth 0, the key, and alive set.
+__global__ void __launch_bounds__(kBlock)
+    regen_kernel(RegenIO io, int n, RegenParams p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  if (io.reset[i]) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) io.rad[c][i] = 0.0f;
+    if (io.pending) io.pending[i] = false;
+  }
+  if (!io.claim[i]) return;
+  const long long sample = io.sample[i], pixel = io.pixel[i];
+  const uint32_t key = pcg(pcg(p.h0 + (uint32_t)sample) + (uint32_t)pixel);
+  const uint32_t hc = pcg(key + CAM_OFF);
+  float u[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    u[k] = to_unit(pcg(pcg(hc + (uint32_t)(k + 1))));
+  }
+  const float sx = (float)(pixel % p.nx) + u[0];
+  const float sy = (float)(pixel / p.nx) + u[1];
+  // sampling.unit_disk, then the lens radius
+  const float a = u[2] * 2.0f * PI_F;
+  const float r = safe_sqrt(u[3]);
+  const float rdx = p.lens * (sinf(a) * r);
+  const float rdy = p.lens * (cosf(a) * r);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float o = p.org[c] + p.cam_u[c] * rdx + p.cam_v[c] * rdy;
+    const float s = (float)((double)sx * (double)p.hor[c] + (double)p.ll[c]);
+    const float d =
+        (float)((double)sy * (double)p.vert[c] + (double)s) - o;
+    io.org[c][i] = o;
+    io.dir[c][i] = d;
+    io.thr[c][i] = 1.0f;
+  }
+  io.time[i] = p.t0 + u[4] * p.dt;
+  io.prev_pdf[i] = 1.0f;
+  io.alive[i] = true;
+  io.prevd[i] = false;
+  io.keys[i] = (long long)key;
+  io.depth[i] = 0;
+}
+
 }  // namespace
 
 // One launch of each kernel on `stream`; each returns cudaGetLastError()
@@ -613,6 +712,13 @@ extern "C" int rtw_shade_finish(FinishIO io, int n, void* stream) {
   if (n <= 0) return 0;
   shade_finish_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
                         (cudaStream_t)stream>>>(io, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rtw_regen(RegenIO io, int n, RegenParams p, void* stream) {
+  if (n <= 0) return 0;
+  regen_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
+                 (cudaStream_t)stream>>>(io, n, p);
   return (int)cudaGetLastError();
 }
 

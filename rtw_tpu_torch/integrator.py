@@ -12,7 +12,10 @@ draw the fast chain and run NEE + MIS:
   runs the bounce as the split tier's kernels when `_split_backend` holds
   (a CUDA scene of 128 or more prims): the trace kernel B, the shading
   kernel E, the occlusion kernel C and the finishing kernel F
-  (ops/trace_kernel, ops/shade_kernel).
+  (ops/trace_kernel, ops/shade_kernel).  On CUDA tensors, the fast stream
+  and off the gradient path (`_regen_kernel`) both this scheduler and
+  regen merge fresh camera rays into their lanes with kernel R
+  (`SK.regen`), `_regenerate`'s twin.
 - `trace_wavefront_mega`: `mega_kernel.mega_trace`, the whole pixel batch
   and spp chunk in one launch of the hand-written persistent CUDA
   megakernel on a CUDA scene (its plain twin on a CPU scene).
@@ -537,11 +540,13 @@ def trace_wavefront_regen(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
     tables, stables = _render_tables(cfg, scene, split)
     n = pixel_idx.shape[0]
     dev = pixel_idx.device
+    rp = _regen_setup(scene, cfg, seed, dev)
+    if rp is not None:
+        pixel_idx = pixel_idx.to(torch.int64)
     sample = torch.full((n,), s0, dtype=torch.int64, device=dev)
-    path_keys = R.make_path_keys(seed, pixel_idx, sample, cfg.rng)
-    path = generate_camera_rays(scene, cfg, pixel_idx, path_keys)
+    path, path_keys, depth = _first_paths(scene, cfg, seed, pixel_idx,
+                                          sample, rp)
     s_end = s0 + n_samples
-    depth = torch.zeros(n, dtype=torch.int64, device=dev)
     accum = V.zeros(n, dev)
     rays = torch.zeros(1, dtype=torch.int64, device=dev)
     stats = (stats_zero(cfg.max_depth, cfg.occupancy_trace, dev)
@@ -561,9 +566,14 @@ def trace_wavefront_regen(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
         accum = V.where(finished, accum + rad, accum)
         sample = torch.where(finished, sample + 1, sample)
         regen = finished & (sample < s_end)
-        path, path_keys, depth = _regenerate(
-            scene, cfg, seed, pixel_idx, sample, st, path_keys, depth, regen,
-            finished, torch.where(finished, regen, st.alive))
+        if rp is None:
+            path, path_keys, depth = _regenerate(
+                scene, cfg, seed, pixel_idx, sample, st, path_keys, depth,
+                regen, finished, torch.where(finished, regen, st.alive))
+        else:
+            path = st._replace(alive=st.alive & ~finished)
+            SK.regen(rp, regen, finished, path, path_keys, depth, sample,
+                     pixel_idx)
     return accum, rays, stats
 
 
@@ -589,6 +599,47 @@ def _regenerate(scene: S.Scene, cfg, seed: int, pixel, sample,
     )
     return (path, torch.where(claim, new_keys, path_keys),
             torch.where(claim, 0, depth))
+
+
+def _regen_kernel(cfg, device) -> bool:
+    """Whether a render's regeneration runs as kernel R (`SK.regen`): on
+    CUDA tensors, on the fast stream and off the gradient path.  Otherwise
+    `_regenerate` runs it in torch."""
+    return (device.type == "cuda" and cfg.rng == "fast"
+            and not cfg.differentiable)
+
+
+def _regen_setup(scene: S.Scene, cfg, seed: int, device):
+    """R's parameters for a render (`SK.regen_params`), or None where the
+    render regenerates in torch (`_regen_kernel`)."""
+    if not _regen_kernel(cfg, device):
+        return None
+    with P.span("tables"):
+        return SK.regen_params(scene, cfg, seed)
+
+
+def _first_paths(scene: S.Scene, cfg, seed: int, pixel, sample, rp):
+    """(path, path keys, depth): every lane at depth 0 on the camera ray of
+    its (pixel, sample), alive.  With R's parameters `rp` one launch of R
+    fills fresh planes with every lane claimed; without, torch computes
+    them (`make_path_keys`, `generate_camera_rays`)."""
+    n = pixel.shape[0]
+    dev = pixel.device
+    if rp is None:
+        path_keys = R.make_path_keys(seed, pixel, sample, cfg.rng)
+        return (generate_camera_rays(scene, cfg, pixel, path_keys), path_keys,
+                torch.zeros(n, dtype=torch.int64, device=dev))
+    f = torch.empty((14, n), dtype=torch.float32, device=dev).unbind(0)
+    b = torch.zeros((2, n), dtype=torch.bool, device=dev).unbind(0)
+    path = PathState(origin=Vec3(*f[0:3]), direction=Vec3(*f[3:6]),
+                     throughput=Vec3(*f[6:9]), radiance=Vec3(*f[9:12]),
+                     alive=b[0], time=f[12], prev_pdf=f[13],
+                     prev_diffuse=b[1])
+    path_keys = torch.empty(n, dtype=torch.int64, device=dev)
+    depth = torch.empty(n, dtype=torch.int64, device=dev)
+    every = torch.ones(n, dtype=torch.bool, device=dev)
+    SK.regen(rp, every, every, path, path_keys, depth, sample, pixel)
+    return path, path_keys, depth
 
 
 def decode_tile_pixel(pos, nx: int, ny: int, tile: int = 32):
@@ -652,13 +703,13 @@ def trace_wavefront_queue(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
     tables, stables = _render_tables(cfg, scene, split)
     n = pixel_idx.shape[0]
     dev = pixel_idx.device
+    rp = _regen_setup(scene, cfg, seed, dev)
     i64 = torch.int64
     pixel_idx = pixel_idx.to(i64)
     n_items = n * n_samples
     sample = torch.full((n,), s0, dtype=i64, device=dev)
-    path_keys = R.make_path_keys(seed, pixel_idx, sample, cfg.rng)
-    path = generate_camera_rays(scene, cfg, pixel_idx, path_keys)
-    depth = torch.zeros(n, dtype=i64, device=dev)
+    path, path_keys, depth = _first_paths(scene, cfg, seed, pixel_idx,
+                                          sample, rp)
     item_pos = torch.arange(n, dtype=i64, device=dev)
     pixel = pixel_idx
     pending = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -697,12 +748,16 @@ def trace_wavefront_queue(scene: S.Scene, cfg, pixel_idx, seed: int, s0: int,
                     # a flushed lane's depth froze at its path's length
                     _stats_record_lengths(stats, pend, depth, cfg.max_depth)
                 with P.span("queue.regen"):
-                    sample = torch.where(have, q_sample, sample)
-                    pixel = torch.where(have, q_pixel, pixel)
-                    path, path_keys, depth = _regenerate(
-                        scene, cfg, seed, pixel, sample, path, path_keys,
-                        depth, have, pend, path.alive | have)
-                    pending = pending & ~pend
+                    if rp is None:
+                        sample = torch.where(have, q_sample, sample)
+                        pixel = torch.where(have, q_pixel, pixel)
+                        path, path_keys, depth = _regenerate(
+                            scene, cfg, seed, pixel, sample, path,
+                            path_keys, depth, have, pend, path.alive | have)
+                        pending = pending & ~pend
+                    else:        # the same merge, in place, one launch
+                        SK.regen(rp, have, pend, path, path_keys, depth,
+                                 q_sample, q_pixel, pending)
         with P.span("queue.wait"):
             more = bool((path.alive.any() | pending.any()))
         if not more:
@@ -732,7 +787,10 @@ def _queue_flush(pending, running, radiance: Vec3, accum: Vec3, item_pos,
                     | ((n_run == 0) & (n_pend > 0)))
         pend = pending & do_flush
     for a, r in zip(accum, radiance):
-        a.index_add_(0, item_pos, torch.where(pend, _nan_to_zero(r), 0.0))
+        # `_nan_to_zero`'s values in one kernel (its isfinite is four on the
+        # card); the flush runs every iteration
+        a.index_add_(0, item_pos, torch.where(
+            pend, torch.nan_to_num(r, nan=0.0, posinf=0.0, neginf=0.0), 0.0))
     fin = pend.to(i64)
     new_item = cursor + torch.cumsum(fin, 0) - 1
     have = pend & (new_item < n_items)

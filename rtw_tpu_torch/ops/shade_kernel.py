@@ -24,6 +24,12 @@ same code the torch glue runs.  On CPU tensors the wrappers run them; on
 CUDA tensors they launch the kernel (`LIB`, a utils/kernels.Library) or
 raise.  The gradient path never reaches them (integrator.bounce_step): E
 has no backward.
+
+The same library holds R (`regen`), the work queue's regeneration merge on
+the fast stream in one launch, in place on the carried planes: the
+integrator's schedulers call it where `integrator._regen_kernel` holds, and
+`integrator._regenerate` (the CPU's path) is its plain twin.  Its wrapper
+only launches: it refuses CPU tensors.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import ctypes
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
 from rtw_tpu_torch.models import scene as S
@@ -98,10 +105,33 @@ class _CFinishIO(ctypes.Structure):
                 ("occluded", _P), ("out", _P)]
 
 
-# csrc/shade_kernel.cu's C interface: E and F, each on its planes and n
+class _CRegenParams(ctypes.Structure):
+    """R's by-value parameters (RegenParams in csrc/shade_kernel.cu; every
+    member is 4 bytes, so no padding)."""
+
+    _fields_ = [("org", ctypes.c_float * 3), ("cam_u", ctypes.c_float * 3),
+                ("cam_v", ctypes.c_float * 3), ("ll", ctypes.c_float * 3),
+                ("hor", ctypes.c_float * 3), ("vert", ctypes.c_float * 3),
+                ("lens", ctypes.c_float), ("t0", ctypes.c_float),
+                ("dt", ctypes.c_float), ("h0", ctypes.c_uint32),
+                ("nx", ctypes.c_int32)]
+
+
+class _CRegenIO(ctypes.Structure):
+    """R's planes (RegenIO in csrc/shade_kernel.cu): one pointer each."""
+
+    _fields_ = [("claim", _P), ("reset", _P), ("sample", _P),
+                ("pixel", _P), ("org", _P * 3), ("dir", _P * 3),
+                ("thr", _P * 3), ("rad", _P * 3), ("time", _P),
+                ("prev_pdf", _P), ("alive", _P), ("prevd", _P),
+                ("keys", _P), ("depth", _P), ("pending", _P)]
+
+
+# csrc/shade_kernel.cu's C interface: E, F and R, each on its planes and n
 LIB = kernels.Library("shade_kernel", {
     "rtw_shade": [_CShadeIO, ctypes.c_int, _CShadeParams],
-    "rtw_shade_finish": [_CFinishIO, ctypes.c_int]})
+    "rtw_shade_finish": [_CFinishIO, ctypes.c_int],
+    "rtw_regen": [_CRegenIO, ctypes.c_int, _CRegenParams]})
 
 
 @dataclasses.dataclass
@@ -317,3 +347,65 @@ def finish(radiance: Vec3, nee: Vec3, shadow_tmax, occluded) -> Vec3:
         LIB.launch("rtw_shade_finish", dev, io, n)
         return Vec3(out[0], out[1], out[2])
 
+
+def regen_params(scene: S.Scene, cfg, seed: int) -> _CRegenParams:
+    """R's parameters for a render of `scene` under `cfg` with `seed` (one
+    host read: the camera).  The camera's horizontal and vertical rows are
+    scaled by the f32 reciprocals of nx and ny in f32, and the shutter's
+    length is t1 - t0 in f32, as `generate_camera_rays` computes them."""
+    cam = scene.camera
+    with torch.no_grad():
+        rows = torch.cat([torch.as_tensor(t, dtype=torch.float32).reshape(-1)
+                          for t in (cam.origin, cam.u, cam.v, cam.lower_left,
+                                    cam.horizontal, cam.vertical,
+                                    cam.lens_radius, cam.time0, cam.time1)])
+    f = rows.cpu().numpy()
+    p = _CRegenParams()
+    p.org[:], p.cam_u[:], p.cam_v[:], p.ll[:] = (f[0:3], f[3:6], f[6:9],
+                                                 f[9:12])
+    p.hor[:] = f[12:15] * np.float32(1.0 / cfg.nx)
+    p.vert[:] = f[15:18] * np.float32(1.0 / cfg.ny)
+    p.lens, p.t0, p.dt = f[18], f[19], f[20] - f[19]
+    p.h0 = R.path_hash_base(seed)
+    p.nx = cfg.nx
+    return p
+
+
+def regen(params: _CRegenParams, claim, reset, state: PathState, keys,
+          depth, sample, pixel, pending=None) -> None:
+    """R: `integrator._regenerate`'s merge on the fast stream, in place, in
+    one launch.  On the lanes of `claim`: the path key and the camera ray
+    of the lane's (`sample`, `pixel`) (`params`: `regen_params`), the
+    throughput 1, prev_pdf 1, prev_diffuse false, depth 0, alive set; on
+    the lanes of `reset`: the radiance cleared and `pending` (if given)
+    dropped.  The alive plane becomes `state.alive | claim`.  CUDA tensors
+    only: the CPU runs `_regenerate`."""
+    dev = claim.device
+    n = claim.shape[0]
+    f32, b8, i64 = torch.float32, torch.bool, torch.int64
+    planes = [("claim", claim, b8, (n,)), ("reset", reset, b8, (n,)),
+              ("sample", sample, i64, (n,)), ("pixel", pixel, i64, (n,)),
+              ("time", state.time, f32, (n,)),
+              ("prev_pdf", state.prev_pdf, f32, (n,)),
+              ("alive", state.alive, b8, (n,)),
+              ("prev_diffuse", state.prev_diffuse, b8, (n,)),
+              ("keys", keys, i64, (n,)), ("depth", depth, i64, (n,))]
+    for name in ("origin", "direction", "throughput", "radiance"):
+        planes += [(f"{name}.{c}", t, f32, (n,))
+                   for c, t in zip("xyz", getattr(state, name))]
+    if pending is not None:
+        planes.append(("pending", pending, b8, (n,)))
+    kernels.check("regen", dev, planes)
+    io = _CRegenIO()
+    io.claim, io.reset = claim.data_ptr(), reset.data_ptr()
+    io.sample, io.pixel = sample.data_ptr(), pixel.data_ptr()
+    for field, v in (("org", state.origin), ("dir", state.direction),
+                     ("thr", state.throughput), ("rad", state.radiance)):
+        getattr(io, field)[:] = [c.data_ptr() for c in v]
+    io.time, io.prev_pdf = state.time.data_ptr(), state.prev_pdf.data_ptr()
+    io.alive = state.alive.data_ptr()
+    io.prevd = state.prev_diffuse.data_ptr()
+    io.keys, io.depth = keys.data_ptr(), depth.data_ptr()
+    if pending is not None:
+        io.pending = pending.data_ptr()
+    LIB.launch("rtw_regen", dev, io, n, params)

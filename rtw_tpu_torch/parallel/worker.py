@@ -126,7 +126,7 @@ def launch_counts() -> dict:
     """{kernel: launches} of every entry point of every kernel library
     since `utils.kernels.launches` was last cleared, keyed without the
     "rtw_" prefix: mega_step (both of its modes), mega_trace, trace,
-    occluded, shade, shade_finish, atrous."""
+    occluded, shade, shade_finish, regen, atrous."""
     from rtw_tpu_torch import denoise as DN
     from rtw_tpu_torch.ops import mega_kernel as MK
     from rtw_tpu_torch.ops import shade_kernel as SK
